@@ -1,0 +1,49 @@
+"""Batch loading: a torch DataLoader with the JAX loader's batch semantics.
+
+Port of face_mask_inpaint_tpu/data/loader.py. Items (dicts of numpy arrays)
+stack into dicts of tensors. With ``pad_last`` a short final batch is padded
+to ``batch_size`` by repeating its last item, and ``_valid`` (1 for real
+rows, 0 for padding) is added, so every batch has one shape.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["DataLoader"]
+
+
+class _Collate:
+    """Stack items into tensors; pad a short batch when asked. A class (not a
+    closure) so spawned workers can unpickle it."""
+
+    def __init__(self, batch_size: int, pad_last: bool):
+        self.batch_size, self.pad_last = batch_size, pad_last
+
+    def __call__(self, items: list[dict]) -> dict:
+        batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+        if self.pad_last and len(items) < self.batch_size:
+            pad = self.batch_size - len(items)
+            batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+                     for k, v in batch.items()}
+            batch["_valid"] = np.asarray([1] * len(items) + [0] * pad, np.float32)
+        return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+class DataLoader(torch.utils.data.DataLoader):
+    """Batches of an indexable dataset of dict[str, ndarray].
+
+    Worker processes (``num_workers > 0``) start with the ``spawn`` method;
+    ``seed`` fixes the shuffle order.
+    """
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, num_workers: int = 0,
+                 pad_last: bool = False, seed: int = 0, pin_memory: bool = False):
+        super().__init__(
+            dataset, batch_size=batch_size, shuffle=shuffle, drop_last=drop_last,
+            num_workers=num_workers, collate_fn=_Collate(batch_size, pad_last),
+            pin_memory=pin_memory,
+            generator=torch.Generator().manual_seed(seed) if shuffle else None,
+            multiprocessing_context="spawn" if num_workers > 0 else None)

@@ -1,0 +1,1 @@
+"""evaluations of the PyTorch port (see the package docstring)."""

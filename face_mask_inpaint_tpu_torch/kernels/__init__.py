@@ -1,0 +1,17 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+Every wrapper keeps a plain integer ``launches`` count, incremented only where
+it launches its kernel (never for the plain version).
+"""
+
+from face_mask_inpaint_tpu_torch.kernels import flash_attention as _fa
+from face_mask_inpaint_tpu_torch.kernels import norm_act as _na
+
+__all__ = ["WRAPPERS", "reset_launch_counts"]
+
+WRAPPERS = (_fa.flash_attention, _na.instance_norm_act)
+
+
+def reset_launch_counts() -> None:
+    for w in WRAPPERS:
+        w.launches = 0

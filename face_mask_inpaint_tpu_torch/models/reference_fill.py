@@ -1,0 +1,91 @@
+"""ReferenceFill, the composite inpainting generator (Stack A).
+
+Port of face_mask_inpaint_tpu/models/reference_fill.py on the pluralistic
+encoder: two ResEncoders, fused by ExampleGuidedAttention (or a mask lerp),
+a latent z sampled from both distributions, the ResGenerator, and an
+adaptive average pool to ``out_size``. The DRN encoder and the
+``no_prior``/old-model path wait for a later slice.
+
+The JAX decoder folds the final pool into its packed tail (``fuse_pool``);
+this port decodes densely to full resolution and pools, which is the same
+math.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from face_mask_inpaint_tpu_torch.models.picnet import define_e, define_g, sample_z
+from face_mask_inpaint_tpu_torch.nn.blocks import ExampleGuidedAttention
+from face_mask_inpaint_tpu_torch.nn.layers import init_weights
+from face_mask_inpaint_tpu_torch.ops.resize import adaptive_avg_pool2d, scale_img
+
+__all__ = ["ReferenceFill"]
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+class ReferenceFill(nn.Module):
+    """Composite generator (modules/model.py:15-113).
+
+    encoder_params / decoder_params are the reference dicts built by
+    ``process_params``; only the keys the architecture uses are read. The
+    model is built in eval mode with weights drawn from ``generator``.
+    """
+
+    def __init__(self, encoder_params: dict, decoder_params: dict, use_att: bool = True,
+                 out_size: tuple[int, int] = (256, 256), dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        enc_p = dict(encoder_params)
+        encoder_type = enc_p.pop("type", "pluralistic")
+        if encoder_type != "pluralistic":
+            raise NotImplementedError(f"encoder_type [{encoder_type}] is not ported yet")
+        self.use_att, self.out_size, self.dtype = use_att, tuple(out_size), dtype
+        self.src_encoder = define_e(**enc_p, encoder_type="src")
+        self.ref_encoder = define_e(**enc_p, encoder_type="ref")
+        c = self.src_encoder.out_channels
+        z_nc = enc_p.get("z_nc", 512)
+        if use_att:
+            self.attention = ExampleGuidedAttention(
+                c, init_type=enc_p.get("init_type", "orthogonal"))
+        self.decoder = define_g(**decoder_params, input_nc=2 * c if use_att else c,
+                                z_channels=2 * z_nc if use_att else z_nc)
+        init_weights(self, generator if generator is not None
+                     else torch.Generator().manual_seed(0))
+        self.eval()
+
+    def forward(self, src_image: torch.Tensor, ref_image: torch.Tensor,
+                src_mask: torch.Tensor, eps_q: Optional[torch.Tensor] = None,
+                eps_p: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                resize: bool = True) -> torch.Tensor:
+        """src/ref_image: [N, H, W, 3]; src_mask: [N, H, W] in {0, 1}.
+
+        The latent noise is ``eps_q``/``eps_p`` (NHWC, shaped like the
+        encoders' mu: [N, H/8, W/8, z_nc] at five encoder layers) or is drawn
+        from ``generator``. Returns [N, out_h, out_w, 3] in [-1, 1].
+        """
+        src = _nchw(src_image).to(self.dtype)
+        ref = _nchw(ref_image).to(self.dtype)
+        src_dist, src_features = self.src_encoder(src)
+        ref_dist, ref_features = self.ref_encoder(ref)
+        scaled_mask = scale_img(src_mask[:, None].to(src_features.dtype),
+                                src_features.shape[2:])
+        if self.use_att:
+            enc = self.attention(scaled_mask, src_features, ref_features)
+        else:
+            enc = (1.0 - scaled_mask) * src_features + scaled_mask * ref_features
+        z = sample_z(src_dist, ref_dist,
+                     _nchw(eps_q) if eps_q is not None else None,
+                     _nchw(eps_p) if eps_p is not None else None,
+                     generator, return_zq=not self.use_att)
+        dec = self.decoder(enc, z=z)
+        if resize:
+            dec = adaptive_avg_pool2d(dec, self.out_size)
+        return dec.permute(0, 2, 3, 1)

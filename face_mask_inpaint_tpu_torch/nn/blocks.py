@@ -1,0 +1,234 @@
+"""PICNet building blocks and the attention modules, over NCHW tensors.
+
+Port of face_mask_inpaint_tpu/nn/blocks.py (dense paths). Submodule names
+mirror the flax module names, so a JAX variable path maps onto a state_dict
+key by a tree walk (convert.py). Input channel counts, which flax infers
+from the data, are constructor arguments here.
+
+Not ported, because their outputs equal the dense math computed here: the
+space-to-depth packed decoder tail and its Pallas kernels, the conv->avg-pool
+fold (``fuse_avgpool2``: conv then ``avg_pool2d`` here), and the Output head's
+fused activation (``fuse_act``/``pre_activated``: the head applies its own).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from face_mask_inpaint_tpu_torch.nn.layers import (
+    Activation, Conv2d, ConvTranspose2d, InstanceNorm2d, make_norm)
+from face_mask_inpaint_tpu_torch.ops.attention import attention_apply
+from face_mask_inpaint_tpu_torch.ops.conv import pixel_shuffle
+from face_mask_inpaint_tpu_torch.ops.resize import avg_pool2d, reflection_pad2d
+
+__all__ = ["CoordConvWrap", "ResBlock", "ResBlockEncoderOptimized",
+           "ResBlockDecoder", "Output", "AutoAttention", "ExampleGuidedAttention"]
+
+
+def _norm_act_module(norm: str, activation: str, channels: int) -> Optional[nn.Module]:
+    """The [norm -> act] pair's norm: instance norm + (Leaky)ReLU fuse into one
+    InstanceNorm2d(fuse_act) (kernel K2), as the JAX ``_norm_act`` does."""
+    if norm == "instance" and activation in ("LeakyReLU", "ReLU"):
+        return InstanceNorm2d(channels, fuse_act=activation)
+    return make_norm(norm, channels)
+
+
+def _norm_act(x: torch.Tensor, norm: Optional[nn.Module], act: nn.Module) -> torch.Tensor:
+    if isinstance(norm, InstanceNorm2d) and norm.fuse_act is not None:
+        return norm(x)
+    if norm is not None:
+        x = norm(x)
+    return act(x)
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """[N, C, H, W] -> contiguous [N, H*W, C] (tokens by channels)."""
+    return x.flatten(2).transpose(1, 2).contiguous()
+
+
+def _unflat(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[N, H*W, C] -> [N, C, H, W]."""
+    return t.transpose(1, 2).reshape(t.shape[0], t.shape[2], h, w)
+
+
+class CoordConvWrap(nn.Module):
+    """coord_conv factory (base_function.py:136-146): a (spectral-norm) conv
+    named ``conv``. CoordConv itself waits: ``use_coord`` is off on the path
+    this package runs."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 0, bias: bool = True,
+                 use_spect: bool = False, use_coord: bool = False,
+                 init_type: str = "lecun_normal"):
+        super().__init__()
+        if use_coord:
+            raise NotImplementedError("CoordConv is not ported yet")
+        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride, padding,
+                           bias=bias, use_spect=use_spect, init_type=init_type)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class ResBlock(nn.Module):
+    """Pre-activation residual block with none/up/down sampling
+    (base_function.py:207-268)."""
+
+    def __init__(self, input_nc: int, output_nc: int, hidden_nc: Optional[int] = None,
+                 norm: str = "none", activation: str = "LeakyReLU",
+                 sample_type: str = "none", use_spect: bool = False,
+                 use_coord: bool = False, init_type: str = "lecun_normal"):
+        super().__init__()
+        hidden_nc = output_nc if hidden_nc is None else hidden_nc
+        if sample_type not in ("none", "up", "down"):
+            raise NotImplementedError(f"sample type [{sample_type}] is not found")
+        self.sample_type = sample_type
+        out_nc = output_nc * 4 if sample_type == "up" else output_nc
+        kw = dict(use_spect=use_spect, use_coord=use_coord, init_type=init_type)
+        self.act = Activation(activation)
+        self.norm1 = _norm_act_module(norm, activation, input_nc)
+        self.conv1 = CoordConvWrap(input_nc, hidden_nc, 3, padding=1, **kw)
+        self.norm2 = _norm_act_module(norm, activation, hidden_nc)
+        self.conv2 = CoordConvWrap(hidden_nc, out_nc, 3, padding=1, **kw)
+        self.bypass = CoordConvWrap(input_nc, out_nc, 1, padding=0, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(_norm_act(x, self.norm1, self.act))
+        h = self.conv2(_norm_act(h, self.norm2, self.act))
+        s = self.bypass(x)
+        if self.sample_type == "down":
+            h, s = avg_pool2d(h, 2), avg_pool2d(s, 2)
+        elif self.sample_type == "up":
+            h, s = pixel_shuffle(h, 2), pixel_shuffle(s, 2)
+        return h + s
+
+
+class ResBlockEncoderOptimized(nn.Module):
+    """Stem block (base_function.py:271-305): conv, norm, act, conv, avg-pool;
+    the shortcut pools, then a 1x1 conv."""
+
+    def __init__(self, input_nc: int, output_nc: int, norm: str = "none",
+                 activation: str = "LeakyReLU", use_spect: bool = False,
+                 use_coord: bool = False, init_type: str = "lecun_normal"):
+        super().__init__()
+        kw = dict(use_spect=use_spect, use_coord=use_coord, init_type=init_type)
+        self.act = Activation(activation)
+        self.conv1 = CoordConvWrap(input_nc, output_nc, 3, padding=1, **kw)
+        self.norm1 = make_norm(norm, output_nc)
+        self.conv2 = CoordConvWrap(output_nc, output_nc, 3, padding=1, **kw)
+        self.bypass = CoordConvWrap(input_nc, output_nc, 1, padding=0, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(x)
+        if self.norm1 is not None:
+            h = self.norm1(h)
+        h = avg_pool2d(self.conv2(self.act(h)), 2)
+        return h + self.bypass(avg_pool2d(x, 2))
+
+
+class ResBlockDecoder(nn.Module):
+    """Upsampling decoder block (base_function.py:308-364): [norm, act] 3x3
+    conv, [norm, act] stride-2 ConvTranspose (k=3, p=1, op=1), plus a
+    transposed-conv shortcut."""
+
+    def __init__(self, input_nc: int, output_nc: int, hidden_nc: Optional[int] = None,
+                 norm: str = "instance", activation: str = "LeakyReLU",
+                 use_spect: bool = False, init_type: str = "lecun_normal"):
+        super().__init__()
+        hidden_nc = output_nc if hidden_nc is None else hidden_nc
+        kw = dict(use_spect=use_spect, init_type=init_type)
+        self.act = Activation(activation)
+        self.norm1 = _norm_act_module(norm, activation, input_nc)
+        self.conv1 = Conv2d(input_nc, hidden_nc, 3, padding=1, **kw)
+        self.norm2 = _norm_act_module(norm, activation, hidden_nc)
+        self.conv2 = ConvTranspose2d(hidden_nc, output_nc, 3, 2, 1, 1, **kw)
+        self.bypass = ConvTranspose2d(input_nc, output_nc, 3, 2, 1, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(_norm_act(x, self.norm1, self.act))
+        h = self.conv2(_norm_act(h, self.norm2, self.act))
+        return h + self.bypass(x)
+
+
+class Output(nn.Module):
+    """Output head (base_function.py:367-398): [norm] act, reflection pad,
+    valid conv, tanh."""
+
+    def __init__(self, input_nc: int, output_nc: int, kernel_size: int = 3,
+                 norm: str = "none", activation: str = "LeakyReLU",
+                 use_spect: bool = False, use_coord: bool = False,
+                 init_type: str = "lecun_normal"):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.act = Activation(activation)
+        self.norm1 = make_norm(norm, input_nc)
+        self.conv1 = CoordConvWrap(input_nc, output_nc, kernel_size, padding=0,
+                                   use_spect=use_spect, use_coord=use_coord,
+                                   init_type=init_type)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm1 is not None:
+            x = self.norm1(x)
+        h = reflection_pad2d(self.act(x), self.kernel_size // 2)
+        return torch.tanh(self.conv1(h))
+
+
+class AutoAttention(nn.Module):
+    """Self-attention (Auto_Attn, base_function.py:401-448) without the
+    long-term ``pre`` branch, which the decoder never feeds on this path.
+
+    out = gamma * A(x) + x with A(x)[i] = sum_j softmax_j(q_i . q_j) x[j] and
+    q a 1x1 projection to C/4 channels. Above ``block_threshold`` tokens the
+    map streams through kernel K1.
+    """
+
+    def __init__(self, in_channels: int, block_threshold: int = 4096,
+                 init_type: str = "lecun_normal"):
+        super().__init__()
+        self.block_threshold = block_threshold
+        self.query_conv = Conv2d(in_channels, in_channels // 4, 1, init_type=init_type)
+        self.gamma = nn.Parameter(torch.empty(1))
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.gamma.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, _, h, w = x.shape
+        (att,) = attention_apply(_flat(self.query_conv(x)), [_flat(x)],
+                                 block_threshold=self.block_threshold)
+        return self.gamma.to(x.dtype) * _unflat(att, h, w) + x
+
+
+class ExampleGuidedAttention(nn.Module):
+    """Example-guided cross attention (modules/example_guided_att.py:5-41).
+
+    One map from the masked-source features re-assembles both source and
+    reference features; inside the mask the raw reference passes through.
+    Output: channel-concat [ex_guide_flow, src_att] (2C channels), optionally
+    projected by a 1x1 ``out_conv``.
+    """
+
+    def __init__(self, in_channels: int, out_channels: Optional[int] = None,
+                 block_threshold: int = 4096, init_type: str = "lecun_normal"):
+        super().__init__()
+        self.block_threshold = block_threshold
+        self.conv = Conv2d(in_channels, in_channels // 4, 1, bias=False,
+                           init_type=init_type)
+        self.out_conv = (Conv2d(2 * in_channels, out_channels, 1, init_type=init_type)
+                         if out_channels is not None else None)
+
+    def forward(self, src_mask: torch.Tensor, src_feature: torch.Tensor,
+                ref_feature: torch.Tensor) -> torch.Tensor:
+        """src_mask: [N, 1, H, W]; src/ref_feature: [N, C, H, W]."""
+        _, _, h, w = src_feature.shape
+        src_att, ref_att = attention_apply(
+            _flat(self.conv(src_feature)), [_flat(src_feature), _flat(ref_feature)],
+            block_threshold=self.block_threshold)
+        src_att, ref_att = _unflat(src_att, h, w), _unflat(ref_att, h, w)
+        ex_guide_flow = (1.0 - src_mask) * ref_att + src_mask * ref_feature
+        out = torch.cat([ex_guide_flow, src_att], dim=1)
+        return self.out_conv(out) if self.out_conv is not None else out

@@ -1,0 +1,84 @@
+"""K1 and K2 against their plain versions on an NVIDIA GPU. Marked ``cuda``:
+they skip where torch.cuda.is_available() is False (the decision is taken in
+a fixture, at run time). Run on the card, where JAX need not be installed,
+with ``python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest``.
+
+Tolerance: |kernel - plain| <= atol + rtol |plain| with (1e-4, 1e-4) in
+float32 (TF32 off; only the order of f32 sums differs) and (1e-3, 2^-7) in
+bfloat16 (each side rounds an f32 result once: one bf16 ulp apart at most).
+"""
+
+import pytest
+import torch
+
+from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
+from face_mask_inpaint_tpu_torch.kernels import norm_act as na
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 2.0 ** -7)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _assert_close(got, want, dtype):
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,l,d,widths", [
+    (2, 320, 8, [24, 16]), (2, 257, 128, [130]),                        # CUDA-core path
+    (1, 4100, 64, [256]), (2, 300, 128, [264]), (2, 257, 32, [128, 8]),  # bf16: tensor cores
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, n, l, d, widths):
+    q = (torch.randn(n, l, d, device="cuda", generator=cuda) * 0.5).to(dtype)
+    vs = [torch.randn(n, l, c, device="cuda", generator=cuda).to(dtype) for c in widths]
+    before = fa.flash_attention.launches
+    outs, lse = fa.flash_attention(q, vs, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    refs, lse_ref = fa.flash_attention_plain(q, vs, with_lse=True)
+    for o, r in zip(outs, refs):
+        assert o.dtype == dtype
+        _assert_close(o, r, dtype)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
+def test_flash_attention_kernel_rejects_bad_input(cuda):
+    q = torch.randn(1, 64, 8, device="cuda")
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, [torch.randn(1, 64, 4, device="cuda", dtype=torch.bfloat16)])
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, [torch.randn(1, 4, 64, device="cuda").transpose(1, 2)])
+    with pytest.raises(ValueError):
+        fa.flash_attention(torch.randn(1, 64, 256, device="cuda"),
+                           [torch.randn(1, 64, 4, device="cuda")])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["LeakyReLU", "ReLU", "none"])
+@pytest.mark.parametrize("affine", [True, False])
+def test_norm_act_kernel_matches_plain(cuda, dtype, act, affine):
+    x = (torch.randn(3, 5, 37, 141, device="cuda", generator=cuda) * 2 + 1).to(dtype)
+    w = torch.randn(5, device="cuda", generator=cuda) if affine else None
+    b = torch.randn(5, device="cuda", generator=cuda) if affine else None
+    before = na.instance_norm_act.launches
+    y = na.instance_norm_act(x, w, b, act)
+    torch.cuda.synchronize()
+    assert na.instance_norm_act.launches == before + 1
+    assert y.dtype == dtype
+    _assert_close(y, na.instance_norm_act_plain(x, w, b, act), dtype)
+
+
+def test_norm_act_kernel_rejects_non_contiguous(cuda):
+    x = torch.randn(2, 4, 8, 8, device="cuda").transpose(2, 3)
+    with pytest.raises(ValueError):
+        na.instance_norm_act(x, None, None)
