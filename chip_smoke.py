@@ -9,14 +9,25 @@ widths), the path of ``PICNet_inference.py --use_att 1``. Phases:
 
 1. build the CUDA kernels from the sources in the checkout (set-up time);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   flagship shapes and a ragged one, in float32 (TF32 off) and bfloat16;
+   flagship shapes and ragged ones, in float32 (TF32 off) and bfloat16; time
+   each at the flagship shape beside its bound (the larger of its bytes over
+   the memory rate and its operations over the peak rate) and, for K1,
+   beside the one PyTorch call that computes the same function;
 3. the flagship models at batch 4, float32, random weights from --seed:
    output shape, range and finiteness; the kernel path against the plain
    versions on the card; the launch counts of one forward (K1 once, K2 ten
-   times);
+   times, K3 once);
 4. the CLI's ``infer_batch`` over three seeded batches, with SSIM/MS-SSIM;
 5. the flagship forward at batch 16 in bfloat16 (bench.py's configuration),
-   timed with CUDA events, with the kernels and with the plain versions.
+   timed with CUDA events, with the kernels and with the plain versions, and
+   its peak device memory;
+6. a profile of that forward three ways: with the kernels, with the dense
+   Output head of the previous slice (K1 and K2 on, no K3), and with the
+   plain versions. It prints the time of each stage (CUDA events around
+   each stage's module), the spread of the forward over PROFILE_ROUNDS
+   rounds of three forwards a side in alternating order with the host's
+   enqueue time, and a ``torch.profiler`` window of three forwards
+   (device-busy share, kernels by device time).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -48,6 +59,15 @@ DECODER_NORMS = [(256, 32), (256, 32), (256, 64), (256, 64), (256, 128), (128, 1
 # sides may land one bf16 ulp (2^-7 relative) apart
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7)}
 LSE_ATOL = 1e-3
+# the flagship Output head: the last decoder's pair at 1024^2, pooled 4x
+HEAD = dict(shape=(16, 32, 1024, 1024), co=3, pool=4)
+# one H100 SXM: HBM bytes/s; dense bf16 tensor-core and f32 CUDA-core FLOP/s
+MEM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
+
+# rounds of the phase-6 spread: enough for quartiles of a host-bound forward
+PROFILE_ROUNDS = 10
+# launches of one flagship forward
+PER_FORWARD = {"flash_attention_fwd": 1, "instance_norm_act": 10, "output_head": 1}
 
 KERNELS = {
     "flash_attention_fwd": dict(
@@ -56,6 +76,9 @@ KERNELS = {
     "instance_norm_act": dict(
         route="triton", source="face_mask_inpaint_tpu_torch/kernels/norm_act.py",
         replaces="face_mask_inpaint_tpu/ops/pallas/norm_act.py:84"),
+    "output_head": dict(
+        route="cuda", source="face_mask_inpaint_tpu_torch/csrc/output_head.cu",
+        replaces="face_mask_inpaint_tpu/ops/pallas/packed_convt.py:658"),
 }
 
 
@@ -77,6 +100,13 @@ def _close(got, want, dtype_name):
     got, want = got.float(), want.float()
     err = (got - want).abs()
     return bool((err <= atol + rtol * want.abs()).all()), float(err.max())
+
+
+def _bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
+    """(bound in ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the peak rate of their type."""
+    by_bytes, by_ops = nbytes / MEM_RATE * 1e3, ops / rate * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def _time_ms(fn, reps: int):
@@ -102,15 +132,17 @@ def plain_versions():
     comparisons and the plain timing only; launches are not counted)."""
     from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
     from face_mask_inpaint_tpu_torch.kernels import norm_act as na
+    from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 
-    saved = fa.flash_attention, na.instance_norm_act
+    saved = fa.flash_attention, na.instance_norm_act, oh.output_head
     fa.flash_attention = lambda q, values, with_lse=False: fa.flash_attention_plain(
         q, values, with_lse=with_lse)
     na.instance_norm_act = na.instance_norm_act_plain
+    oh.output_head = oh.output_head_plain
     try:
         yield
     finally:
-        fa.flash_attention, na.instance_norm_act = saved
+        fa.flash_attention, na.instance_norm_act, oh.output_head = saved
 
 
 def phase_build():
@@ -127,11 +159,28 @@ def phase_build():
                     print(f"[build] {name}: {line.strip()}")
 
 
+def _library_attention_ms(q, v):
+    """K1's yardstick: torch's scaled_dot_product_attention on the same
+    inputs (q == k, scale 1). Timed here only; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    q4, v4 = q[:, None], v[:, None]
+    try:
+        ms = _time_ms(lambda: F.scaled_dot_product_attention(q4, q4, v4, scale=1.0), 5)
+    except RuntimeError as e:  # no backend for these shapes: no yardstick
+        print(f"[time] K1 library call unavailable: {str(e).splitlines()[0]}")
+        return None
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase_kernels(run: Run, seed: int, timings: dict):
     import torch
 
     from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
     from face_mask_inpaint_tpu_torch.kernels import norm_act as na
+    from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -161,13 +210,21 @@ def phase_kernels(run: Run, seed: int, timings: dict):
             if label == "flagship":
                 ms = _time_ms(lambda: fa.flash_attention(q, vs), 5)
                 plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, vs), 5)
-                timings[("flash_attention_fwd", dname)] = (ms, plain_ms)
-                print(f"[time] K1 flagship {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+                c_all = sum(widths)
+                bound = _bound(q.element_size() * n * l * (d + 2 * c_all),
+                               2.0 * n * l * l * (d + c_all),
+                               BF16_RATE if dtype == torch.bfloat16 else F32_RATE)
+                lib_ms = (_library_attention_ms(q, vs[0])
+                          if dtype == torch.bfloat16 and len(vs) == 1 else None)
+                timings[("flash_attention_fwd", dname)] = (ms, plain_ms, *bound, lib_ms)
+                print(f"[time] K1 flagship {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+                      f"ms, bound {bound[0]:.3f} ms ({bound[1]}), library "
+                      f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
             del q, vs, outs, refs
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        total, total_plain = 0.0, 0.0
+        total, total_plain, nbytes, ops = 0.0, 0.0, 0.0, 0.0
         cases = [(f"decoder N=16 C={c} H=W={h}", (16, c, h, h), "LeakyReLU")
                  for c, h in DECODER_NORMS]
         cases += [("ragged", (3, 5, 37, 41), act) for act in ("LeakyReLU", "ReLU", "none")]
@@ -184,10 +241,47 @@ def phase_kernels(run: Run, seed: int, timings: dict):
             if label.startswith("decoder"):
                 total += _time_ms(lambda: na.instance_norm_act(x, w, b, act), 5)
                 total_plain += _time_ms(lambda: na.instance_norm_act_plain(x, w, b, act), 5)
+                # one read of x, one write of y; about 5 flops an element
+                # (sum, square-sum, then scale, shift and the activation)
+                nbytes += 2 * x.numel() * x.element_size()
+                ops += 5.0 * x.numel()
             del x, y
-        timings[("instance_norm_act", dname)] = (total, total_plain)
+        bound = _bound(nbytes, ops, F32_RATE)
+        timings[("instance_norm_act", dname)] = (total, total_plain, *bound, None)
         print(f"[time] K2 ten decoder norms at N=16 {dname}: kernel {total:.3f} ms, "
-              f"plain {total_plain:.3f} ms")
+              f"plain {total_plain:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
+
+    head_cases = [("flagship", HEAD["shape"], HEAD["co"], HEAD["pool"], "LeakyReLU")]
+    head_cases += [("ragged", (2, 5, 36, 44), 3, f, act)
+                   for f, act in ((1, "LeakyReLU"), (2, "ReLU"), (4, "LeakyReLU"))]
+    head_cases += [("ragged", (1, 7, 30, 42), 2, 3, "LeakyReLU"),
+                   ("one cell a block", (1, 3, 128, 192), 4, 64, "ReLU")]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for label, shape, co, f, act in head_cases:
+            c = shape[1]
+            h = (torch.randn(shape, device=dev, generator=gen) * 2).to(dtype)
+            s = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            w = torch.randn(co, c, 3, 3, device=dev, generator=gen) / (3 * c ** 0.5)
+            b = torch.randn(co, device=dev, generator=gen) * 0.1
+            y = oh.output_head(h, s, w, b, act, f)
+            torch.cuda.synchronize()
+            ok, err = _close(y, oh.output_head_plain(h, s, w, b, act, f), dname)
+            run.err["output_head"] = max(run.err["output_head"], err)
+            run.check(ok, f"K3 {label} {list(shape)} co={co} f={f} {act} {dname}: max_abs_err "
+                          f"{err:.3e} (tol atol {TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|)")
+            if label == "flagship":
+                ms = _time_ms(lambda: oh.output_head(h, s, w, b, act, f), 10)
+                plain_ms = _time_ms(lambda: oh.output_head_plain(h, s, w, b, act, f), 5)
+                # h and s read once, the pooled image written once; 9 C co
+                # multiply-adds a pixel on the CUDA cores in f32
+                bound = _bound(2 * h.numel() * h.element_size() + y.numel() * y.element_size(),
+                               2.0 * shape[0] * shape[2] * shape[3] * co * c * 9, F32_RATE)
+                timings[("output_head", dname)] = (ms, plain_ms, *bound, None)
+                print(f"[time] K3 flagship {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+                      f"ms, bound {bound[0]:.3f} ms ({bound[1]})")
+            del h, s, y
+        torch.cuda.empty_cache()
 
 
 def _models(seed: int, dtype):
@@ -209,9 +303,11 @@ def _models(seed: int, dtype):
 def _counts():
     from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
     from face_mask_inpaint_tpu_torch.kernels import norm_act as na
+    from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 
     return {"flash_attention_fwd": fa.flash_attention.launches,
-            "instance_norm_act": na.instance_norm_act.launches}
+            "instance_norm_act": na.instance_norm_act.launches,
+            "output_head": oh.output_head.launches}
 
 
 def phase_flagship(run: Run, seed: int) -> dict:
@@ -235,8 +331,8 @@ def phase_flagship(run: Run, seed: int) -> dict:
     torch.cuda.synchronize()
     launches = _counts()
     print(f"[flagship] launches in one forward: {launches}", flush=True)
-    run.check(launches == {"flash_attention_fwd": 1, "instance_norm_act": 10},
-              f"flagship forward launches K1 once and K2 ten times: {launches}")
+    run.check(launches == PER_FORWARD,
+              f"flagship forward launches K1 once, K2 ten times and K3 once: {launches}")
     run.check(tuple(out.shape) == (4, HW, HW, 3), f"output shape {tuple(out.shape)}")
     run.check(bool(torch.isfinite(out).all()), "output finite")
     run.check(float(out.abs().max()) <= 1.0, f"output within [-1, 1]: max |y| {float(out.abs().max()):.4f}")
@@ -276,7 +372,7 @@ def phase_cli(run: Run, seed: int):
                   and bool(torch.isfinite(gen).all()) and s == s and ms == ms,
                   f"infer_batch step {step}: ssim {s:.4f} ms_ssim {ms:.4f}")
     launches = _counts()
-    run.check(launches == {"flash_attention_fwd": 3, "instance_norm_act": 30},
+    run.check(launches == {k: 3 * v for k, v in PER_FORWARD.items()},
               f"infer_batch x3 launches: {launches}")
     del detector, generator
     torch.cuda.empty_cache()
@@ -289,6 +385,7 @@ def phase_timing(run: Run, seed: int, timings: dict, card: str):
 
     batch = 16
     detector, model = _models(seed, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()  # this forward's peak, not phase 2's
     gen = torch.Generator(device="cuda").manual_seed(seed)
     src = torch.rand(batch, HW, HW, 3, device="cuda", generator=gen)
     ref = torch.rand(batch, HW, HW, 3, device="cuda", generator=gen)
@@ -302,7 +399,8 @@ def phase_timing(run: Run, seed: int, timings: dict, card: str):
     out = forward()
     torch.cuda.synchronize()
     launches = _counts()
-    run.check(launches == {"flash_attention_fwd": 1, "instance_norm_act": 10}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run.check(launches == PER_FORWARD
               and out.dtype == torch.bfloat16 and bool(torch.isfinite(out.float()).all()),
               f"bf16 batch-16 forward: {out.dtype}, launches {launches}")
     kernel_t, plain_t = [], []
@@ -315,8 +413,125 @@ def phase_timing(run: Run, seed: int, timings: dict, card: str):
     print(f"[time] flagship forward bf16 batch {batch}: kernels {ms:.2f} ms "
           f"({batch / ms * 1e3:.2f} images/s), plain versions {plain_ms:.2f} ms "
           f"({batch / plain_ms * 1e3:.2f} images/s) on {card}", flush=True)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[time] peak device memory {peak:.2f} GiB")
+    print(f"[time] peak device memory of the bf16 batch-{batch} forward on the kernel "
+          f"path {peak:.2f} GiB, with the plain versions' forwards "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, on {card}")
+
+
+def _stage_modules(detector, model) -> dict:
+    """The forward's stages, each one module: name -> module."""
+    dec = model.decoder
+    stages = {"detector": detector.model, "src_encoder": model.src_encoder,
+              "ref_encoder": model.ref_encoder, "attention": model.attention,
+              "latent branch": dec.generator}
+    for i in range(dec.layers):
+        stages[f"decoder{i}"] = getattr(dec, f"decoder{i}")
+        if i == 1 and dec.use_attn:
+            stages["attn1 (K1)"] = dec.attn1
+    stages["Output head (K3)"] = getattr(dec, f"out{dec.layers - 1}")
+    return stages
+
+
+@contextlib.contextmanager
+def dense_head(model):
+    """The forward with PR 2's dense tail: decoder 4 adds h + s and the Output
+    head runs act, pad, conv and tanh at full size before the pool, with K1
+    and K2 still on (the comparison for K3; no fused pool, so no K3)."""
+    model._fuse_pool = lambda enc: None
+    try:
+        yield
+    finally:
+        del model._fuse_pool
+
+
+def phase_profile(seed: int, rounds: int, card: str):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = 16
+    detector, model = _models(seed, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    src = torch.rand(batch, HW, HW, 3, device="cuda", generator=gen)
+    ref = torch.rand(batch, HW, HW, 3, device="cuda", generator=gen)
+    noise = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def forward():
+        with torch.no_grad():
+            return model(src, ref, detector.predict_mask(src), generator=noise)
+
+    sides = {"kernels": contextlib.nullcontext, "dense head": lambda: dense_head(model),
+             "plain": plain_versions}
+    for side in ("kernels", "dense head"):
+        with sides[side]():
+            forward()
+            torch.cuda.synchronize()
+            events, hooks = {}, []
+            for name, mod in _stage_modules(detector, model).items():
+                def pre(_m, _a, name=name):
+                    events[name] = [torch.cuda.Event(enable_timing=True),
+                                    torch.cuda.Event(enable_timing=True)]
+                    events[name][0].record()
+
+                def post(_m, _a, _o, name=name):
+                    events[name][1].record()
+
+                hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+            per_stage = {}
+            for _ in range(3):
+                forward()
+                done = torch.cuda.Event(enable_timing=True)
+                done.record()
+                torch.cuda.synchronize()
+                for name, (a, b) in events.items():
+                    per_stage.setdefault(name, []).append(a.elapsed_time(b))
+                per_stage.setdefault("after the head (pool)", []).append(
+                    events[list(events)[-1]][1].elapsed_time(done))
+            for h in hooks:
+                h.remove()
+        stage_ms = {k: statistics.median(v) for k, v in per_stage.items()}
+        print(f"[profile] {side}: per stage, median of 3 forwards (ms) on {card}: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+              + f"; sum {sum(stage_ms.values()):.3f}", flush=True)
+
+    times = {side: [] for side in sides}
+    enqueue = {side: [] for side in sides}
+    for r in range(rounds):
+        order = list(sides) if r % 2 == 0 else list(sides)[::-1]
+        for side in order:
+            with sides[side]():
+                times[side].append(_time_ms(forward, 3))
+                t0 = time.perf_counter()
+                forward()
+                enqueue[side].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+    for side, v in times.items():
+        q = statistics.quantiles(v, n=4) if len(v) > 1 else [v[0]] * 3
+        print(f"[profile] {side} forward over {rounds} rounds (ms): median "
+              f"{statistics.median(v):.2f}, quartiles {q[0]:.2f}-{q[2]:.2f}, range "
+              f"{min(v):.2f}-{max(v):.2f}; host enqueue {min(enqueue[side]):.2f}-"
+              f"{max(enqueue[side]):.2f} on {card}", flush=True)
+
+    for side in ("kernels", "dense head"):
+        with sides[side]():
+            forward()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    forward()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        rows = [e for e in prof.key_averages()  # the device's own events: kernels, copies
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in rows) / 1e3
+        print(f"[profile] {side}, three forwards: wall {wall:.2f} ms, summed device time "
+              f"{busy:.2f} ms, device busy {100 * busy / wall:.1f}% on {card}")
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+            print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
+                  f"{e.key[:100]}")
+    del detector, model
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -345,6 +560,7 @@ def main(argv=None) -> int:
     launches = phase_flagship(run, args.seed)
     phase_cli(run, args.seed)
     phase_timing(run, args.seed, timings, smi)
+    phase_profile(args.seed, PROFILE_ROUNDS, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:", file=sys.stderr)
@@ -354,9 +570,11 @@ def main(argv=None) -> int:
 
     kernels = []
     for name, meta in KERNELS.items():
-        ms, plain_ms = timings[(name, "bfloat16")]
+        ms, plain_ms, bound_ms, bound_by, library_ms = timings[(name, "bfloat16")]
         kernels.append({"name": name, **meta, "launches": launches[name],
-                        "max_abs_err": run.err[name], "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": run.err[name], "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,10 @@ generation, SSIM/MS-SSIM against the raw ground truth. Writes
 
 Checkpoints: a ``.pt`` holding this port's own state_dict loads; a missing
 path means random weights from ``--seed``. Orbax directories and ``.pth``
-conversion, the DRN encoder, ``--old_model`` and ``--use_best_reference``
-are not ported yet and raise. ``--device`` defaults to cuda and fails when
-CUDA is absent; ``--device cpu`` runs on the CPU.
+conversion, the DRN encoder and ``--old_model`` are not ported yet and raise.
+``--use_best_reference 1`` takes each image's best-SSIM reference, scored on
+``--device`` (or read from the dataset's cached map). ``--device`` defaults
+to cuda and fails when CUDA is absent; ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -161,7 +162,7 @@ def main(argv=None):
                                args.identity_file_path, apply_transform=False,
                                scale=args.img_scale,
                                use_ssim=bool(args.use_best_reference), return_id=True,
-                               seed=args.seed)
+                               seed=args.seed, device=device)
     loader = DataLoader(dataset, args.batch_size, shuffle=False, drop_last=False,
                         pad_last=True, pin_memory=device.type == "cuda")
 

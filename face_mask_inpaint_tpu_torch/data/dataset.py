@@ -4,8 +4,11 @@ Port of face_mask_inpaint_tpu/data/dataset.py ``ReferenceDataset`` with the
 same on-disk conventions: image id = filename stem before '_', source
 ``<id>_surgical.jpg``, ground truth and references ``<id>.jpg``, mask
 ``<id>.npy``; identities with fewer than two images are dropped; the
-reference is a random other image of the same identity. The best-SSIM
-reference map (``use_ssim``) waits for a later slice.
+reference is a random other image of the same identity or, with
+``use_ssim``, the one of highest SSIM. That best-reference map is cached as a
+pickled dict from id to id in ``source_dir.parent / "best_reference_map.pkl"``,
+the JAX package's file name and format, so a map written by either package
+loads in the other.
 
 Items are dicts of HWC numpy arrays. PIL is imported on use, so importing
 this module needs only numpy and torch.
@@ -14,6 +17,7 @@ this module needs only numpy and torch.
 from __future__ import annotations
 
 import logging
+import pickle
 import random
 from os import listdir
 from os.path import splitext
@@ -65,9 +69,9 @@ class ReferenceDataset(torch.utils.data.Dataset):
     def __init__(self, source_dir, reference_dir, masks_dir, identity_file,
                  apply_transform: bool = True, scale: float = 1.0,
                  use_ssim: bool = False, return_id: bool = False,
-                 seed: Optional[int] = None):
-        if use_ssim:
-            raise NotImplementedError("the best-SSIM reference map is not ported yet")
+                 seed: Optional[int] = None, device=None):
+        """device: where the best-reference SSIM scores run (``use_ssim``
+        without a cached map); the CPU by default."""
         if not 0 < scale <= 1:
             raise ValueError("Scale must be between 0 and 1")
         self.source_dir = Path(source_dir)
@@ -84,6 +88,15 @@ class ReferenceDataset(torch.utils.data.Dataset):
         if not self.ids:
             raise RuntimeError(f"No input file found in {source_dir}")
         log.info("Creating dataset with %d examples", len(self.ids))
+        self.use_ssim = use_ssim
+        if use_ssim:
+            cache = self.source_dir.parent / "best_reference_map.pkl"
+            if cache.is_file():
+                with open(cache, "rb") as f:
+                    self.best_reference_map = pickle.load(f)
+            else:
+                log.info("Creating best_reference_map")
+                self.best_reference_map = self.find_best_reference(device)
         self.apply_transform = apply_transform
         self.return_id = return_id
         self._rng = random.Random(seed)
@@ -104,7 +117,38 @@ class ReferenceDataset(torch.utils.data.Dataset):
     def __len__(self) -> int:
         return len(self.ids)
 
+    def find_best_reference(self, device=None) -> dict:
+        """Best-SSIM reference per image over its identity group, cached to
+        pkl (dataloader.py:191-218; JAX data/dataset.py:166-208). Each group's
+        images are decoded once and all its ordered pairs score in one
+        batched SSIM call on ``device``; the image itself is excluded."""
+        from face_mask_inpaint_tpu_torch.evaluations.ssim import ssim
+
+        device = torch.device("cpu") if device is None else torch.device(device)
+        wanted = set(self.ids)
+        best: dict[str, str] = {}
+        for group in self.identity_map.values():
+            if len(group) < 2 or not any(m in wanted for m in group):
+                continue
+            imgs = torch.from_numpy(np.stack([
+                _preprocess(_load(self.reference_dir / f"{m}.jpg"), self.scale, False)
+                for m in group])).to(device)
+            k = len(group)
+            with torch.no_grad():  # pair (i, j) is row i * k + j
+                scores = ssim(imgs.repeat_interleave(k, dim=0), imgs.repeat(k, 1, 1, 1),
+                              data_range=1.0, size_average=False)
+            scores = scores.view(k, k).cpu().numpy()
+            np.fill_diagonal(scores, -np.inf)
+            for i, m in enumerate(group):
+                if m in wanted:
+                    best[m] = group[int(np.argmax(scores[i]))]
+        with open(self.source_dir.parent / "best_reference_map.pkl", "wb") as f:
+            pickle.dump(best, f)
+        return best
+
     def sample_reference_image(self, img_name: str) -> str:
+        if self.use_ssim:
+            return self.best_reference_map[img_name]
         images = self.identity_map[self.img2identity[img_name]]
         ref = self._rng.choice(images)
         while ref == img_name:

@@ -6,10 +6,11 @@ it launches its kernel (never for the plain version).
 
 from face_mask_inpaint_tpu_torch.kernels import flash_attention as _fa
 from face_mask_inpaint_tpu_torch.kernels import norm_act as _na
+from face_mask_inpaint_tpu_torch.kernels import output_head as _oh
 
 __all__ = ["WRAPPERS", "reset_launch_counts"]
 
-WRAPPERS = (_fa.flash_attention, _na.instance_norm_act)
+WRAPPERS = (_fa.flash_attention, _na.instance_norm_act, _oh.output_head)
 
 
 def reset_launch_counts() -> None:

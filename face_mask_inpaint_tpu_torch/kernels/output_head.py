@@ -1,0 +1,121 @@
+"""K3: the fused Output head (CUDA C++, ``csrc/output_head.cu``).
+
+Replaces face_mask_inpaint_tpu/ops/pallas/packed_convt.py ``packed_output_head``
+(``_output_head_kernel``) together with the reflection-ring correction and the
+pool that its caller adds (nn/blocks.py ``Output`` on the decoder's pair):
+
+    out = avg_pool_f(tanh(conv3x3(reflect_pad1(act(h + s)), weight) + bias))
+
+for the last decoder block's pre-add pair h, s [N, C, H, W]. The sum and the
+activation are rounded to the input dtype, as the TPU kernel adds and
+activates in the stream dtype (packed_convt.py:592-606); the conv accumulates
+in f32, bias, tanh and the mean stay in f32, and the result is rounded once
+(packed_convt.py:634-655). The weight is rounded to the input dtype first, as
+the TPU kernel casts its packed weight to the stream dtype. The CUDA source
+says what bounds the kernel on the card and what its design does about that.
+
+``output_head`` launches the kernel for CUDA tensors and raises on what it
+cannot take; for CPU tensors it runs ``output_head_plain``, which is also what
+the kernel is held against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from face_mask_inpaint_tpu_torch.kernels import build
+
+__all__ = ["output_head", "output_head_plain", "ACTS"]
+
+ACTS = ("LeakyReLU", "ReLU")
+_SLOPE = 0.1  # the reference registry's LeakyReLU slope
+_CO_MAX = 4   # the kernel keeps up to four output channels in registers
+_SYMBOLS = {torch.float32: "fmi_output_head_f32", torch.bfloat16: "fmi_output_head_bf16"}
+
+
+def _check(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           act: str, pool: int) -> None:
+    if h.dim() != 4 or h.shape != s.shape:
+        raise ValueError(f"h and s must be one [N, C, H, W] shape, got {tuple(h.shape)} "
+                         f"and {tuple(s.shape)}")
+    if h.dtype not in _SYMBOLS or s.dtype != h.dtype:
+        raise TypeError(f"output_head takes float32 or bfloat16 pairs, got {h.dtype}, "
+                        f"{s.dtype}")
+    n, c, height, width = h.shape
+    if weight.dim() != 4 or tuple(weight.shape[1:]) != (c, 3, 3):
+        raise ValueError(f"weight must be [co, {c}, 3, 3], got {tuple(weight.shape)}")
+    if not 1 <= weight.shape[0] <= _CO_MAX:
+        raise ValueError(f"output_head takes 1..{_CO_MAX} output channels, "
+                         f"got {weight.shape[0]}")
+    if bias.shape != (weight.shape[0],):
+        raise ValueError(f"bias must be [{weight.shape[0]}], got {tuple(bias.shape)}")
+    if act not in ACTS:
+        raise NotImplementedError(f"output_head activation {act!r}: one of {ACTS}")
+    if not isinstance(pool, int) or pool < 1:
+        raise ValueError(f"pool must be an integer >= 1, got {pool!r}")
+    if height < 2 or width < 2:
+        raise ValueError(f"the reflection pad needs H, W >= 2, got {height}x{width}")
+    if height % pool or width % pool:
+        raise ValueError(f"pool {pool} does not divide {height}x{width}")
+
+
+def output_head_plain(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, act: str = "LeakyReLU", pool: int = 1) -> torch.Tensor:
+    """Plain PyTorch version: act(h + s) -> reflect pad -> conv -> tanh ->
+    avg_pool2d(pool), rounding where the kernel rounds."""
+    _check(h, s, weight, bias, act, pool)
+    a = h + s
+    a = F.leaky_relu(a, _SLOPE) if act == "LeakyReLU" else F.relu(a)
+    a = F.pad(a, (1, 1, 1, 1), mode="reflect").float()
+    y = F.conv2d(a, weight.to(h.dtype).float(), bias.float())
+    return F.avg_pool2d(torch.tanh(y), pool).to(h.dtype)
+
+
+def _function(dtype: torch.dtype):
+    fn = getattr(build.load("output_head"), _SYMBOLS[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def output_head(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor, act: str = "LeakyReLU", pool: int = 1) -> torch.Tensor:
+    """avg_pool(tanh(conv3x3(reflect_pad(act(h + s))))) -> [N, co, H/pool, W/pool].
+
+    h, s: [N, C, H, W] contiguous, float32 or bfloat16; weight [co, C, 3, 3]
+    (the effective, spectral-normed weight) and bias [co] in any float
+    dtype. CPU tensors take the plain version; CUDA tensors launch K3.
+    """
+    if h.device.type == "cpu":
+        return output_head_plain(h, s, weight, bias, act, pool)
+    if h.device.type != "cuda":
+        raise ValueError(f"output_head runs on cpu or cuda, not {h.device}")
+    _check(h, s, weight, bias, act, pool)
+    for t in (s, weight, bias):
+        if t.device != h.device:
+            raise ValueError("h, s, weight and bias must lie on one device")
+    if not (h.is_contiguous() and s.is_contiguous()):
+        raise ValueError("output_head takes contiguous NCHW tensors")
+    n, c, height, width = h.shape
+    co = weight.shape[0]
+    # [C, 9, 4] f32, tap-major, co padded to four: the weight rounded to the
+    # stream dtype, as the TPU kernel rounds it
+    w = torch.zeros((c, 9, _CO_MAX), dtype=torch.float32, device=h.device)
+    w[:, :, :co] = weight.detach().to(h.dtype).float().permute(1, 2, 3, 0).reshape(c, 9, co)
+    b = bias.detach().float().contiguous()
+    out = torch.empty((n, co, height // pool, width // pool), dtype=h.dtype, device=h.device)
+    with torch.cuda.device(h.device):
+        rc = _function(h.dtype)(
+            h.data_ptr(), s.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            n, c, height, width, co, pool, int(act == "LeakyReLU"),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"output_head launch failed: cudaError {rc}")
+    output_head.launches += 1
+    return out
+
+
+output_head.launches = 0

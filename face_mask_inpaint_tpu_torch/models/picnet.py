@@ -96,7 +96,8 @@ def sample_z(src_distribution, ref_distribution, eps_q: Optional[torch.Tensor] =
 class ResGenerator(nn.Module):
     """ResNet generator (network.py:181-273): z feeds a ResBlock chain added
     to the encoder features; ``layers`` ResBlockDecoders upsample x2 each;
-    self-attention after decoder1; a tanh Output head on the last layer."""
+    self-attention after decoder1; a tanh Output head on the last layer,
+    which folds in the caller's pool when given one (``fuse_pool``)."""
 
     def __init__(self, input_nc: int, z_channels: Optional[int] = None,
                  output_nc: int = 3, ngf: int = 64, z_nc: int = 512,
@@ -130,18 +131,30 @@ class ResGenerator(nn.Module):
         self.add_module(f"out{layers - 1}", Output(
             in_c, output_nc, 3, norm="none", use_coord=use_coord, **kw))
 
-    def forward(self, encoded: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, encoded: torch.Tensor, z: Optional[torch.Tensor] = None,
+                fuse_pool: Optional[int] = None) -> torch.Tensor:
+        """fuse_pool: an integer factor of the caller's average pool. The
+        last decoder then hands the Output head its (h, bypass) pair, and the
+        head returns the pooled image through kernel K3 (JAX picnet.py:243-262,
+        without the packing conditions)."""
         out = encoded
         if z is not None:
             f = self.generator(z)
             for i in range(self.L):
                 f = getattr(self, f"generator{i}")(f)
             out = encoded + f
+        last = self.layers - 1
+        head = getattr(self, f"out{last}")
+        pair = (isinstance(fuse_pool, int) and head.pair_ok()
+                and not (last == 1 and self.use_attn))
         for i in range(self.layers):
+            if i == last and pair:
+                return head(getattr(self, f"decoder{i}")(out, return_pair=True),
+                            pool=fuse_pool)
             out = getattr(self, f"decoder{i}")(out)
             if i == 1 and self.use_attn:
                 out = getattr(self, f"attn{i}")(out)
-        return getattr(self, f"out{self.layers - 1}")(out)
+        return head(out)
 
 
 def define_e(encoder_type: str = "src", input_nc: int = 3, ngf: int = 64,

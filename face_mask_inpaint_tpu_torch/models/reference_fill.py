@@ -6,9 +6,11 @@ a latent z sampled from both distributions, the ResGenerator, and an
 adaptive average pool to ``out_size``. The DRN encoder and the
 ``no_prior``/old-model path wait for a later slice.
 
-The JAX decoder folds the final pool into its packed tail (``fuse_pool``);
-this port decodes densely to full resolution and pools, which is the same
-math.
+When the decoded size is an integer multiple of ``out_size``, equal on both
+axes, the decoder folds the final pool into its Output head (``fuse_pool``,
+as the JAX model does): the head takes the last decoder's pre-add pair and
+returns the pooled image through kernel K3, so the full-resolution image is
+never written. The adaptive pool after it is then the identity.
 """
 
 from __future__ import annotations
@@ -60,6 +62,16 @@ class ReferenceFill(nn.Module):
                      else torch.Generator().manual_seed(0))
         self.eval()
 
+    def _fuse_pool(self, enc: torch.Tensor) -> Optional[int]:
+        """h_dec // out_h when the decoded size divides by out_size with one
+        factor on both axes (JAX models/reference_fill.py:100-109)."""
+        scale = 2 ** self.decoder.layers
+        h_dec, w_dec = enc.shape[2] * scale, enc.shape[3] * scale
+        out_h, out_w = self.out_size
+        if h_dec % out_h == 0 and w_dec % out_w == 0 and h_dec // out_h == w_dec // out_w:
+            return h_dec // out_h
+        return None
+
     def forward(self, src_image: torch.Tensor, ref_image: torch.Tensor,
                 src_mask: torch.Tensor, eps_q: Optional[torch.Tensor] = None,
                 eps_p: Optional[torch.Tensor] = None,
@@ -85,7 +97,7 @@ class ReferenceFill(nn.Module):
                      _nchw(eps_q) if eps_q is not None else None,
                      _nchw(eps_p) if eps_p is not None else None,
                      generator, return_zq=not self.use_att)
-        dec = self.decoder(enc, z=z)
-        if resize:
+        dec = self.decoder(enc, z=z, fuse_pool=self._fuse_pool(enc) if resize else None)
+        if resize:  # the identity when the decoder already pooled
             dec = adaptive_avg_pool2d(dec, self.out_size)
         return dec.permute(0, 2, 3, 1)

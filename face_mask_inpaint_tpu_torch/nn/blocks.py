@@ -5,10 +5,14 @@ mirror the flax module names, so a JAX variable path maps onto a state_dict
 key by a tree walk (convert.py). Input channel counts, which flax infers
 from the data, are constructor arguments here.
 
-Not ported, because their outputs equal the dense math computed here: the
-space-to-depth packed decoder tail and its Pallas kernels, the conv->avg-pool
-fold (``fuse_avgpool2``: conv then ``avg_pool2d`` here), and the Output head's
-fused activation (``fuse_act``/``pre_activated``: the head applies its own).
+The last decoder block can hand the Output head its (h, bypass) pair before
+the add; the head then runs act(h + s) -> conv -> tanh -> pool as kernel K3
+(kernels/output_head.py), the port of the JAX pair path with
+``FMI_OUTPUT_KERNEL=1``. Not ported, because their outputs equal the dense
+math computed here: the space-to-depth packing of the decoder tail, the
+conv->avg-pool fold (``fuse_avgpool2``: conv then ``avg_pool2d`` here), and
+the Output head's fused activation (``fuse_act``/``pre_activated``: the head
+applies its own).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 from face_mask_inpaint_tpu_torch.nn.layers import (
     Activation, Conv2d, ConvTranspose2d, InstanceNorm2d, make_norm)
 from face_mask_inpaint_tpu_torch.ops.attention import attention_apply
@@ -147,10 +152,13 @@ class ResBlockDecoder(nn.Module):
         self.conv2 = ConvTranspose2d(hidden_nc, output_nc, 3, 2, 1, 1, **kw)
         self.bypass = ConvTranspose2d(input_nc, output_nc, 3, 2, 1, 1, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_pair: bool = False):
+        """Returns h + bypass(x), or with ``return_pair`` the pair (h,
+        bypass(x)) before the add, for the Output head's kernel."""
         h = self.conv1(_norm_act(x, self.norm1, self.act))
         h = self.conv2(_norm_act(h, self.norm2, self.act))
-        return h + self.bypass(x)
+        s = self.bypass(x)
+        return (h, s) if return_pair else h + s
 
 
 class Output(nn.Module):
@@ -162,14 +170,32 @@ class Output(nn.Module):
                  use_spect: bool = False, use_coord: bool = False,
                  init_type: str = "lecun_normal"):
         super().__init__()
-        self.kernel_size = kernel_size
+        self.kernel_size, self.norm, self.use_coord = kernel_size, norm, use_coord
+        self.activation = activation
         self.act = Activation(activation)
         self.norm1 = make_norm(norm, input_nc)
         self.conv1 = CoordConvWrap(input_nc, output_nc, kernel_size, padding=0,
                                    use_spect=use_spect, use_coord=use_coord,
                                    init_type=init_type)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def pair_ok(self) -> bool:
+        """Whether the head can take a decoder pair (JAX ``kern_ok``,
+        nn/blocks.py:424-427)."""
+        return (self.norm == "none" and self.kernel_size == 3 and not self.use_coord
+                and self.activation in oh.ACTS)
+
+    def forward(self, x, pool: Optional[int] = None) -> torch.Tensor:
+        """x: a map [N, C, H, W] -> [N, co, H, W]; or the decoder's pair
+        (h, s) with an integer ``pool``, which runs act(h + s) -> conv ->
+        tanh -> pool as kernel K3 -> [N, co, H/pool, W/pool]."""
+        if isinstance(x, (tuple, list)):
+            assert self.pair_ok() and isinstance(pool, int), \
+                "the pair head needs norm 'none', a 3x3 conv without CoordConv, " \
+                "a (Leaky)ReLU and an integer pool"
+            h, s = x
+            conv = self.conv1.conv
+            return oh.output_head(h.contiguous(), s.contiguous(), conv.effective_weight(),
+                                  conv.bias, self.activation, pool)
         if self.norm1 is not None:
             x = self.norm1(x)
         h = reflection_pad2d(self.act(x), self.kernel_size // 2)

@@ -61,6 +61,27 @@ def test_picnet_inference_cli_cpu(tree, tmp_path, checkpoint):
     assert math.isfinite(float(csv[1].split(",")[0]))  # ms_ssim is nan below 161^2
 
 
+def test_picnet_inference_cli_best_reference_cpu(tmp_path):
+    """--use_best_reference 1 scores each identity group on --device and
+    caches the map beside the image folders, as the JAX CLI does."""
+    tree = make_synthetic_celeba(tmp_path / "celeba", n_identities=2,
+                                 images_per_identity=3, size=(64, 64))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([
+        sys.executable, "-m", "face_mask_inpaint_tpu_torch.cli.picnet_inference",
+        "--device", "cpu", "--data_root", str(tree["root"]), "--use_best_reference", "1",
+        "--mask_detector_path", "", "--pt_ckpt_path", str(tmp_path / "run" / "model.pt"),
+        "--batch_size", "4", *WIDTHS,
+    ], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert (tree["root"] / "best_reference_map.pkl").is_file()
+    out_dir = tmp_path / "test_results" / "run"
+    assert len(list(out_dir.glob("gen_*.jpg"))) == tree["n_images"]
+    csv = (out_dir / "metrics.csv").read_text().splitlines()
+    assert math.isfinite(float(csv[1].split(",")[0]))
+
+
 def test_cuda_device_fails_loudly_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")

@@ -1,5 +1,9 @@
 """Port data layer and SSIM against the JAX package: dataset items, the
-loader's pad_last/_valid batches, and SSIM/MS-SSIM (f32 max-abs 1e-5)."""
+best-SSIM reference map and its pkl cache, the loader's pad_last/_valid
+batches, and SSIM/MS-SSIM (f32 max-abs 1e-5)."""
+
+import pickle
+import shutil
 
 import numpy as np
 import pytest
@@ -11,7 +15,7 @@ from face_mask_inpaint_tpu.data.dataset import ReferenceDataset as JReferenceDat
 from face_mask_inpaint_tpu.data.loader import DataLoader as JDataLoader
 from face_mask_inpaint_tpu.data.synthetic import make_synthetic_celeba
 from face_mask_inpaint_tpu.evaluations import ssim as jssim
-from face_mask_inpaint_tpu_torch.data.dataset import ReferenceDataset
+from face_mask_inpaint_tpu_torch.data.dataset import ReferenceDataset, _load, _preprocess
 from face_mask_inpaint_tpu_torch.data.loader import DataLoader
 from face_mask_inpaint_tpu_torch.evaluations import ssim as tssim
 from face_mask_inpaint_tpu_torch.utils.images import mask2im, tensor2im
@@ -49,6 +53,49 @@ def test_dataset_items_match_jax(tree, apply_transform):
         for k in ("src_img", "gt_img", "raw_gt_img", "mask", "id"):
             np.testing.assert_array_equal(got[k], want[k])
         assert got["ref_img"].shape == want["ref_img"].shape
+
+
+def test_best_reference_map_matches_jax(tmp_path):
+    """The port's best-SSIM map against JAX ``ReferenceDataset(use_ssim=True)``:
+    equal wherever the best score leads the runner-up by more than 1e-4 (the
+    two SSIMs differ in f32 rounding only). Each package's pkl loads in the
+    other."""
+    tree = make_synthetic_celeba(tmp_path / "celeba", n_identities=3,
+                                 images_per_identity=4, size=(40, 48))
+    cache = tree["root"] / "best_reference_map.pkl"
+    want = JReferenceDataset(*_dirs(tree), use_ssim=True).best_reference_map
+    jax_pkl = tmp_path / "jax_map.pkl"
+    shutil.move(cache, jax_pkl)
+    got = ReferenceDataset(*_dirs(tree), use_ssim=True, seed=0).best_reference_map
+    assert cache.is_file() and set(got) == set(want)
+
+    tds = ReferenceDataset(*_dirs(tree), seed=0)
+    decided = 0
+    for group in tds.identity_map.values():
+        imgs = np.stack([_preprocess(_load(tree["ref_dir"] / f"{m}.jpg"), 1.0, False)
+                         for m in group])
+        k = len(group)
+        scores = np.array(jssim.ssim(jnp.asarray(np.repeat(imgs, k, axis=0)),
+                                     jnp.asarray(np.tile(imgs, (k, 1, 1, 1))),
+                                     size_average=False)).reshape(k, k)
+        np.fill_diagonal(scores, -np.inf)
+        for i, m in enumerate(group):
+            top2 = np.sort(scores[i])[-2:]
+            if top2[1] - top2[0] > 1e-4:
+                decided += 1
+                assert got[m] == want[m] == group[int(np.argmax(scores[i]))], m
+    assert decided > 0
+
+    with open(cache, "rb") as f:  # the port's pkl: the same format
+        assert pickle.load(f) == got
+    assert JReferenceDataset(*_dirs(tree), use_ssim=True).best_reference_map == got
+    shutil.move(jax_pkl, cache)  # the JAX package's pkl loads in the port
+    ds = ReferenceDataset(*_dirs(tree), apply_transform=False, use_ssim=True, seed=0)
+    assert ds.best_reference_map == want
+    item = ds[0]
+    np.testing.assert_array_equal(
+        item["ref_img"], _preprocess(_load(tree["ref_dir"] / f"{want[ds.ids[0]]}.jpg"),
+                                     1.0, False))
 
 
 def test_loader_pads_last_batch_like_jax():

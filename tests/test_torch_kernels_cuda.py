@@ -1,4 +1,4 @@
-"""K1 and K2 against their plain versions on an NVIDIA GPU. Marked ``cuda``:
+"""K1, K2 and K3 against their plain versions on an NVIDIA GPU. Marked ``cuda``:
 they skip where torch.cuda.is_available() is False (the decision is taken in
 a fixture, at run time). Run on the card, where JAX need not be installed,
 with ``python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest``.
@@ -13,6 +13,7 @@ import torch
 
 from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
 from face_mask_inpaint_tpu_torch.kernels import norm_act as na
+from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +83,43 @@ def test_norm_act_kernel_rejects_non_contiguous(cuda):
     x = torch.randn(2, 4, 8, 8, device="cuda").transpose(2, 3)
     with pytest.raises(ValueError):
         na.instance_norm_act(x, None, None)
+
+
+def _head_inputs(gen, shape, co, dtype):
+    n, c, _, _ = shape
+    h = (torch.randn(shape, device="cuda", generator=gen) * 2).to(dtype)
+    s = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    w = torch.randn(co, c, 3, 3, device="cuda", generator=gen) / (3 * c ** 0.5)
+    b = torch.randn(co, device="cuda", generator=gen) * 0.1
+    return h, s, w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,co,pool,act", [
+    ((2, 5, 36, 44), 3, 1, "LeakyReLU"), ((2, 5, 36, 44), 3, 2, "ReLU"),
+    ((2, 5, 36, 44), 3, 4, "LeakyReLU"), ((1, 7, 30, 42), 2, 3, "LeakyReLU"),
+    ((1, 3, 128, 192), 4, 64, "ReLU"),                  # f > 32: one cell per block
+    ((16, 32, 1024, 1024), 3, 4, "LeakyReLU"),          # the flagship head
+])
+def test_output_head_kernel_matches_plain(cuda, dtype, shape, co, pool, act):
+    h, s, w, b = _head_inputs(cuda, shape, co, dtype)
+    before = oh.output_head.launches
+    y = oh.output_head(h, s, w, b, act, pool)
+    torch.cuda.synchronize()
+    assert oh.output_head.launches == before + 1
+    assert y.dtype == dtype and y.shape == (shape[0], co, shape[2] // pool, shape[3] // pool)
+    _assert_close(y, oh.output_head_plain(h, s, w, b, act, pool), dtype)
+
+
+def test_output_head_kernel_rejects_bad_input(cuda):
+    h, s, w, b = _head_inputs(cuda, (1, 4, 16, 16), 3, torch.float32)
+    with pytest.raises(ValueError):
+        oh.output_head(h, s, w, b, "LeakyReLU", 3)               # 3 does not divide 16
+    with pytest.raises(ValueError):
+        oh.output_head(h, s.transpose(2, 3), w, b, "LeakyReLU", 2)
+    with pytest.raises(TypeError):
+        oh.output_head(h, s.to(torch.bfloat16), w, b, "LeakyReLU", 2)
+    with pytest.raises(NotImplementedError):
+        oh.output_head(h, s, w, b, "SELU", 2)
+    with pytest.raises(ValueError):
+        oh.output_head(h[:, :, :1], s[:, :, :1], w, b, "ReLU", 1)  # H < 2
