@@ -5,29 +5,38 @@
 
 The main path is the flagship: reference-guided PICNet inference at 256^2
 (MaskDetector.predict_mask, then ReferenceFill at the bench.py flagship
-widths), the path of ``PICNet_inference.py --use_att 1``. Phases:
+widths), the path of ``PICNet_inference.py --use_att 1``, in two
+configurations: the default one (kernels K1, K2, K3) and the packed-convt one
+of ``FMI_PACKED_CONVT=1`` (``packed_convt=True``: decoders 3 and 4 run their
+fused tail, kernels K4b and K4a, and K3 does not run). Phases:
 
 1. build the CUDA kernels from the sources in the checkout (set-up time);
 2. hold each kernel against its plain PyTorch version on the card, at the
    flagship shapes and ragged ones, in float32 (TF32 off) and bfloat16; time
    each at the flagship shape beside its bound (the larger of its bytes over
-   the memory rate and its operations over the peak rate) and, for K1,
-   beside the one PyTorch call that computes the same function;
+   the memory rate and its operations over the peak rate) and, for K1, K4b
+   and K4a, beside the PyTorch call that computes the same function;
 3. the flagship models at batch 4, float32, random weights from --seed:
    output shape, range and finiteness; the kernel path against the plain
    versions on the card; the launch counts of one forward (K1 once, K2 ten
    times, K3 once);
+3b. the packed-convt configuration on the same models and inputs: the
+   launch counts of one forward (K1 once, K2 six times, K4b and K4a twice,
+   K3 never), the kernel path against the plain versions and against the
+   default configuration's output (both compute the same function);
 4. the CLI's ``infer_batch`` over three seeded batches, with SSIM/MS-SSIM;
 5. the flagship forward at batch 16 in bfloat16 (bench.py's configuration),
-   timed with CUDA events, with the kernels and with the plain versions, and
-   its peak device memory;
-6. a profile of that forward three ways: with the kernels, with the dense
-   Output head of the previous slice (K1 and K2 on, no K3), and with the
-   plain versions. It prints the time of each stage (CUDA events around
-   each stage's module), the spread of the forward over PROFILE_ROUNDS
-   rounds of three forwards a side in alternating order with the host's
-   enqueue time, and a ``torch.profiler`` window of three forwards
-   (device-busy share, kernels by device time).
+   timed with CUDA events, in the default configuration with the kernels
+   and with the plain versions and in the packed-convt one with the
+   kernels, in alternating order, and the peak device memory of each
+   configuration's forward;
+6. a profile of that forward: the time of each stage (CUDA events around
+   each stage's module) with the kernels, with the dense Output head
+   (K1 and K2 on, no K3) and in the packed-convt configuration; the spread
+   of the forward over PROFILE_ROUNDS rounds of three forwards a side in
+   alternating order (kernels, dense head, plain versions) with the host's
+   enqueue time, and a ``torch.profiler`` window of three forwards in each
+   configuration (device-busy share, kernels by device time).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -61,13 +70,23 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7)}
 LSE_ATOL = 1e-3
 # the flagship Output head: the last decoder's pair at 1024^2, pooled 4x
 HEAD = dict(shape=(16, 32, 1024, 1024), co=3, pool=4)
+# the flagship's decoders 3 and 4 as the fused tail runs them: input x
+# [16, C, H, H] -> K4b h [16, Co, H, H] -> K4a (h, x) -> [16, Co, 2H, 2H]
+DECODER_TAIL = [dict(name="decoder 3", c=128, co=64, h=256),
+                dict(name="decoder 4", c=64, co=32, h=512)]
+# |Σ kernel - Σ plain| <= rtol * (|Σ plain| + max |Σ plain|) for the f32 sums
+# of y and y^2 of K4a and K4b: the same f32 values added in another order
+STATS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # one H100 SXM: HBM bytes/s; dense bf16 tensor-core and f32 CUDA-core FLOP/s
 MEM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
 
 # rounds of the phase-6 spread: enough for quartiles of a host-bound forward
 PROFILE_ROUNDS = 10
-# launches of one flagship forward
-PER_FORWARD = {"flash_attention_fwd": 1, "instance_norm_act": 10, "output_head": 1}
+# launches of one flagship forward, default and packed-convt configuration
+PER_FORWARD = {"flash_attention_fwd": 1, "instance_norm_act": 10, "output_head": 1,
+               "conv3x3_stats": 0, "convt_pair": 0}
+PACKED_PER_FORWARD = {"flash_attention_fwd": 1, "instance_norm_act": 6, "output_head": 0,
+                      "conv3x3_stats": 2, "convt_pair": 2}
 
 KERNELS = {
     "flash_attention_fwd": dict(
@@ -79,6 +98,12 @@ KERNELS = {
     "output_head": dict(
         route="cuda", source="face_mask_inpaint_tpu_torch/csrc/output_head.cu",
         replaces="face_mask_inpaint_tpu/ops/pallas/packed_convt.py:658"),
+    "conv3x3_stats": dict(
+        route="cuda", source="face_mask_inpaint_tpu_torch/csrc/decoder_conv.cu",
+        replaces="face_mask_inpaint_tpu/ops/pallas/packed_convt.py:444"),
+    "convt_pair": dict(
+        route="cuda", source="face_mask_inpaint_tpu_torch/csrc/decoder_conv.cu",
+        replaces="face_mask_inpaint_tpu/ops/pallas/packed_convt.py:247"),
 }
 
 
@@ -130,19 +155,24 @@ def _time_ms(fn, reps: int):
 def plain_versions():
     """Route the model's kernel calls to the plain versions (for the
     comparisons and the plain timing only; launches are not counted)."""
+    from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
     from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
     from face_mask_inpaint_tpu_torch.kernels import norm_act as na
     from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 
-    saved = fa.flash_attention, na.instance_norm_act, oh.output_head
+    saved = (fa.flash_attention, na.instance_norm_act, oh.output_head, dc.conv3x3_stats,
+             dc.convt_pair)
     fa.flash_attention = lambda q, values, with_lse=False: fa.flash_attention_plain(
         q, values, with_lse=with_lse)
     na.instance_norm_act = na.instance_norm_act_plain
     oh.output_head = oh.output_head_plain
+    dc.conv3x3_stats = dc.conv3x3_stats_plain
+    dc.convt_pair = dc.convt_pair_plain
     try:
         yield
     finally:
-        fa.flash_attention, na.instance_norm_act, oh.output_head = saved
+        (fa.flash_attention, na.instance_norm_act, oh.output_head, dc.conv3x3_stats,
+         dc.convt_pair) = saved
 
 
 def phase_build():
@@ -282,6 +312,133 @@ def phase_kernels(run: Run, seed: int, timings: dict):
                       f"ms, bound {bound[0]:.3f} ms ({bound[1]})")
             del h, s, y
         torch.cuda.empty_cache()
+    _phase_decoder_tail(run, gen, timings)
+
+
+def _stats_close(got, want, dname):
+    """(ok, error relative to the largest sum) of K4's (sum y, sum y^2)."""
+    rtol = STATS_RTOL[dname]
+    ok, err = True, 0.0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        e = (g - w).abs()
+        ok = ok and bool((e <= rtol * (w.abs() + scale)).all())
+        err = max(err, float(e.max()) / scale)
+    return ok, err
+
+
+def _tail_operands(gen, n, c, co, h, w, dtype):
+    """One decoder block's operands: x, conv1 (weight, bias, prologue) and the
+    convT pair's weights and biases, with norm-like prologue affines."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    x = (rnd(n, c, h, w) * 1.5 + 0.2).to(dtype)
+    pro1 = (0.5 + torch.rand(n, c, device="cuda", generator=gen), 0.3 * rnd(n, c), "LeakyReLU")
+    pro2 = (0.5 + torch.rand(n, co, device="cuda", generator=gen), 0.3 * rnd(n, co),
+            "LeakyReLU")
+    return dict(x=x, w1=rnd(co, c, 3, 3) / (3 * c ** 0.5), b1=0.5 * rnd(co), pro1=pro1,
+                w2=rnd(co, co, 3, 3) / (3 * co ** 0.5), b2=0.5 * rnd(co), pro2=pro2,
+                wb=rnd(c, co, 3, 3) / (3 * c ** 0.5), bb=0.5 * rnd(co))
+
+
+def _phase_decoder_tail(run: Run, gen, timings: dict):
+    """K4b and K4a against their plain versions at the flagship's decoder 3
+    and 4 shapes (chained as the block runs them: K4b's output feeds K4a)
+    and at ragged ones; times summed over the two decoders."""
+    import torch
+    import torch.nn.functional as F
+
+    from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
+
+    ragged = [dict(name="ragged", n=3, c=13, co=3, h=37, w=41, pro="ReLU", act="LeakyReLU"),
+              dict(name="ragged", n=2, c=21, co=80, h=17, w=70, pro=None, act=None)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        rate = BF16_RATE if dtype == torch.bfloat16 else F32_RATE
+        acc = {k: dict(ms=0.0, plain=0.0, lib=0.0, bounds=[]) for k in ("conv3x3_stats",
+                                                                       "convt_pair")}
+        cases = [dict(d, n=16, w=d["h"], pro="LeakyReLU",
+                      act="LeakyReLU" if d["name"] == "decoder 4" else None)
+                 for d in DECODER_TAIL] + ragged
+        for case in cases:
+            n, c, co, h, w = (case[k] for k in ("n", "c", "co", "h", "w"))
+            t = _tail_operands(gen, n, c, co, h, w, dtype)
+            flagship = case["name"].startswith("decoder")
+            pro1 = t["pro1"] if case["pro"] else None
+            if pro1 is not None:
+                pro1 = (pro1[0], pro1[1], case["pro"])
+            k4b_args = (t["x"], t["w1"], t["b1"], pro1, case["act"] if not flagship else None)
+            y, st = dc.conv3x3_stats(*k4b_args, with_stats=True)
+            torch.cuda.synchronize()
+            want, want_st = dc.conv3x3_stats_plain(*k4b_args, with_stats=True)
+            ok, err = _close(y, want, dname)
+            s_ok, s_err = _stats_close(st, want_st, dname)
+            run.err["conv3x3_stats"] = max(run.err["conv3x3_stats"], err)
+            run.check(ok and s_ok, f"K4b {case['name']} N={n} C={c} Co={co} H={h} W={w} "
+                                   f"pro={case['pro']} {dname}: max_abs_err {err:.3e} (tol atol "
+                                   f"{TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|), stats "
+                                   f"err {s_err:.3e} of the largest (rtol {STATS_RTOL[dname]})")
+            del want, want_st
+            # K4a on K4b's output, as the block chains them
+            streams = [(y, t["w2"], t["b2"], t["pro2"]), (t["x"], t["wb"], t["bb"])]
+            act, with_stats = case["act"], case["act"] is None
+            out = dc.convt_pair(streams, act, with_stats)
+            torch.cuda.synchronize()
+            want = dc.convt_pair_plain(streams, act, with_stats)
+            s_ok, s_note = True, "no stats"
+            if with_stats:
+                (out, st), (want, want_st) = out, want
+                s_ok, s_err = _stats_close(st, want_st, dname)
+                s_note = f"stats err {s_err:.3e} of the largest (rtol {STATS_RTOL[dname]})"
+            ok, err = _close(out, want, dname)
+            run.err["convt_pair"] = max(run.err["convt_pair"], err)
+            run.check(ok and s_ok, f"K4a {case['name']} N={n} C_h={co} C_x={c} Co={co} H={h} "
+                                   f"W={w} act={act} {dname}: max_abs_err {err:.3e} (tol atol "
+                                   f"{TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|), "
+                                   f"{s_note}")
+            del want
+            if flagship:
+                es = t["x"].element_size()
+                w1, b1 = t["w1"].to(dtype), t["b1"].to(dtype)
+                w2, b2, wb, bb = (t[k].to(dtype) for k in ("w2", "b2", "wb", "bb"))
+                # the library yardsticks leave out the prologues and the stats
+                per = {"conv3x3_stats": (
+                    lambda: dc.conv3x3_stats(*k4b_args, with_stats=True),
+                    lambda: dc.conv3x3_stats_plain(*k4b_args, with_stats=True),
+                    lambda: F.conv2d(t["x"], w1, b1, padding=1),
+                    _bound((t["x"].numel() + y.numel() + w1.numel()) * es,
+                           2.0 * n * h * w * co * c * 9, rate)),
+                       "convt_pair": (
+                    lambda: dc.convt_pair(streams, act, with_stats),
+                    lambda: dc.convt_pair_plain(streams, act, with_stats),
+                    lambda: (F.conv_transpose2d(y, w2, b2, 2, 1, 1)
+                             + F.conv_transpose2d(t["x"], wb, bb, 2, 1, 1)),
+                    _bound((y.numel() + t["x"].numel() + out.numel() + w2.numel()
+                            + wb.numel()) * es, 2.0 * n * h * w * 9 * (co * co + c * co), rate))}
+                for name, (kernel, plain, library, bound) in per.items():
+                    a = acc[name]
+                    ms, plain_ms, lib_ms = (_time_ms(kernel, 5), _time_ms(plain, 3),
+                                            _time_ms(library, 5))
+                    a["ms"] += ms
+                    a["plain"] += plain_ms
+                    a["lib"] += lib_ms
+                    a["bounds"].append(bound)
+                    print(f"[time] {'K4b' if name == 'conv3x3_stats' else 'K4a'} "
+                          f"{case['name']} {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+                          f"ms, library {lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
+            del t, y, out, streams
+            torch.cuda.empty_cache()
+        for name, a in acc.items():
+            bound = sum(b for b, _ in a["bounds"])
+            by = max(a["bounds"])[1]
+            timings[(name, dname)] = (a["ms"], a["plain"], bound, by, a["lib"])
+            print(f"[time] {'K4b' if name == 'conv3x3_stats' else 'K4a'} decoders 3 + 4 at "
+                  f"N=16 {dname}: kernel {a['ms']:.3f} ms, plain {a['plain']:.3f} ms, bound "
+                  f"{bound:.3f} ms ({by}), library {a['lib']:.3f} ms (no prologue, no stats)",
+                  flush=True)
 
 
 def _models(seed: int, dtype):
@@ -301,16 +458,30 @@ def _models(seed: int, dtype):
 
 
 def _counts():
+    from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
     from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
     from face_mask_inpaint_tpu_torch.kernels import norm_act as na
     from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 
     return {"flash_attention_fwd": fa.flash_attention.launches,
             "instance_norm_act": na.instance_norm_act.launches,
-            "output_head": oh.output_head.launches}
+            "output_head": oh.output_head.launches,
+            "conv3x3_stats": dc.conv3x3_stats.launches,
+            "convt_pair": dc.convt_pair.launches}
 
 
-def phase_flagship(run: Run, seed: int) -> dict:
+@contextlib.contextmanager
+def packed_convt(model):
+    """The packed-convt configuration (``FMI_PACKED_CONVT=1``) of the same
+    model: decoders 3 and 4 run their fused tail, K4b and K4a."""
+    model.decoder.packed_convt = True
+    try:
+        yield
+    finally:
+        model.decoder.packed_convt = False
+
+
+def phase_flagship(run: Run, seed: int) -> tuple[dict, dict]:
     import torch
 
     from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
@@ -343,9 +514,32 @@ def phase_flagship(run: Run, seed: int) -> dict:
     run.check(torch.equal(mask, mask_plain) and err <= 1e-3,
               f"flagship kernel path vs plain versions (float32, batch 4): max_abs_err "
               f"{err:.3e} (tol 1e-3)")
+    del out_plain
+
+    # 3b: the packed-convt configuration on the same weights and inputs
+    with packed_convt(model):
+        reset_launch_counts()
+        out_p, _ = forward()
+        torch.cuda.synchronize()
+        packed_launches = _counts()
+        print(f"[packed-convt] launches in one forward: {packed_launches}", flush=True)
+        run.check(packed_launches == PACKED_PER_FORWARD,
+                  f"packed-convt forward launches K1 once, K2 six times, K4b and K4a twice "
+                  f"each and K3 never: {packed_launches}")
+        run.check(tuple(out_p.shape) == (4, HW, HW, 3) and bool(torch.isfinite(out_p).all())
+                  and float(out_p.abs().max()) <= 1.0,
+                  f"packed-convt output shape {tuple(out_p.shape)}, finite, within [-1, 1]")
+        with plain_versions():
+            out_pp, _ = forward()
+    err = float((out_p - out_pp).abs().max())
+    run.check(err <= 1e-3, f"packed-convt kernel path vs plain versions (float32, batch 4): "
+                           f"max_abs_err {err:.3e} (tol 1e-3)")
+    err = float((out_p - out).abs().max())
+    run.check(err <= 1e-3, f"packed-convt vs default configuration (float32, batch 4): "
+                           f"max_abs_err {err:.3e} (tol 1e-3)")
     del detector, model
     torch.cuda.empty_cache()
-    return launches
+    return launches, packed_launches
 
 
 def phase_cli(run: Run, seed: int):
@@ -385,7 +579,6 @@ def phase_timing(run: Run, seed: int, timings: dict, card: str):
 
     batch = 16
     detector, model = _models(seed, torch.bfloat16)
-    torch.cuda.reset_peak_memory_stats()  # this forward's peak, not phase 2's
     gen = torch.Generator(device="cuda").manual_seed(seed)
     src = torch.rand(batch, HW, HW, 3, device="cuda", generator=gen)
     ref = torch.rand(batch, HW, HW, 3, device="cuda", generator=gen)
@@ -395,27 +588,41 @@ def phase_timing(run: Run, seed: int, timings: dict, card: str):
         with torch.no_grad():
             return model(src, ref, detector.predict_mask(src), generator=noise)
 
-    reset_launch_counts()
-    out = forward()
-    torch.cuda.synchronize()
-    launches = _counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    run.check(launches == PER_FORWARD
-              and out.dtype == torch.bfloat16 and bool(torch.isfinite(out.float()).all()),
-              f"bf16 batch-16 forward: {out.dtype}, launches {launches}")
-    kernel_t, plain_t = [], []
-    for _ in range(3):  # alternate so drift hits both sides alike
-        kernel_t.append(_time_ms(forward, 3))
-        with plain_versions():
-            plain_t.append(_time_ms(forward, 3))
-    ms, plain_ms = statistics.median(kernel_t), statistics.median(plain_t)
-    timings["flagship"] = (ms, plain_ms)
-    print(f"[time] flagship forward bf16 batch {batch}: kernels {ms:.2f} ms "
-          f"({batch / ms * 1e3:.2f} images/s), plain versions {plain_ms:.2f} ms "
-          f"({batch / plain_ms * 1e3:.2f} images/s) on {card}", flush=True)
-    print(f"[time] peak device memory of the bf16 batch-{batch} forward on the kernel "
-          f"path {peak:.2f} GiB, with the plain versions' forwards "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, on {card}")
+    peaks = {}
+    for name, config, want in (("default", contextlib.nullcontext, PER_FORWARD),
+                               ("packed-convt", lambda: packed_convt(model),
+                                PACKED_PER_FORWARD)):
+        with config():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()  # this forward's peak alone
+            reset_launch_counts()
+            out = forward()
+            torch.cuda.synchronize()
+            launches = _counts()
+            peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        run.check(launches == want
+                  and out.dtype == torch.bfloat16 and bool(torch.isfinite(out.float()).all()),
+                  f"bf16 batch-16 forward, {name} configuration: {out.dtype}, launches "
+                  f"{launches}")
+        del out
+    sides = {"kernels": contextlib.nullcontext, "packed-convt": lambda: packed_convt(model),
+             "plain": plain_versions}
+    times = {side: [] for side in sides}
+    for r in range(3):  # alternate so drift hits all sides alike
+        for side in (list(sides) if r % 2 == 0 else list(sides)[::-1]):
+            with sides[side]():
+                times[side].append(_time_ms(forward, 3))
+    ms = {side: statistics.median(v) for side, v in times.items()}
+    timings["flagship"] = (ms["kernels"], ms["plain"])
+    timings["packed-convt"] = ms["packed-convt"]
+    print(f"[time] flagship forward bf16 batch {batch}: kernels {ms['kernels']:.2f} ms "
+          f"({batch / ms['kernels'] * 1e3:.2f} images/s), packed-convt configuration "
+          f"{ms['packed-convt']:.2f} ms ({batch / ms['packed-convt'] * 1e3:.2f} images/s), "
+          f"plain versions {ms['plain']:.2f} ms ({batch / ms['plain'] * 1e3:.2f} images/s) "
+          f"on {card}", flush=True)
+    print(f"[time] peak device memory of the bf16 batch-{batch} forward: default "
+          f"configuration {peaks['default']:.2f} GiB, packed-convt configuration "
+          f"{peaks['packed-convt']:.2f} GiB, on {card}")
 
 
 def _stage_modules(detector, model) -> dict:
@@ -428,7 +635,7 @@ def _stage_modules(detector, model) -> dict:
         stages[f"decoder{i}"] = getattr(dec, f"decoder{i}")
         if i == 1 and dec.use_attn:
             stages["attn1 (K1)"] = dec.attn1
-    stages["Output head (K3)"] = getattr(dec, f"out{dec.layers - 1}")
+    stages["Output head"] = getattr(dec, f"out{dec.layers - 1}")
     return stages
 
 
@@ -462,8 +669,10 @@ def phase_profile(seed: int, rounds: int, card: str):
 
     sides = {"kernels": contextlib.nullcontext, "dense head": lambda: dense_head(model),
              "plain": plain_versions}
-    for side in ("kernels", "dense head"):
-        with sides[side]():
+    configs = {"kernels": contextlib.nullcontext, "dense head": lambda: dense_head(model),
+               "packed-convt": lambda: packed_convt(model)}
+    for side in configs:
+        with configs[side]():
             forward()
             torch.cuda.synchronize()
             events, hooks = {}, []
@@ -512,8 +721,8 @@ def phase_profile(seed: int, rounds: int, card: str):
               f"{min(v):.2f}-{max(v):.2f}; host enqueue {min(enqueue[side]):.2f}-"
               f"{max(enqueue[side]):.2f} on {card}", flush=True)
 
-    for side in ("kernels", "dense head"):
-        with sides[side]():
+    for side in configs:
+        with configs[side]():
             forward()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -557,7 +766,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_build()
     phase_kernels(run, args.seed, timings)
-    launches = phase_flagship(run, args.seed)
+    launches, packed_launches = phase_flagship(run, args.seed)
     phase_cli(run, args.seed)
     phase_timing(run, args.seed, timings, smi)
     phase_profile(args.seed, PROFILE_ROUNDS, smi)
@@ -571,7 +780,9 @@ def main(argv=None) -> int:
     kernels = []
     for name, meta in KERNELS.items():
         ms, plain_ms, bound_ms, bound_by, library_ms = timings[(name, "bfloat16")]
-        kernels.append({"name": name, **meta, "launches": launches[name],
+        # K4b and K4a count one forward of the configuration that runs them
+        n = packed_launches[name] if name in ("conv3x3_stats", "convt_pair") else launches[name]
+        kernels.append({"name": name, **meta, "launches": n,
                         "max_abs_err": run.err[name], "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_ms})

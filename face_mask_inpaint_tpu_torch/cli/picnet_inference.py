@@ -15,6 +15,10 @@ conversion, the DRN encoder and ``--old_model`` are not ported yet and raise.
 ``--use_best_reference 1`` takes each image's best-SSIM reference, scored on
 ``--device`` (or read from the dataset's cached map). ``--device`` defaults
 to cuda and fails when CUDA is absent; ``--device cpu`` runs on the CPU.
+
+``FMI_PACKED_CONVT=1`` in the environment, the JAX package's own switch,
+builds the generator with ``packed_convt=True``: the decoder blocks above
+``pack_threshold`` run their fused tail, kernels K4b and K4a.
 """
 
 from __future__ import annotations
@@ -125,6 +129,7 @@ def build_models(args, device: torch.device):
     if args.old_model or args.encoder_type != 'pluralistic':
         raise NotImplementedError("--old_model and the DRN encoder are not ported yet")
     encoder_params, decoder_params = process_params(args)
+    decoder_params["packed_convt"] = os.environ.get("FMI_PACKED_CONVT") == "1"
     weights = torch.Generator().manual_seed(args.seed)
     detector = MaskDetector(n_channels=3, bilinear=True, generator=weights)
     generator = ReferenceFill(encoder_params, decoder_params, use_att=bool(args.use_att),

@@ -1,0 +1,557 @@
+// The fused decoder tail of the PICNet generator: kernels K4b and K4a.
+//
+// Replaces: face_mask_inpaint_tpu/ops/pallas/packed_convt.py:444
+// `packed_conv3x3_stats` (`_conv3_kernel`, pallas_call at :526) and
+// packed_convt.py:247 `packed_convt_pair` (`_convt_kernel`, pallas_call at
+// :333). The TPU kernels work on a space-to-depth packed map, where the
+// column axis folds into channels; these work on the dense NCHW map, so the
+// packing and its slot-row stencils are gone and only the arithmetic stays.
+//
+// K4b, one decoder block's first conv:
+//     h = conv3x3_s1_p1(pro(x), w) + b
+// K4a, the block's upsampling pair, summed over one or two input streams:
+//     y = sum_s convT_k3_s2_p1_op1(pro_s(x_s), w_s) + sum_s b_s
+// with an optional prologue per stream, pro(x)[n, c] = act(x * A[n, c] +
+// B[n, c]) (the previous stage's instance-norm affine, then LeakyReLU(0.1)
+// or ReLU), computed in f32 and rounded to the stream type T in {f32, bf16},
+// as the TPU kernels round it (packed_convt.py:121-123, :394-395). The conv's
+// zero padding, and the zero of the convT's output_padding, are written
+// after the prologue. Weights arrive in f32 already rounded to T; products
+// accumulate in f32, the bias is added in f32, the per-(n, co) sums of y and
+// y^2 are taken from that f32 value, and then the optional activation and
+// one rounding to T follow (packed_convt.py:214-217, :438-441).
+//
+// ConvT per axis: out[o] = sum_k w[k] x[(o + 1 - k) / 2] over the k for
+// which the division is exact. Even o = 2m reads k = 1 at m; odd o = 2m + 1
+// reads k = 0 at m + 1 and k = 2 at m. Index m + 1 = H is the zero of
+// output_padding. One input position (m, n) thus feeds its four output
+// parities through the nine taps, each tap once.
+//
+// What bounds them on an H100 (bf16, batch 16, the flagship's decoders 3 and
+// 4): per call 155 (K4b) or 232 (K4a) GFLOP against 0.40-1.88 GB of traffic,
+// i.e. 120-380 FLOP a byte. On the tensor cores (989 TFLOP/s) the bound is
+// 0.16-0.56 ms, set by bytes for three of the four calls. These kernels run
+// on the CUDA cores (67 TFLOP/s f32 FMA), which makes them compute-bound at
+// 2.3-3.5 ms a call at best. Their design keeps the FMA units fed from
+// registers:
+//   - a block of 256 threads owns a tile of output pixels for up to 64
+//     output channels, so each input byte is read from device memory about
+//     once per 64 output channels (more than 64 split into channel blocks);
+//   - the input tile and its one-pixel halo are staged in shared memory in
+//     chunks of input channels, with the prologue applied while staging, and
+//     the chunk's weights beside them;
+//   - each thread keeps 64 f32 accumulators: 8 output channels times 8 rows
+//     of one column (K4b), or times 2 input rows and 4 parities (K4a). A warp
+//     spans 32 columns of one channel group, so a weight read is one
+//     broadcast and input reads hit 32 banks;
+//   - per-block partial sums of y and y^2 go to a [N, Co, tiles] buffer that
+//     the caller sums: no atomics, so the stats are deterministic.
+// At the flagship in bf16 they reach 24-26 (K4b) and 15-17 (K4a) TFLOP/s,
+// 31-34x their bound and 2-4x the time of cuDNN's tensor-core convs
+// (PERF.md, from chip_smoke.py). The next steps (a later PR): mma.sync /
+// wgmma on bf16 operands with TMA staging, which the FLOP/byte ratio above
+// calls for, and taller K4a tiles at 64 output channels.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTX = 32;   // tile columns: one warp across them
+constexpr int kCPT = 8;   // output channels a thread keeps
+constexpr int kCoMax = 64;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+
+// act: 0 none, 1 ReLU, 2 LeakyReLU(0.1)
+__device__ __forceinline__ float apply_act(float v, int act) {
+  if (act == 1) return v >= 0.f ? v : 0.f;
+  if (act == 2) return v >= 0.f ? v : v * 0.1f;
+  return v;
+}
+
+// One input stream: x [N, C, H, W] of type T, weights [C, 9, co_pad] f32
+// (tap-major, ky * 3 + kx), and the prologue: A, B [N, C] f32 and its
+// activation, or pro < 0 for none.
+struct Stream {
+  const void* x;
+  const float* w;
+  const float* A;
+  const float* B;
+  int C;
+  int pro;
+};
+
+struct Streams {
+  Stream s[2];
+  int count;
+};
+
+// Stage channels [c0, c0 + ck) of one image's rows [y0, y0 + sh) and columns
+// [x0, x0 + sw) into stage[ck][sh][sw] as f32, with the prologue applied and
+// zeros outside the image (written after the prologue); and the chunk's
+// weights for output channels [co0, co0 + COP) into ws[ck][9][COP].
+template <typename T, int COP>
+__device__ __forceinline__ void stage_chunk(const Stream& st, int n, int c0, int ck, int H,
+                                            int W, int y0, int x0, int sh, int sw, int co0,
+                                            int co_pad, float* stage, float* ws) {
+  const T* xn = static_cast<const T*>(st.x) + static_cast<size_t>(n) * st.C * H * W;
+  const int plane = sh * sw;
+  for (int i = threadIdx.x; i < ck * plane; i += kThreads) {
+    const int ch = i / plane;
+    const int p = i - ch * plane;
+    const int r = p / sw;
+    const int y = y0 + r, x = x0 + (p - r * sw);
+    const int c = c0 + ch;
+    float v = 0.f;
+    if (c < st.C && y >= 0 && y < H && x >= 0 && x < W) {
+      v = to_f(xn[static_cast<size_t>(c) * H * W + y * W + x]);
+      if (st.pro >= 0) {
+        const int k = n * st.C + c;
+        // two roundings, no fused multiply-add: x * A, then + B
+        v = round_to<T>(apply_act(__fadd_rn(__fmul_rn(v, st.A[k]), st.B[k]), st.pro));
+      }
+    }
+    stage[i] = v;
+  }
+  for (int i = threadIdx.x; i < ck * 9 * COP; i += kThreads) {
+    const int ch = i / (9 * COP);
+    const int rest = i - ch * 9 * COP;
+    const int tap = rest / COP;
+    const int c = c0 + ch;
+    ws[i] = c < st.C ? st.w[(static_cast<size_t>(c) * 9 + tap) * co_pad + co0 + rest % COP]
+                     : 0.f;
+  }
+}
+
+// Bias, stats and the store of one thread's NP output pixels for its kCPT
+// channels. vals[p][o] holds the pre-bias f32 sums; valid[p] says whether
+// pixel p lies inside the output, offs[p] its offset in an output plane.
+// The block's partial sums of y and y^2 per channel are written to
+// psum/psq[(n * Co + co) * tiles + tile] when psum is not null.
+template <typename T, int COP, int NP>
+__device__ __forceinline__ void epilogue(float (&vals)[NP][kCPT], const bool (&valid)[NP],
+                                         const size_t (&offs)[NP], const float* __restrict__ bias,
+                                         T* __restrict__ out, float* __restrict__ psum,
+                                         float* __restrict__ psq, int n, int co0, int Co,
+                                         size_t out_plane, int act, float* red) {
+  constexpr int G = COP / kCPT;
+  constexpr int TY = kWarps / G;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = warp % G, ty = warp / G;
+  float s1[kCPT], s2[kCPT];
+#pragma unroll
+  for (int o = 0; o < kCPT; ++o) {
+    s1[o] = 0.f;
+    s2[o] = 0.f;
+    const int co = co0 + g * kCPT + o;
+    const float b = bias[co0 + g * kCPT + o];  // bias is padded to co_pad
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const float y = vals[p][o] + b;
+      if (valid[p] && co < Co) {
+        s1[o] += y;
+        s2[o] += y * y;
+        out[(static_cast<size_t>(n) * Co + co) * out_plane + offs[p]] =
+            from_f<T>(apply_act(y, act));
+      }
+    }
+  }
+  if (psum == nullptr) return;
+  // warp sums over the 32 columns, then the TY warps of one channel group in
+  // a fixed order
+  float* r1 = red;
+  float* r2 = red + TY * COP;
+#pragma unroll
+  for (int o = 0; o < kCPT; ++o) {
+    float a = s1[o], b = s2[o];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, m);
+      b += __shfl_xor_sync(0xffffffffu, b, m);
+    }
+    if (lane == 0) {
+      r1[ty * COP + g * kCPT + o] = a;
+      r2[ty * COP + g * kCPT + o] = b;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < COP) {
+    const int co = co0 + threadIdx.x;
+    float a = 0.f, b = 0.f;
+    for (int t = 0; t < TY; ++t) {
+      a += r1[t * COP + threadIdx.x];
+      b += r2[t * COP + threadIdx.x];
+    }
+    if (co < Co) {
+      const int tiles = gridDim.x * gridDim.y;
+      const size_t k = (static_cast<size_t>(n) * Co + co) * tiles + blockIdx.y * gridDim.x +
+                       blockIdx.x;
+      psum[k] = a;
+      psq[k] = b;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4b: 3x3 stride-1 conv, zero pad 1. Tile: TH = TY * 8 rows x 32 columns of
+// output; a thread owns 8 rows of one column for 8 output channels.
+// ---------------------------------------------------------------------------
+
+template <int COP>
+struct Conv3Cfg {
+  static constexpr int G = COP / kCPT;
+  static constexpr int TY = kWarps / G;
+  static constexpr int RP = 8;
+  static constexpr int TH = TY * RP;
+  static constexpr int SH = TH + 2, SW = kTX + 2;
+  static constexpr int CK = COP == 8 ? 4 : 8;  // keeps the stage under 48 KB
+};
+
+template <typename T, int COP>
+__global__ void __launch_bounds__(kThreads, 2)
+conv3x3_kernel(Stream st, const float* __restrict__ bias, T* __restrict__ out,
+               float* __restrict__ psum, float* __restrict__ psq, int H, int W, int Co,
+               int co_blocks, int co_pad, int act) {
+  using Cfg = Conv3Cfg<COP>;
+  constexpr int G = Cfg::G, RP = Cfg::RP, SH = Cfg::SH, SW = Cfg::SW, CK = Cfg::CK;
+  __shared__ __align__(16) float stage[CK * SH * SW];
+  __shared__ __align__(16) float ws[CK * 9 * COP];
+  __shared__ float red[2 * Cfg::TY * COP];
+
+  const int n = blockIdx.z / co_blocks;
+  const int co0 = (blockIdx.z - n * co_blocks) * COP;
+  const int y0 = blockIdx.y * Cfg::TH, x0 = blockIdx.x * kTX;
+  const int tx = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = warp % G, ty = warp / G;
+
+  float acc[RP][kCPT];
+#pragma unroll
+  for (int r = 0; r < RP; ++r)
+#pragma unroll
+    for (int o = 0; o < kCPT; ++o) acc[r][o] = 0.f;
+
+  for (int c0 = 0; c0 < st.C; c0 += CK) {
+    stage_chunk<T, COP>(st, n, c0, CK, H, W, y0 - 1, x0 - 1, SH, SW, co0, co_pad, stage, ws);
+    __syncthreads();
+    const int nch = min(CK, st.C - c0);
+    for (int ch = 0; ch < nch; ++ch) {
+      const float* sb = stage + ch * SH * SW + ty * RP * SW + tx;
+      const float* wb = ws + ch * 9 * COP + g * kCPT;
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        float wr[3][kCPT];
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          const float4 a = *reinterpret_cast<const float4*>(wb + (ky * 3 + kx) * COP);
+          const float4 b = *reinterpret_cast<const float4*>(wb + (ky * 3 + kx) * COP + 4);
+          wr[ky][0] = a.x; wr[ky][1] = a.y; wr[ky][2] = a.z; wr[ky][3] = a.w;
+          wr[ky][4] = b.x; wr[ky][5] = b.y; wr[ky][6] = b.z; wr[ky][7] = b.w;
+        }
+        // staged row j feeds output rows j - ky
+#pragma unroll
+        for (int j = 0; j < RP + 2; ++j) {
+          const float v = sb[j * SW + kx];
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky) {
+            const int r = j - ky;
+            if (r < 0 || r >= RP) continue;
+#pragma unroll
+            for (int o = 0; o < kCPT; ++o) acc[r][o] = fmaf(wr[ky][o], v, acc[r][o]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  bool valid[RP];
+  size_t offs[RP];
+#pragma unroll
+  for (int r = 0; r < RP; ++r) {
+    const int y = y0 + ty * RP + r, x = x0 + tx;
+    valid[r] = y < H && x < W;
+    offs[r] = static_cast<size_t>(y) * W + x;
+  }
+  epilogue<T, COP, RP>(acc, valid, offs, bias, out, psum, psq, n, co0, Co,
+                       static_cast<size_t>(H) * W, act, red);
+}
+
+// ---------------------------------------------------------------------------
+// K4a: sum over streams of ConvTranspose2d(k=3, s=2, p=1, output_padding=1).
+// Tile: TIH = TY * 2 input rows x 32 input columns, giving twice that in
+// each axis of output; a thread owns 2 input rows of one column, i.e. their
+// 4 output parities, for 8 output channels. The stage holds one extra row
+// and column at the bottom and right (zero past the image).
+// ---------------------------------------------------------------------------
+
+template <int COP>
+struct ConvTCfg {
+  static constexpr int G = COP / kCPT;
+  static constexpr int TY = kWarps / G;
+  static constexpr int RP = 2;
+  static constexpr int TIH = TY * RP;
+  static constexpr int SH = TIH + 1, SW = kTX + 1;
+  static constexpr int CK = 8;
+};
+
+template <typename T, int COP>
+__global__ void __launch_bounds__(kThreads, 2)
+convt_pair_kernel(Streams ss, const float* __restrict__ bias, T* __restrict__ out,
+                  float* __restrict__ psum, float* __restrict__ psq, int H, int W, int Co,
+                  int co_blocks, int co_pad, int act) {
+  using Cfg = ConvTCfg<COP>;
+  constexpr int G = Cfg::G, RP = Cfg::RP, SH = Cfg::SH, SW = Cfg::SW, CK = Cfg::CK;
+  __shared__ __align__(16) float stage[CK * SH * SW];
+  __shared__ __align__(16) float ws[CK * 9 * COP];
+  __shared__ float red[2 * Cfg::TY * COP];
+
+  const int n = blockIdx.z / co_blocks;
+  const int co0 = (blockIdx.z - n * co_blocks) * COP;
+  const int m0 = blockIdx.y * Cfg::TIH, n0 = blockIdx.x * kTX;
+  const int tx = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = warp % G, ty = warp / G;
+
+  // acc[r][py * 2 + px][o]: input row m0 + ty * RP + r, output parity (py, px)
+  float acc[RP][4][kCPT];
+#pragma unroll
+  for (int r = 0; r < RP; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int o = 0; o < kCPT; ++o) acc[r][q][o] = 0.f;
+
+  for (int s = 0; s < ss.count; ++s) {
+    const Stream& st = ss.s[s];
+    for (int c0 = 0; c0 < st.C; c0 += CK) {
+      stage_chunk<T, COP>(st, n, c0, CK, H, W, m0, n0, SH, SW, co0, co_pad, stage, ws);
+      __syncthreads();
+      const int nch = min(CK, st.C - c0);
+      for (int ch = 0; ch < nch; ++ch) {
+        const float* sb = stage + ch * SH * SW + ty * RP * SW + tx;
+        const float* wb = ws + ch * 9 * COP + g * kCPT;
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          // ky = 1: even output rows from input row m; ky = 2: odd rows from
+          // row m; ky = 0: odd rows from row m + 1
+          const int py = ky == 1 ? 0 : 1;
+          const int dr = ky == 0 ? 1 : 0;
+          float wr[3][kCPT];
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx) {
+            const float4 a = *reinterpret_cast<const float4*>(wb + (ky * 3 + kx) * COP);
+            const float4 b = *reinterpret_cast<const float4*>(wb + (ky * 3 + kx) * COP + 4);
+            wr[kx][0] = a.x; wr[kx][1] = a.y; wr[kx][2] = a.z; wr[kx][3] = a.w;
+            wr[kx][4] = b.x; wr[kx][5] = b.y; wr[kx][6] = b.z; wr[kx][7] = b.w;
+          }
+#pragma unroll
+          for (int r = 0; r < RP; ++r) {
+            const float v0 = sb[(r + dr) * SW];      // column n
+            const float v1 = sb[(r + dr) * SW + 1];  // column n + 1
+#pragma unroll
+            for (int o = 0; o < kCPT; ++o) {
+              // even output column: kx = 1 at n; odd: kx = 0 at n + 1, kx = 2 at n
+              acc[r][py * 2][o] = fmaf(wr[1][o], v0, acc[r][py * 2][o]);
+              acc[r][py * 2 + 1][o] =
+                  fmaf(wr[2][o], v0, fmaf(wr[0][o], v1, acc[r][py * 2 + 1][o]));
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  constexpr int NP = RP * 4;
+  float vals[NP][kCPT];
+  bool valid[NP];
+  size_t offs[NP];
+  const int W2 = 2 * W;
+#pragma unroll
+  for (int r = 0; r < RP; ++r) {
+    const int m = m0 + ty * RP + r, c = n0 + tx;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = r * 4 + q;
+      valid[p] = m < H && c < W;
+      offs[p] = static_cast<size_t>(2 * m + q / 2) * W2 + 2 * c + q % 2;
+#pragma unroll
+      for (int o = 0; o < kCPT; ++o) vals[p][o] = acc[r][q][o];
+    }
+  }
+  epilogue<T, COP, NP>(vals, valid, offs, bias, out, psum, psq, n, co0, Co,
+                       static_cast<size_t>(H) * W * 4, act, red);
+}
+
+int pick_cop(int Co) {
+  int cop = kCPT;
+  while (cop < Co && cop < kCoMax) cop *= 2;
+  return cop;
+}
+
+bool bad_act(int act) { return act < 0 || act > 2; }
+
+template <typename T, int COP>
+int launch_conv3(const Stream& st, const float* bias, void* out, float* psum, float* psq,
+                 int N, int H, int W, int Co, int co_pad, int act, cudaStream_t stream) {
+  const int co_blocks = co_pad / COP;
+  const dim3 grid((W + kTX - 1) / kTX, (H + Conv3Cfg<COP>::TH - 1) / Conv3Cfg<COP>::TH,
+                  N * co_blocks);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  conv3x3_kernel<T, COP><<<grid, kThreads, 0, stream>>>(
+      st, bias, static_cast<T*>(out), psum, psq, H, W, Co, co_blocks, co_pad, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int COP>
+int launch_convt(const Streams& ss, const float* bias, void* out, float* psum, float* psq,
+                 int N, int H, int W, int Co, int co_pad, int act, cudaStream_t stream) {
+  const int co_blocks = co_pad / COP;
+  const dim3 grid((W + kTX - 1) / kTX, (H + ConvTCfg<COP>::TIH - 1) / ConvTCfg<COP>::TIH,
+                  N * co_blocks);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  convt_pair_kernel<T, COP><<<grid, kThreads, 0, stream>>>(
+      ss, bias, static_cast<T*>(out), psum, psq, H, W, Co, co_blocks, co_pad, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int N, int H, int W, int Co) {
+  // offsets inside one (output) plane are ints
+  return N < 1 || H < 1 || W < 1 || Co < 1 || static_cast<long long>(H) * W * 4 > 0x7fffffff;
+}
+
+template <typename T>
+int conv3(const void* x, const void* w, const void* A, const void* B, const void* bias,
+          void* out, void* psum, void* psq, int N, int C, int H, int W, int Co, int co_pad,
+          int pro, int act, void* stream) {
+  if (bad_shape(N, H, W, Co) || C < 1 || pro > 2 || bad_act(act) ||
+      co_pad != (Co + pick_cop(Co) - 1) / pick_cop(Co) * pick_cop(Co))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Stream st{x, static_cast<const float*>(w), static_cast<const float*>(A),
+                  static_cast<const float*>(B), C, pro < 0 ? -1 : pro};
+  const float* b = static_cast<const float*>(bias);
+  float* s1 = static_cast<float*>(psum);
+  float* s2 = static_cast<float*>(psq);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (pick_cop(Co)) {
+    case 8: return launch_conv3<T, 8>(st, b, out, s1, s2, N, H, W, Co, co_pad, act, cs);
+    case 16: return launch_conv3<T, 16>(st, b, out, s1, s2, N, H, W, Co, co_pad, act, cs);
+    case 32: return launch_conv3<T, 32>(st, b, out, s1, s2, N, H, W, Co, co_pad, act, cs);
+    default: return launch_conv3<T, 64>(st, b, out, s1, s2, N, H, W, Co, co_pad, act, cs);
+  }
+}
+
+template <typename T>
+int convt(const void* x0, const void* w0, const void* A0, const void* B0, int C0, int pro0,
+          const void* x1, const void* w1, const void* A1, const void* B1, int C1, int pro1,
+          int count, const void* bias, void* out, void* psum, void* psq, int N, int H, int W,
+          int Co, int co_pad, int act, void* stream) {
+  if (bad_shape(N, H, W, Co) || count < 1 || count > 2 || C0 < 1 ||
+      (count == 2 && C1 < 1) || pro0 > 2 || pro1 > 2 || bad_act(act) ||
+      co_pad != (Co + pick_cop(Co) - 1) / pick_cop(Co) * pick_cop(Co))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Streams ss;
+  ss.s[0] = Stream{x0, static_cast<const float*>(w0), static_cast<const float*>(A0),
+                   static_cast<const float*>(B0), C0, pro0 < 0 ? -1 : pro0};
+  ss.s[1] = Stream{x1, static_cast<const float*>(w1), static_cast<const float*>(A1),
+                   static_cast<const float*>(B1), C1, pro1 < 0 ? -1 : pro1};
+  ss.count = count;
+  const float* b = static_cast<const float*>(bias);
+  float* s1 = static_cast<float*>(psum);
+  float* s2 = static_cast<float*>(psq);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (pick_cop(Co)) {
+    case 8: return launch_convt<T, 8>(ss, b, out, s1, s2, N, H, W, Co, co_pad, act, cs);
+    case 16: return launch_convt<T, 16>(ss, b, out, s1, s2, N, H, W, Co, co_pad, act, cs);
+    case 32: return launch_convt<T, 32>(ss, b, out, s1, s2, N, H, W, Co, co_pad, act, cs);
+    default: return launch_convt<T, 64>(ss, b, out, s1, s2, N, H, W, Co, co_pad, act, cs);
+  }
+}
+
+}  // namespace
+
+// K4b. x [N, C, H, W] and out [N, Co, H, W] contiguous, of one type; w
+// [C, 9, co_pad] f32; A, B [N, C] f32 (read when pro >= 0); bias [co_pad]
+// f32; psum, psq [N, Co, tiles] f32 or null for no stats. pro < 0: no
+// prologue, else its activation (0 none, 1 ReLU, 2 LeakyReLU(0.1)); act the
+// output's. co_pad is fmi_decoder_conv_co_pad(Co), tiles
+// fmi_decoder_conv_tiles(0, H, W, Co). Returns a cudaError_t code; 0 means
+// launched.
+extern "C" int fmi_conv3x3_stats_f32(const void* x, const void* w, const void* A,
+                                     const void* B, const void* bias, void* out, void* psum,
+                                     void* psq, int N, int C, int H, int W, int Co, int co_pad,
+                                     int pro, int act, void* stream) {
+  return conv3<float>(x, w, A, B, bias, out, psum, psq, N, C, H, W, Co, co_pad, pro, act,
+                      stream);
+}
+
+extern "C" int fmi_conv3x3_stats_bf16(const void* x, const void* w, const void* A,
+                                      const void* B, const void* bias, void* out, void* psum,
+                                      void* psq, int N, int C, int H, int W, int Co,
+                                      int co_pad, int pro, int act, void* stream) {
+  return conv3<__nv_bfloat16>(x, w, A, B, bias, out, psum, psq, N, C, H, W, Co, co_pad, pro,
+                              act, stream);
+}
+
+// K4a. Streams 0 and 1 (count of them live): x_s [N, C_s, H, W], w_s
+// [C_s, 9, co_pad] f32 from torch's [C_s, Co, 3, 3], A_s, B_s and pro_s as
+// for K4b; bias [co_pad] f32, the streams' biases summed; out
+// [N, Co, 2H, 2W]; psum, psq [N, Co, tiles] f32 or null, tiles being
+// fmi_decoder_conv_tiles(1, H, W, Co).
+extern "C" int fmi_convt_pair_f32(const void* x0, const void* w0, const void* A0,
+                                  const void* B0, int C0, int pro0, const void* x1,
+                                  const void* w1, const void* A1, const void* B1, int C1,
+                                  int pro1, int count, const void* bias, void* out, void* psum,
+                                  void* psq, int N, int H, int W, int Co, int co_pad, int act,
+                                  void* stream) {
+  return convt<float>(x0, w0, A0, B0, C0, pro0, x1, w1, A1, B1, C1, pro1, count, bias, out,
+                      psum, psq, N, H, W, Co, co_pad, act, stream);
+}
+
+extern "C" int fmi_convt_pair_bf16(const void* x0, const void* w0, const void* A0,
+                                   const void* B0, int C0, int pro0, const void* x1,
+                                   const void* w1, const void* A1, const void* B1, int C1,
+                                   int pro1, int count, const void* bias, void* out,
+                                   void* psum, void* psq, int N, int H, int W, int Co,
+                                   int co_pad, int act, void* stream) {
+  return convt<__nv_bfloat16>(x0, w0, A0, B0, C0, pro0, x1, w1, A1, B1, C1, pro1, count, bias,
+                              out, psum, psq, N, H, W, Co, co_pad, act, stream);
+}
+
+// co_pad for Co output channels: Co rounded up to the kernels' channel
+// block (8, 16, 32 or 64). The wrapper sizes the weights and bias with it.
+extern "C" int fmi_decoder_conv_co_pad(int Co) {
+  const int cop = pick_cop(Co);
+  return (Co + cop - 1) / cop * cop;
+}
+
+// The number of tiles, i.e. the last dimension of psum and psq, of K4b
+// (transposed = 0) or K4a (transposed = 1) at H x W input and Co outputs.
+extern "C" int fmi_decoder_conv_tiles(int transposed, int H, int W, int Co) {
+  int th = 0;
+  switch (pick_cop(Co)) {
+    case 8: th = transposed ? ConvTCfg<8>::TIH : Conv3Cfg<8>::TH; break;
+    case 16: th = transposed ? ConvTCfg<16>::TIH : Conv3Cfg<16>::TH; break;
+    case 32: th = transposed ? ConvTCfg<32>::TIH : Conv3Cfg<32>::TH; break;
+    default: th = transposed ? ConvTCfg<64>::TIH : Conv3Cfg<64>::TH; break;
+  }
+  return ((W + kTX - 1) / kTX) * ((H + th - 1) / th);
+}

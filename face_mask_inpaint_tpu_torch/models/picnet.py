@@ -97,18 +97,27 @@ class ResGenerator(nn.Module):
     """ResNet generator (network.py:181-273): z feeds a ResBlock chain added
     to the encoder features; ``layers`` ResBlockDecoders upsample x2 each;
     self-attention after decoder1; a tanh Output head on the last layer,
-    which folds in the caller's pool when given one (``fuse_pool``)."""
+    which folds in the caller's pool when given one (``fuse_pool``).
+
+    ``packed_convt`` is the port of the JAX generator under
+    ``FMI_PACKED_CONVT=1``: the decoder blocks the JAX package packs run as
+    their fused tail, kernels K4b and K4a, with instance-norm statistics
+    handed from block to block. A block packs when its output side exceeds
+    ``pack_threshold`` or the block before it packed, the attention after
+    decoder 1 ending such a run (JAX picnet.py:227-237, :280-288)."""
 
     def __init__(self, input_nc: int, z_channels: Optional[int] = None,
                  output_nc: int = 3, ngf: int = 64, z_nc: int = 512,
                  img_f: int = 512, L: int = 1, layers: int = 5,
                  norm: str = "instance", activation: str = "ReLU",
                  use_spect: bool = True, use_coord: bool = False,
-                 use_attn: bool = True, init_type: str = "orthogonal"):
+                 use_attn: bool = True, init_type: str = "orthogonal",
+                 pack_threshold: int = 256, packed_convt: bool = False):
         super().__init__()
         del z_nc  # the latent width comes from the encoders (z_channels)
         kw = dict(activation=activation, use_spect=use_spect, init_type=init_type)
         self.layers, self.L, self.use_attn = layers, L, use_attn
+        self.norm, self.pack_threshold, self.packed_convt = norm, pack_threshold, packed_convt
         ch = ngf * min(2 ** (layers - 1), img_f // ngf)
         if z_channels is not None:
             if input_nc != ch:
@@ -136,7 +145,9 @@ class ResGenerator(nn.Module):
         """fuse_pool: an integer factor of the caller's average pool. The
         last decoder then hands the Output head its (h, bypass) pair, and the
         head returns the pooled image through kernel K3 (JAX picnet.py:243-262,
-        without the packing conditions)."""
+        without the packing conditions). When the last decoder runs its fused
+        tail instead, it hands the head one pre-activated map, as in JAX; the
+        head then works at full size and leaves the pool to the caller."""
         out = encoded
         if z is not None:
             f = self.generator(z)
@@ -147,14 +158,31 @@ class ResGenerator(nn.Module):
         head = getattr(self, f"out{last}")
         pair = (isinstance(fuse_pool, int) and head.pair_ok()
                 and not (last == 1 and self.use_attn))
+        packable = self.norm in ("instance", "none")
+        r, stats, pre_activated = 1, None, False  # r: the JAX space-to-depth factor
         for i in range(self.layers):
-            if i == last and pair:
-                return head(getattr(self, f"decoder{i}")(out, return_pair=True),
-                            pool=fuse_pool)
-            out = getattr(self, f"decoder{i}")(out)
+            dec = getattr(self, f"decoder{i}")
+            pack_out = r > 1 or (packable and 2 * min(out.shape[2:]) > self.pack_threshold)
+            if self.packed_convt and pack_out and dec.fused_ok():
+                # the Output head's leading activation, unless the attention
+                # (i == 1) still reads the raw map (JAX picnet.py:243-249)
+                fuse_act = (dec.activation if i == last and not (i == 1 and self.use_attn)
+                            else None)
+                want_stats = i < last and self.norm == "instance"
+                res = dec(out, fused=True, in_stats=stats, want_stats=want_stats,
+                          fuse_act=fuse_act)
+                out, stats = res if want_stats else (res, None)
+                pre_activated = fuse_act is not None
+            elif i == last and pair:
+                return head(dec(out, return_pair=True), pool=fuse_pool)
+            else:
+                out, stats = dec(out), None
+            if pack_out:
+                r *= 2
             if i == 1 and self.use_attn:
+                r, stats = 1, None  # the attention rewrites the map: stale stats
                 out = getattr(self, f"attn{i}")(out)
-        return head(out)
+        return head(out, pre_activated=pre_activated)
 
 
 def define_e(encoder_type: str = "src", input_nc: int = 3, ngf: int = 64,
@@ -170,6 +198,8 @@ def define_g(input_nc: int, z_channels: Optional[int] = None, output_nc: int = 3
              ngf: int = 64, z_nc: int = 512, img_f: int = 512, L: int = 1,
              layers: int = 5, norm: str = "instance", activation: str = "ReLU",
              use_spect: bool = True, use_coord: bool = False, use_attn: bool = True,
-             init_type: str = "orthogonal", **_unused) -> ResGenerator:
+             init_type: str = "orthogonal", pack_threshold: int = 256,
+             packed_convt: bool = False, **_unused) -> ResGenerator:
     return ResGenerator(input_nc, z_channels, output_nc, ngf, z_nc, img_f, L, layers,
-                        norm, activation, use_spect, use_coord, use_attn, init_type)
+                        norm, activation, use_spect, use_coord, use_attn, init_type,
+                        pack_threshold, packed_convt)

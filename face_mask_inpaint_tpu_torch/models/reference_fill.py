@@ -11,6 +11,12 @@ axes, the decoder folds the final pool into its Output head (``fuse_pool``,
 as the JAX model does): the head takes the last decoder's pre-add pair and
 returns the pooled image through kernel K3, so the full-resolution image is
 never written. The adaptive pool after it is then the identity.
+
+``decoder_params`` go to ``define_g`` as they are, ``pack_threshold`` and
+``packed_convt`` included. With ``packed_convt`` the last decoder block runs
+its fused tail (kernels K4b and K4a) and hands the head a pre-activated map
+instead of a pair, as the JAX model does under ``FMI_PACKED_CONVT=1``; the
+head then runs at full size and the adaptive pool after it does the pooling.
 """
 
 from __future__ import annotations

@@ -8,11 +8,16 @@ from the data, are constructor arguments here.
 The last decoder block can hand the Output head its (h, bypass) pair before
 the add; the head then runs act(h + s) -> conv -> tanh -> pool as kernel K3
 (kernels/output_head.py), the port of the JAX pair path with
-``FMI_OUTPUT_KERNEL=1``. Not ported, because their outputs equal the dense
-math computed here: the space-to-depth packing of the decoder tail, the
-conv->avg-pool fold (``fuse_avgpool2``: conv then ``avg_pool2d`` here), and
-the Output head's fused activation (``fuse_act``/``pre_activated``: the head
-applies its own).
+``FMI_OUTPUT_KERNEL=1``. A decoder block can instead run as its fused tail
+(``ResBlockDecoder(fused=True)``), the port of the JAX path with
+``FMI_PACKED_CONVT=1``: kernel K4b (conv1 with norm1's affine and activation
+as its prologue, norm2's statistics as its epilogue), then kernel K4a (the
+conv2 + bypass transposed-conv pair with norm2's prologue), both in
+kernels/decoder_conv.py; on the last block K4a also applies the Output head's
+leading activation, and the head runs ``pre_activated``. Not ported, because
+their outputs equal the dense math computed here: the space-to-depth packing
+of the decoder tail and the conv->avg-pool fold (``fuse_avgpool2``: conv then
+``avg_pool2d`` here).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
 from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 from face_mask_inpaint_tpu_torch.nn.layers import (
     Activation, Conv2d, ConvTranspose2d, InstanceNorm2d, make_norm)
@@ -145,6 +151,7 @@ class ResBlockDecoder(nn.Module):
         super().__init__()
         hidden_nc = output_nc if hidden_nc is None else hidden_nc
         kw = dict(use_spect=use_spect, init_type=init_type)
+        self.activation = activation
         self.act = Activation(activation)
         self.norm1 = _norm_act_module(norm, activation, input_nc)
         self.conv1 = Conv2d(input_nc, hidden_nc, 3, padding=1, **kw)
@@ -152,13 +159,66 @@ class ResBlockDecoder(nn.Module):
         self.conv2 = ConvTranspose2d(hidden_nc, output_nc, 3, 2, 1, 1, **kw)
         self.bypass = ConvTranspose2d(input_nc, output_nc, 3, 2, 1, 1, **kw)
 
-    def forward(self, x: torch.Tensor, return_pair: bool = False):
+    def fused_ok(self) -> bool:
+        """Whether the block can run as its fused tail (JAX nn/blocks.py:277-284:
+        instance norm or none, a (Leaky)ReLU; CoordConv is not ported)."""
+        norms_ok = all(m is None or isinstance(m, InstanceNorm2d)
+                       for m in (self.norm1, self.norm2))
+        return norms_ok and self.activation in dc.ACTS
+
+    def forward(self, x: torch.Tensor, return_pair: bool = False, fused: bool = False,
+                in_stats=None, want_stats: bool = False, fuse_act: Optional[str] = None):
         """Returns h + bypass(x), or with ``return_pair`` the pair (h,
-        bypass(x)) before the add, for the Output head's kernel."""
+        bypass(x)) before the add, for the Output head's kernel.
+
+        ``fused`` runs the block as kernels K4b and K4a (JAX
+        ``_fused_tail``): ``in_stats`` are the f32 per-(n, c) (sum x,
+        sum x^2) of x from the previous block's K4a, or None to sum x here;
+        ``want_stats`` returns (out, stats of out) for the next block;
+        ``fuse_act`` applies that activation to the output."""
+        if fused:
+            return self._fused_tail(x, in_stats, want_stats, fuse_act)
         h = self.conv1(_norm_act(x, self.norm1, self.act))
         h = self.conv2(_norm_act(h, self.norm2, self.act))
         s = self.bypass(x)
         return (h, s) if return_pair else h + s
+
+    def _fused_tail(self, x, in_stats, want_stats, fuse_act):
+        assert self.fused_ok(), "the fused tail needs instance norm or none and a (Leaky)ReLU"
+        x = x.contiguous()
+        n, c_in, height, width = x.shape
+        instance = self.norm1 is not None
+
+        def affine(norm, stats, c):
+            """(A, B) with x * A + B == norm(x), or the identity."""
+            if not instance:
+                ones = torch.ones((n, c), dtype=torch.float32, device=x.device)
+                return ones, torch.zeros_like(ones)
+            return dc.instance_affine_from_stats(stats[0], stats[1], height * width,
+                                                 norm.weight, norm.bias, norm.eps)
+
+        if instance and in_stats is None:
+            xf = x.float()
+            in_stats = (xf.sum(dim=(2, 3)), xf.square().sum(dim=(2, 3)))
+        a1, b1 = affine(self.norm1, in_stats, c_in)
+        h = dc.conv3x3_stats(x, self.conv1.effective_weight(),
+                             _bias(self.conv1, x.dtype), prologue=(a1, b1, self.activation),
+                             with_stats=instance)
+        h_stats = None
+        if instance:
+            h, h_stats = h
+        a2, b2 = affine(self.norm2, h_stats, h.shape[1])
+        return dc.convt_pair(
+            [(h, self.conv2.effective_weight(), _bias(self.conv2, x.dtype),
+              (a2, b2, self.activation)),
+             (x, self.bypass.effective_weight(), _bias(self.bypass, x.dtype))],
+            act=fuse_act, with_stats=want_stats)
+
+
+def _bias(conv, dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """A conv's bias in the compute dtype, as the JAX layers hand it to their
+    fused consumers (nn/layers.py ``return_weights``)."""
+    return conv.bias.to(dtype) if conv.bias is not None else None
 
 
 class Output(nn.Module):
@@ -184,10 +244,13 @@ class Output(nn.Module):
         return (self.norm == "none" and self.kernel_size == 3 and not self.use_coord
                 and self.activation in oh.ACTS)
 
-    def forward(self, x, pool: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x, pool: Optional[int] = None,
+                pre_activated: bool = False) -> torch.Tensor:
         """x: a map [N, C, H, W] -> [N, co, H, W]; or the decoder's pair
         (h, s) with an integer ``pool``, which runs act(h + s) -> conv ->
-        tanh -> pool as kernel K3 -> [N, co, H/pool, W/pool]."""
+        tanh -> pool as kernel K3 -> [N, co, H/pool, W/pool].
+        ``pre_activated``: the decoder's fused tail already applied this
+        head's leading activation (norm 'none' only)."""
         if isinstance(x, (tuple, list)):
             assert self.pair_ok() and isinstance(pool, int), \
                 "the pair head needs norm 'none', a 3x3 conv without CoordConv, " \
@@ -196,10 +259,13 @@ class Output(nn.Module):
             conv = self.conv1.conv
             return oh.output_head(h.contiguous(), s.contiguous(), conv.effective_weight(),
                                   conv.bias, self.activation, pool)
-        if self.norm1 is not None:
-            x = self.norm1(x)
-        h = reflection_pad2d(self.act(x), self.kernel_size // 2)
-        return torch.tanh(self.conv1(h))
+        if pre_activated:
+            assert self.norm1 is None, "a pre-activated input needs norm 'none'"
+        else:
+            if self.norm1 is not None:
+                x = self.norm1(x)
+            x = self.act(x)
+        return torch.tanh(self.conv1(reflection_pad2d(x, self.kernel_size // 2)))
 
 
 class AutoAttention(nn.Module):

@@ -93,3 +93,43 @@ def test_unported_options_raise(tree):
     args = cli.get_args(["--data_root", str(tree["root"]), "--old_model", "1", *WIDTHS])
     with pytest.raises(NotImplementedError):
         cli.build_models(args, torch.device("cpu"))
+
+
+def test_picnet_inference_cli_packed_convt_cpu(tree, tmp_path, monkeypatch):
+    """FMI_PACKED_CONVT=1 builds the generator with packed_convt=True. With
+    pack_threshold 32 (put into the decoder params here; the CLI has no flag
+    for it) decoders 1 and 2 of the 16^2 -> 128^2 decode take the fused tail:
+    two conv3x3_stats and two convt_pair calls per batch. On the CPU nothing
+    launches, so the calls are counted with monkeypatch."""
+    from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
+
+    calls = {"conv3x3_stats": 0, "convt_pair": 0}
+
+    def counted(name):
+        fn = getattr(dc, name)
+
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    process_params = cli.process_params
+
+    def with_threshold(args):
+        enc, dec = process_params(args)
+        return enc, {**dec, "pack_threshold": 32}
+
+    for name in calls:
+        monkeypatch.setattr(dc, name, counted(name))
+    monkeypatch.setattr(cli, "process_params", with_threshold)
+    monkeypatch.setenv("FMI_PACKED_CONVT", "1")
+    monkeypatch.chdir(tmp_path)
+    cli.main(["--device", "cpu", "--data_root", str(tree["root"]), "--mask_detector_path", "",
+              "--pt_ckpt_path", str(tmp_path / "run" / "model.pt"), "--batch_size", "4",
+              *WIDTHS])
+    batches = -(-tree["n_images"] // 4)
+    assert calls == {"conv3x3_stats": 2 * batches, "convt_pair": 2 * batches}
+    out_dir = tmp_path / "test_results" / "run"
+    assert len(list(out_dir.glob("gen_*.jpg"))) == tree["n_images"]
+    csv = (out_dir / "metrics.csv").read_text().splitlines()
+    assert math.isfinite(float(csv[1].split(",")[0]))

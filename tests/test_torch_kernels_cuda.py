@@ -1,4 +1,4 @@
-"""K1, K2 and K3 against their plain versions on an NVIDIA GPU. Marked ``cuda``:
+"""K1, K2, K3, K4a and K4b against their plain versions on an NVIDIA GPU. Marked ``cuda``:
 they skip where torch.cuda.is_available() is False (the decision is taken in
 a fixture, at run time). Run on the card, where JAX need not be installed,
 with ``python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest``.
@@ -6,11 +6,15 @@ with ``python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest``.
 Tolerance: |kernel - plain| <= atol + rtol |plain| with (1e-4, 1e-4) in
 float32 (TF32 off; only the order of f32 sums differs) and (1e-3, 2^-7) in
 bfloat16 (each side rounds an f32 result once: one bf16 ulp apart at most).
+The f32 sums of y and y^2 that K4a and K4b return are held to rtol 1e-4
+(f32) and 1e-3 (bf16), with an atol of rtol times the largest sum: the two
+sides add the same f32 values in another order.
 """
 
 import pytest
 import torch
 
+from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
 from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
 from face_mask_inpaint_tpu_torch.kernels import norm_act as na
 from face_mask_inpaint_tpu_torch.kernels import output_head as oh
@@ -18,6 +22,7 @@ from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 2.0 ** -7)}
+STATS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 
 
 @pytest.fixture
@@ -123,3 +128,92 @@ def test_output_head_kernel_rejects_bad_input(cuda):
         oh.output_head(h, s, w, b, "SELU", 2)
     with pytest.raises(ValueError):
         oh.output_head(h[:, :, :1], s[:, :, :1], w, b, "ReLU", 1)  # H < 2
+
+
+def _assert_stats(got, want, dtype):
+    rtol = STATS_RTOL[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=rtol * float(w.abs().max()))
+
+
+def _prologue(gen, n, c, act):
+    a = 0.5 + torch.rand(n, c, device="cuda", generator=gen)
+    b = 0.3 * torch.randn(n, c, device="cuda", generator=gen)
+    return (a, b, act)
+
+
+def _map(gen, shape, dtype):
+    return (torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.2).to(dtype)
+
+
+# (N, C, H, W, Co, prologue act, output act): the flagship's decoder 3 and 4
+# widths on smaller maps; odd sizes, C not a multiple of the staged chunk
+# (8), Co of 3, 32, 64 and 80 (two channel blocks)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,co,pro,act", [
+    (2, 128, 64, 64, 64, "LeakyReLU", None), (2, 64, 96, 80, 32, "LeakyReLU", None),
+    (3, 13, 37, 41, 3, "ReLU", "LeakyReLU"), (1, 21, 17, 70, 64, None, "ReLU"),
+    (2, 5, 9, 33, 80, "LeakyReLU", None),
+])
+def test_conv3x3_stats_kernel_matches_plain(cuda, dtype, n, c, h, w, co, pro, act):
+    x = _map(cuda, (n, c, h, w), dtype)
+    wt = torch.randn(co, c, 3, 3, device="cuda", generator=cuda) / (3 * c ** 0.5)
+    b = 0.5 * torch.randn(co, device="cuda", generator=cuda)
+    prologue = _prologue(cuda, n, c, pro) if pro else None
+    before = dc.conv3x3_stats.launches
+    y, stats = dc.conv3x3_stats(x, wt, b, prologue, act, with_stats=True)
+    torch.cuda.synchronize()
+    assert dc.conv3x3_stats.launches == before + 1
+    want, want_stats = dc.conv3x3_stats_plain(x, wt, b, prologue, act, with_stats=True)
+    assert y.dtype == dtype and y.shape == (n, co, h, w)
+    _assert_close(y, want, dtype)
+    _assert_stats(stats, want_stats, dtype)
+    _assert_close(dc.conv3x3_stats(x, wt, None, prologue, act),
+                  dc.conv3x3_stats_plain(x, wt, None, prologue, act), dtype)
+
+
+# (N, C_h, C_x, H, W, Co, act, with_stats): two streams with the prologue on
+# the first, as the decoder runs them, and one stream without
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,ch,cx,h,w,co,act,with_stats", [
+    (2, 64, 128, 64, 64, 64, None, True), (2, 32, 64, 80, 96, 32, "LeakyReLU", False),
+    (3, 5, 13, 37, 41, 3, "ReLU", True), (1, 0, 21, 17, 70, 64, None, True),
+    (2, 9, 5, 9, 33, 80, "LeakyReLU", True),
+])
+def test_convt_pair_kernel_matches_plain(cuda, dtype, n, ch, cx, h, w, co, act, with_stats):
+    streams = []
+    if ch:
+        streams.append((_map(cuda, (n, ch, h, w), dtype),
+                        torch.randn(ch, co, 3, 3, device="cuda", generator=cuda) / (3 * ch ** 0.5),
+                        0.5 * torch.randn(co, device="cuda", generator=cuda),
+                        _prologue(cuda, n, ch, "LeakyReLU")))
+    streams.append((_map(cuda, (n, cx, h, w), dtype),
+                    torch.randn(cx, co, 3, 3, device="cuda", generator=cuda) / (3 * cx ** 0.5),
+                    0.5 * torch.randn(co, device="cuda", generator=cuda)))
+    before = dc.convt_pair.launches
+    got = dc.convt_pair(streams, act, with_stats)
+    torch.cuda.synchronize()
+    assert dc.convt_pair.launches == before + 1
+    want = dc.convt_pair_plain(streams, act, with_stats)
+    if with_stats:
+        (got, stats), (want, want_stats) = got, want
+        _assert_stats(stats, want_stats, dtype)
+    assert got.dtype == dtype and got.shape == (n, co, 2 * h, 2 * w)
+    _assert_close(got, want, dtype)
+
+
+def test_decoder_conv_kernels_reject_bad_input(cuda):
+    x = torch.randn(1, 4, 8, 8, device="cuda")
+    w = torch.randn(5, 4, 3, 3, device="cuda")
+    with pytest.raises(ValueError):
+        dc.conv3x3_stats(x.transpose(2, 3), w, None)
+    with pytest.raises(ValueError):
+        dc.conv3x3_stats(x, w.cpu(), None)
+    with pytest.raises(TypeError):
+        dc.conv3x3_stats(x.half(), w, None)
+    wt = torch.randn(4, 5, 3, 3, device="cuda")
+    with pytest.raises(ValueError):
+        dc.convt_pair([(x, wt, None), (x.transpose(2, 3), wt, None)])
+    with pytest.raises(ValueError):
+        dc.convt_pair([(x, wt, None, (torch.ones(1, 4), torch.zeros(1, 4, device="cuda"),
+                                      "ReLU"))])
