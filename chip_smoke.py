@@ -3,19 +3,24 @@
 
     python3 chip_smoke.py [--seed N]
 
-The main path is the flagship: reference-guided PICNet inference at 256^2
+The main paths are the flagship inference, reference-guided PICNet at 256^2
 (MaskDetector.predict_mask, then ReferenceFill at the bench.py flagship
 widths), the path of ``PICNet_inference.py --use_att 1``, in two
 configurations: the default one (kernels K1, K2, K3) and the packed-convt one
 of ``FMI_PACKED_CONVT=1`` (``packed_convt=True``: decoders 3 and 4 run their
-fused tail, kernels K4b and K4a, and K3 does not run). Phases:
+fused tail, kernels K4b and K4a, and K3 does not run); and the Stack A GAN
+training step of ``train_reference_fill.py`` at BASELINE config 5 (kernels
+K1, K5 and K2). Each path runs with the launch counts set to 0 just before
+it and read just after. Phases:
 
 1. build the CUDA kernels from the sources in the checkout (set-up time);
 2. hold each kernel against its plain PyTorch version on the card, at the
    flagship shapes and ragged ones, in float32 (TF32 off) and bfloat16; time
    each at the flagship shape beside its bound (the larger of its bytes over
-   the memory rate and its operations over the peak rate) and, for K1, K4b
-   and K4a, beside the PyTorch call that computes the same function;
+   the memory rate and its operations over the peak rate) and, for K1, K5,
+   K4b and K4a, beside the PyTorch call that computes the same function;
+   K5, the flash-attention backward, at the config-5 shape (batch 16) and
+   ragged ones, for dq and each dv;
 3. the flagship models at batch 4, float32, random weights from --seed:
    output shape, range and finiteness; the kernel path against the plain
    versions on the card; the launch counts of one forward (K1 once, K2 ten
@@ -36,7 +41,15 @@ fused tail, kernels K4b and K4a, and K3 does not run). Phases:
    of the forward over PROFILE_ROUNDS rounds of three forwards a side in
    alternating order (kernels, dense head, plain versions) with the host's
    enqueue time, and a ``torch.profiler`` window of three forwards in each
-   configuration (device-busy share, kernels by device time).
+   configuration (device-busy share, kernels by device time);
+7. the config-5 GAN training step (G, D and VGG built by the trainer CLI's
+   ``get_args`` and ``Trainer`` with ``--device cuda --decoder_img_f 256``)
+   at batch 16 in bfloat16 on seeded batches: finite losses, the launches
+   of one step (K1 once, K5 once, K2 ten times, K3 and K4 never), the step
+   time (CUDA events, median and quartiles of STEP_ROUNDS steps after two
+   warm-up steps), its peak device memory and a ``torch.profiler`` top
+   list; and at batch 2 in float32 with a seeded non-zero attention gamma,
+   the kernel path's G and D gradients against the plain path's.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -82,16 +95,33 @@ MEM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
 
 # rounds of the phase-6 spread: enough for quartiles of a host-bound forward
 PROFILE_ROUNDS = 10
-# launches of one flagship forward, default and packed-convt configuration
-PER_FORWARD = {"flash_attention_fwd": 1, "instance_norm_act": 10, "output_head": 1,
-               "conv3x3_stats": 0, "convt_pair": 0}
-PACKED_PER_FORWARD = {"flash_attention_fwd": 1, "instance_norm_act": 6, "output_head": 0,
-                      "conv3x3_stats": 2, "convt_pair": 2}
+# timed steps of phase 7, after two warm-up steps
+STEP_ROUNDS = 6
+# launches of one flagship forward, default and packed-convt configuration,
+# and of one config-5 training step
+PER_FORWARD = {"flash_attention_fwd": 1, "flash_attention_bwd": 0, "instance_norm_act": 10,
+               "output_head": 1, "conv3x3_stats": 0, "convt_pair": 0}
+PACKED_PER_FORWARD = {"flash_attention_fwd": 1, "flash_attention_bwd": 0,
+                      "instance_norm_act": 6, "output_head": 0, "conv3x3_stats": 2,
+                      "convt_pair": 2}
+PER_STEP = {"flash_attention_fwd": 1, "flash_attention_bwd": 1, "instance_norm_act": 10,
+            "output_head": 0, "conv3x3_stats": 0, "convt_pair": 0}
+# K5: max |kernel - plain| <= tol * max |plain| for dq and each dv. bf16
+# rounds P and the summed dS once on both sides, from f32 values summed in
+# another order, so single terms may sit one bf16 ulp apart in sums of
+# thousands
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# phase 7's f32 gradient check: max |kernel path - plain path| <= tol *
+# max |plain| per tensor + floor * the network's largest gradient entry
+GRAD_TOL, GRAD_FLOOR = 1e-3, 1e-5
 
 KERNELS = {
     "flash_attention_fwd": dict(
         route="cuda", source="face_mask_inpaint_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="face_mask_inpaint_tpu/ops/pallas/flash_attention.py:93"),
+    "flash_attention_bwd": dict(
+        route="cuda", source="face_mask_inpaint_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="face_mask_inpaint_tpu/ops/pallas/flash_attention.py:579"),
     "instance_norm_act": dict(
         route="triton", source="face_mask_inpaint_tpu_torch/kernels/norm_act.py",
         replaces="face_mask_inpaint_tpu/ops/pallas/norm_act.py:84"),
@@ -160,10 +190,11 @@ def plain_versions():
     from face_mask_inpaint_tpu_torch.kernels import norm_act as na
     from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 
-    saved = (fa.flash_attention, na.instance_norm_act, oh.output_head, dc.conv3x3_stats,
-             dc.convt_pair)
+    saved = (fa.flash_attention, fa.flash_attention_bwd, na.instance_norm_act,
+             oh.output_head, dc.conv3x3_stats, dc.convt_pair)
     fa.flash_attention = lambda q, values, with_lse=False: fa.flash_attention_plain(
         q, values, with_lse=with_lse)
+    fa.flash_attention_bwd = fa.flash_attention_bwd_plain
     na.instance_norm_act = na.instance_norm_act_plain
     oh.output_head = oh.output_head_plain
     dc.conv3x3_stats = dc.conv3x3_stats_plain
@@ -171,8 +202,8 @@ def plain_versions():
     try:
         yield
     finally:
-        (fa.flash_attention, na.instance_norm_act, oh.output_head, dc.conv3x3_stats,
-         dc.convt_pair) = saved
+        (fa.flash_attention, fa.flash_attention_bwd, na.instance_norm_act, oh.output_head,
+         dc.conv3x3_stats, dc.convt_pair) = saved
 
 
 def phase_build():
@@ -203,6 +234,83 @@ def _library_attention_ms(q, v):
         return None
     torch.cuda.empty_cache()
     return ms
+
+
+def _library_attention_bwd_ms(q, v, dout):
+    """K5's yardstick: the backward of torch's scaled_dot_product_attention
+    on the same inputs (q == k, scale 1), timed without its forward. Timed
+    here only; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    q4 = q[:, None].detach().requires_grad_()
+    v4 = v[:, None].detach().requires_grad_()
+    try:
+        out = F.scaled_dot_product_attention(q4, q4, v4, scale=1.0)
+        ms = _time_ms(lambda: torch.autograd.grad(out, (q4, v4), dout[:, None],
+                                                  retain_graph=True), 5)
+    except RuntimeError as e:  # no backend for these shapes: no yardstick
+        print(f"[time] K5 library call unavailable: {str(e).splitlines()[0]}")
+        return None
+    del out
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _phase_flash_backward(run: Run, gen, timings: dict):
+    """K5 against flash_attention_bwd_plain: dq and each dv, from K1's lse,
+    at the config-5 shape (N = 16, L = 16384, d = 64, C = 256) and ragged
+    ones; d = 48 takes the CUDA-core path, d = 64 in bf16 the tensor cores."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
+
+    cases = [("config 5", 16, 16384, 64, [256]), ("ragged", 2, 4100, 64, [200, 56]),
+             ("ragged", 2, 4100, 48, [200, 56])]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for label, n, l, d, widths in cases:
+            q = (torch.randn(n, l, d, device="cuda", generator=gen) / d ** 0.5 * 2).to(dtype)
+            vs = [torch.randn(n, l, c, device="cuda", generator=gen).to(dtype) for c in widths]
+            outs, lse = fa.flash_attention(q, vs, with_lse=True)
+            v_cat, o_cat = torch.cat(vs, -1), torch.cat(outs, -1)
+            do_cat = torch.randn(v_cat.shape, device="cuda", generator=gen).to(dtype)
+            dsum = (do_cat.float() * o_cat.float()).sum(-1)
+            del outs, o_cat
+            dq, dv = fa.flash_attention_bwd(q, v_cat, lse, do_cat, dsum)
+            torch.cuda.synchronize()
+            dq_ref, dv_ref = fa.flash_attention_bwd_plain(q, v_cat, lse, do_cat, dsum)
+            ok, rel = True, 0.0
+            for name, got, want in [("dq", dq, dq_ref)] + [
+                    (f"dv{i}", a, b) for i, (a, b) in enumerate(zip(
+                        torch.split(dv, widths, -1), torch.split(dv_ref, widths, -1)))]:
+                err = float((got.float() - want.float()).abs().max())
+                scale = float(want.float().abs().max())
+                run.err["flash_attention_bwd"] = max(run.err["flash_attention_bwd"], err)
+                ok = ok and err <= BWD_TOL[dname] * scale
+                rel = max(rel, err / scale)
+            run.check(ok, f"K5 {label} N={n} L={l} d={d} C={widths} {dname}: dq and each dv "
+                          f"max_abs_err / max|ref| {rel:.3e} (tol {BWD_TOL[dname]})")
+            del dq_ref, dv_ref
+            if label == "config 5":
+                reps = 5 if dtype == torch.bfloat16 else 2
+                ms = _time_ms(lambda: fa.flash_attention_bwd(q, v_cat, lse, do_cat, dsum), reps)
+                plain_ms = _time_ms(
+                    lambda: fa.flash_attention_bwd_plain(q, v_cat, lse, do_cat, dsum), 2)
+                c_all, es = sum(widths), q.element_size()
+                # q, v, dO, lse, D read once; dq, dv written once. Operations:
+                # the bound formula 2 N L^2 (1.5 d + 2 C)
+                bound = _bound(es * n * l * (2 * d + 3 * c_all) + 8 * n * l,
+                               2.0 * n * l * l * (1.5 * d + 2 * c_all),
+                               BF16_RATE if dtype == torch.bfloat16 else F32_RATE)
+                lib_ms = (_library_attention_bwd_ms(q, v_cat, do_cat)
+                          if dtype == torch.bfloat16 else None)
+                timings[("flash_attention_bwd", dname)] = (ms, plain_ms, *bound, lib_ms)
+                print(f"[time] K5 config 5 {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+                      f"ms, bound {bound[0]:.3f} ms ({bound[1]}), library "
+                      f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}", flush=True)
+            del q, vs, v_cat, lse, do_cat, dsum, dq, dv
+            torch.cuda.empty_cache()
 
 
 def phase_kernels(run: Run, seed: int, timings: dict):
@@ -251,6 +359,8 @@ def phase_kernels(run: Run, seed: int, timings: dict):
                       f"ms, bound {bound[0]:.3f} ms ({bound[1]}), library "
                       f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
             del q, vs, outs, refs
+    torch.cuda.empty_cache()
+    _phase_flash_backward(run, gen, timings)
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -464,6 +574,7 @@ def _counts():
     from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 
     return {"flash_attention_fwd": fa.flash_attention.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "instance_norm_act": na.instance_norm_act.launches,
             "output_head": oh.output_head.launches,
             "conv3x3_stats": dc.conv3x3_stats.launches,
@@ -743,6 +854,145 @@ def phase_profile(seed: int, rounds: int, card: str):
     torch.cuda.empty_cache()
 
 
+def _train_batch(gen, n: int):
+    """A seeded batch on the card: images in [0, 1], NHWC, and a mask of one
+    random rectangle a sample, as the trainer's loader hands them over."""
+    import torch
+
+    batch = {k: torch.rand(n, HW, HW, 3, device="cuda", generator=gen)
+             for k in ("src_img", "gt_img", "ref_img")}
+    mask = torch.zeros(n, HW, HW, device="cuda")
+    corner = torch.randint(0, HW // 2, (n, 2), device="cuda", generator=gen).tolist()
+    for i, (y, x) in enumerate(corner):
+        mask[i, y:y + HW // 2, x:x + HW // 2] = 1.0
+    batch["mask"] = mask
+    return batch
+
+
+def _trainer(seed: int, dtype: str, batch: int):
+    """The trainer CLI's own models, optimizers and step at BASELINE config 5
+    (the flagship widths, define_d(ndf=32, img_f=128, layers=5), VGG16 with
+    random weights, Adam at 1e-4, lsgan), on the card; the decoder
+    attention's gamma, zero at init, set from the seed so the attention's
+    gradients are not zero."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.cli import train_reference_fill as cli
+
+    args = cli.get_args(["--device", "cuda", "--seed", str(seed), "--batch_size", str(batch),
+                         "--learning_rate", "1e-4", "--decoder_img_f", "256",
+                         "--compute_dtype", dtype, "--out_size", str(HW)])
+    trainer = cli.Trainer(args, cli.resolve_device(args.device))
+    gamma = torch.rand(1, generator=torch.Generator().manual_seed(seed)) + 0.5
+    with torch.no_grad():
+        trainer.generator.decoder.attn1.gamma.copy_(gamma)
+    return trainer
+
+
+def phase_train(run: Run, seed: int, card: str) -> dict:
+    """Phase 7: the config-5 GAN step at batch 16 in bf16, then the f32
+    gradient check at batch 2. Returns the launches of one bf16 step."""
+    import copy
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+
+    batch = 16
+    trainer = _trainer(seed, "bfloat16", batch)
+    data = torch.Generator(device="cuda").manual_seed(seed + 3)
+    batches = [_train_batch(data, batch) for _ in range(3)]
+    n_params = sum(p.numel() for p in trainer.generator.parameters())
+    print(f"[train] config 5: G {n_params} parameters, D "
+          f"{sum(p.numel() for p in trainer.discriminator.parameters())}, batch {batch}, "
+          f"bfloat16 compute, float32 parameters", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    metrics = trainer.train_step(batches[0], noise=trainer.noise)
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = {k: float(v) for k, v in metrics.items()}
+    print(f"[train] launches in one step: {launches}; losses {losses}", flush=True)
+    run.check(launches == PER_STEP, f"config-5 step launches K1 once, K5 once, K2 ten "
+                                    f"times, K3 and K4 never: {launches}")
+    run.check(all(v == v and abs(v) != float("inf") for v in losses.values()),
+              f"config-5 step losses finite: {losses}")
+    run.check(all(p.dtype == torch.float32 for p in trainer.generator.parameters()),
+              "bf16-mixed: the generator's parameters stay float32")
+
+    times, walls = [], []
+    for i in range(2 + STEP_ROUNDS):
+        b = batches[i % len(batches)]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        trainer.train_step(b, noise=trainer.noise)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+            walls.append((time.perf_counter() - t0) * 1e3)
+    q = statistics.quantiles(times, n=4)
+    print(f"[train] config-5 step, bf16 batch {batch}, {STEP_ROUNDS} steps after 2 warm-up: "
+          f"median {statistics.median(times):.2f} ms, quartiles {q[0]:.2f}-{q[2]:.2f}, range "
+          f"{min(times):.2f}-{max(times):.2f} ({batch / statistics.median(times) * 1e3:.2f} "
+          f"images/s); host wall median {statistics.median(walls):.2f} ms; peak device memory "
+          f"of the first step {peak:.2f} GiB, on {card}", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[:2]:
+            trainer.train_step(b, noise=trainer.noise)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[train] profile, two steps: wall {wall:.2f} ms, summed device time {busy:.2f} ms, "
+          f"device busy {100 * busy / wall:.1f}% on {card}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"[train]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:100]}")
+    del trainer, batches, metrics, prof
+    torch.cuda.empty_cache()
+
+    # the kernel path's gradients against the plain path's, f32, batch 2
+    trainer = _trainer(seed, "float32", 2)
+    b = _train_batch(data, 2)
+    eps = [torch.randn(2, HW // 8, HW // 8, 128, device="cuda", generator=data)
+           for _ in range(2)]
+    start = copy.deepcopy((trainer.generator.state_dict(), trainer.discriminator.state_dict()))
+    got = trainer.train_step(b, eps_q=eps[0], eps_p=eps[1], return_grads=True)
+    trainer.generator.load_state_dict(start[0])
+    trainer.discriminator.load_state_dict(start[1])
+    with plain_versions():
+        want = trainer.train_step(b, eps_q=eps[0], eps_p=eps[1], return_grads=True)
+    for net in ("g_grads", "d_grads"):
+        floor = GRAD_FLOOR * max(float(w.abs().max()) for w in want[net].values())
+        used, rel = 0.0, 0.0  # the largest share of its tolerance a tensor uses
+        for k, w in want[net].items():
+            err = float((got[net][k] - w).abs().max())
+            scale = float(w.abs().max())
+            used = max(used, err / (GRAD_TOL * scale + floor))
+            rel = max(rel, err / scale if scale > floor else 0.0)
+        run.check(used <= 1.0, f"config-5 f32 step, batch 2: kernel path vs plain path, {net} "
+                               f"({len(want[net])} tensors): max_abs_err uses at most "
+                               f"{used:.3f} of its tolerance ({GRAD_TOL} * max|plain| + "
+                               f"{GRAD_FLOOR} * the network's largest entry); worst "
+                               f"max_abs_err / max|plain| {rel:.3e} over tensors above the floor")
+    loss_err = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-12)
+                   for k in ("G_loss", "D_loss"))
+    run.check(loss_err <= 1e-4, f"config-5 f32 step, batch 2: G and D losses of the kernel "
+                                f"path within {loss_err:.2e} of the plain path's (tol 1e-4)")
+    del trainer, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -770,6 +1020,7 @@ def main(argv=None) -> int:
     phase_cli(run, args.seed)
     phase_timing(run, args.seed, timings, smi)
     phase_profile(args.seed, PROFILE_ROUNDS, smi)
+    train_launches = phase_train(run, args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:", file=sys.stderr)
@@ -780,8 +1031,10 @@ def main(argv=None) -> int:
     kernels = []
     for name, meta in KERNELS.items():
         ms, plain_ms, bound_ms, bound_by, library_ms = timings[(name, "bfloat16")]
-        # K4b and K4a count one forward of the configuration that runs them
-        n = packed_launches[name] if name in ("conv3x3_stats", "convt_pair") else launches[name]
+        # K4b and K4a count one forward of the configuration that runs them,
+        # K5 one training step
+        n = (packed_launches[name] if name in ("conv3x3_stats", "convt_pair")
+             else train_launches[name] if name == "flash_attention_bwd" else launches[name])
         kernels.append({"name": name, **meta, "launches": n,
                         "max_abs_err": run.err[name], "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,

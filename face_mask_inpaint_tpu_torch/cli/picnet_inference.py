@@ -16,6 +16,9 @@ conversion, the DRN encoder and ``--old_model`` are not ported yet and raise.
 ``--device`` (or read from the dataset's cached map). ``--device`` defaults
 to cuda and fails when CUDA is absent; ``--device cpu`` runs on the CPU.
 
+``--profile_dir`` writes a ``torch.profiler`` Chrome trace of batches 2 to
+``2 + --profile_steps`` (utils/profiling.py), as the JAX CLI traces its window.
+
 ``FMI_PACKED_CONVT=1`` in the environment, the JAX package's own switch,
 builds the generator with ``packed_convt=True``: the decoder blocks above
 ``pack_threshold`` run their fused tail, kernels K4b and K4a.
@@ -38,6 +41,7 @@ from face_mask_inpaint_tpu_torch.evaluations.ssim import ms_ssim, ssim
 from face_mask_inpaint_tpu_torch.models.reference_fill import ReferenceFill
 from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
 from face_mask_inpaint_tpu_torch.utils.images import mask2im, tensor2im
+from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
 
 __all__ = ["get_args", "process_params", "build_models", "make_infer_batch", "main"]
 
@@ -84,6 +88,7 @@ def get_args(argv=None):
                         help="torch device; 'cpu' must be asked for explicitly")
     parser.add_argument('--seed', type=int, default=0,
                         help='seed of the random weights and of the latent noise')
+    add_profile_args(parser)
     args = parser.parse_args(argv)
 
     args.src_img_path = os.path.join(args.data_root, args.src_img_path)
@@ -176,8 +181,10 @@ def main(argv=None):
     out_dir.mkdir(parents=True, exist_ok=True)
 
     noise = torch.Generator(device=device).manual_seed(args.seed)
+    profiler = ProfileWindow(args.profile_dir, args.profile_steps)
     eval_results = []
-    for batch in loader:
+    for step, batch in enumerate(loader):
+        profiler.tick(step)
         src = batch['src_img'].to(device, non_blocking=True)
         ref = batch['ref_img'].to(device, non_blocking=True)
         gen, src_mask = infer_batch(src, ref, noise)
@@ -196,6 +203,7 @@ def main(argv=None):
             if args.save_src_mask:
                 mask2im(mask_np[i]).save(out_dir / f'mask_{ids[i]}.jpg')
 
+    profiler.close()
     means = np.array(eval_results).mean(0)
     df = pd.DataFrame({'ssim': [means[0]], 'ms_ssim': [means[1]]})
     print(df)

@@ -14,6 +14,10 @@ key; the rules below only rename leaves and change layouts:
 - spectral ``u`` and ``v`` -> buffers of the same names and layout.
 
 The result loads with ``load_state_dict(strict=True)``.
+
+``vgg16_state_dict_from_torchvision`` maps torchvision's ``vgg16()`` layout
+(``features.<index>.weight``, OIHW already) onto ``VGG16Features``, the
+port's counterpart of the JAX ``tools/convert_torch.convert_vgg16_features``.
 """
 
 from __future__ import annotations
@@ -24,11 +28,19 @@ import numpy as np
 import torch
 from torch import nn
 
+from face_mask_inpaint_tpu_torch.losses.vgg import VGG16Features
+from face_mask_inpaint_tpu_torch.models.picnet import PatchDiscriminator, ResDiscriminator
 from face_mask_inpaint_tpu_torch.models.reference_fill import ReferenceFill
 from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
 from face_mask_inpaint_tpu_torch.nn.layers import BatchNorm2d, Conv2d, ConvTranspose2d
 
-__all__ = ["state_dict_from_jax", "convert_mask_detector", "convert_reference_fill"]
+__all__ = ["state_dict_from_jax", "convert_mask_detector", "convert_reference_fill",
+           "convert_discriminator", "convert_vgg16", "vgg16_state_dict_from_torchvision"]
+
+# torchvision vgg16().features index of each conv in features[:23]
+_VGG16_TORCHVISION = {0: "conv1_1", 2: "conv1_2", 5: "conv2_1", 7: "conv2_2",
+                      10: "conv3_1", 12: "conv3_2", 14: "conv3_3",
+                      17: "conv4_1", 19: "conv4_2", 21: "conv4_3"}
 
 _LEAF_NAMES = {
     ("params", "kernel"): "weight",
@@ -90,3 +102,37 @@ def convert_reference_fill(model: ReferenceFill, variables: dict) -> dict[str, t
     if not isinstance(model, ReferenceFill):
         raise TypeError(f"expected a ReferenceFill, got {type(model).__name__}")
     return state_dict_from_jax(model, variables)
+
+
+def convert_discriminator(model: nn.Module, variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``ResDiscriminator``/``PatchDiscriminator`` variables (params +
+    spectral) -> state_dict."""
+    if not isinstance(model, (ResDiscriminator, PatchDiscriminator)):
+        raise TypeError(f"expected a discriminator, got {type(model).__name__}")
+    return state_dict_from_jax(model, variables)
+
+
+def convert_vgg16(model: VGG16Features, params: dict) -> dict[str, torch.Tensor]:
+    """JAX ``VGG16Features`` params -> state_dict."""
+    if not isinstance(model, VGG16Features):
+        raise TypeError(f"expected a VGG16Features, got {type(model).__name__}")
+    return state_dict_from_jax(model, {"params": params})
+
+
+def vgg16_state_dict_from_torchvision(sd: dict) -> dict[str, torch.Tensor]:
+    """A torchvision ``vgg16()`` state_dict (or its ``features`` part, with or
+    without the ``features.`` prefix) -> ``VGG16Features`` state_dict."""
+    out = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        if parts[0] == "features":
+            parts = parts[1:]
+        if len(parts) != 2 or not parts[0].isdigit():
+            continue  # the classifier, or another module's keys
+        name = _VGG16_TORCHVISION.get(int(parts[0]))
+        if name is not None:
+            out[f"{name}.{parts[1]}"] = torch.as_tensor(value).float().contiguous()
+    if len(out) != 2 * len(_VGG16_TORCHVISION):
+        raise KeyError(f"expected the {len(_VGG16_TORCHVISION)} convs of vgg16().features[:23], "
+                       f"found {len(out) // 2}")
+    return out

@@ -4,14 +4,28 @@ Port of face_mask_inpaint_tpu/data/loader.py. Items (dicts of numpy arrays)
 stack into dicts of tensors. With ``pad_last`` a short final batch is padded
 to ``batch_size`` by repeating its last item, and ``_valid`` (1 for real
 rows, 0 for padding) is added, so every batch has one shape.
+``split_dataset`` draws the JAX package's train/val split (the same numpy
+permutation), and ``get_reference_dataloader`` builds the trainer's two
+loaders over it.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-__all__ = ["DataLoader"]
+__all__ = ["DataLoader", "split_dataset", "get_reference_dataloader"]
+
+
+def split_dataset(n: int, val_amount: float, seed: int = 0):
+    """Deterministic random train/val index split: n_train = floor(n (1 -
+    val)), the reference's torch.random_split sizes (dataloader.py:38-41),
+    drawn with the JAX package's numpy permutation."""
+    n_train = math.floor(n * (1 - val_amount))
+    perm = np.random.RandomState(seed).permutation(n)
+    return perm[:n_train].tolist(), perm[n_train:].tolist()
 
 
 class _Collate:
@@ -47,3 +61,27 @@ class DataLoader(torch.utils.data.DataLoader):
             pin_memory=pin_memory,
             generator=torch.Generator().manual_seed(seed) if shuffle else None,
             multiprocessing_context="spawn" if num_workers > 0 else None)
+
+
+def get_reference_dataloader(dir_src_img, dir_ref_img, dir_mask, identity_file,
+                             batch_size: int, apply_transform: bool = False,
+                             val_amount: float = 0.1, num_workers: int = 0,
+                             img_scale: float = 1.0, use_ssim: bool = False, device=None,
+                             seed: int = 0, pin_memory: bool = False):
+    """(train loader, val loader) over one ReferenceDataset
+    (dataloader.py:19-46): the train split shuffled from ``seed``, the val
+    split in order with drop_last. On one device a short last train batch
+    is kept, as the reference keeps it."""
+    from face_mask_inpaint_tpu_torch.data.dataset import ReferenceDataset
+
+    dataset = ReferenceDataset(dir_src_img, dir_ref_img, dir_mask, identity_file,
+                               apply_transform=apply_transform, scale=img_scale,
+                               use_ssim=use_ssim, seed=seed, device=device)
+    train_idx, val_idx = split_dataset(len(dataset), val_amount, seed)
+    train_loader = DataLoader(torch.utils.data.Subset(dataset, train_idx), batch_size,
+                              shuffle=True, num_workers=num_workers, seed=seed,
+                              pin_memory=pin_memory)
+    val_loader = DataLoader(torch.utils.data.Subset(dataset, val_idx), batch_size,
+                            shuffle=False, drop_last=True, num_workers=num_workers,
+                            pin_memory=pin_memory)
+    return train_loader, val_loader

@@ -11,8 +11,8 @@ from face_mask_inpaint_tpu_torch.kernels import output_head as _oh
 
 __all__ = ["WRAPPERS", "reset_launch_counts"]
 
-WRAPPERS = (_fa.flash_attention, _na.instance_norm_act, _oh.output_head,
-            _dc.conv3x3_stats, _dc.convt_pair)
+WRAPPERS = (_fa.flash_attention, _fa.flash_attention_bwd, _na.instance_norm_act,
+            _oh.output_head, _dc.conv3x3_stats, _dc.convt_pair)
 
 
 def reset_launch_counts() -> None:

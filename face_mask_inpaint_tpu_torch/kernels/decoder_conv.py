@@ -23,6 +23,10 @@ Weights are the port's own: ``Conv2d`` [Co, Ci, 3, 3] and ``ConvTranspose2d``
 torch's [Ci, Co, 3, 3] (nn/layers.py). Each wrapper launches its kernel for
 CUDA tensors and raises on what it cannot take; for CPU tensors it runs its
 plain version, which is also what the kernel is held against on the card.
+The kernels have no backward (the JAX package runs the fused tail in
+inference only, ``use_packed_convt_kernel(train)``): on CUDA tensors the
+wrappers raise when a gradient would be needed. The plain versions are
+differentiable in the input, the prologue, the weight and the bias.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from face_mask_inpaint_tpu_torch.kernels import build
+from face_mask_inpaint_tpu_torch.kernels.output_head import _no_grad_needed
 
 __all__ = ["conv3x3_stats", "conv3x3_stats_plain", "convt_pair", "convt_pair_plain",
            "instance_affine_from_stats", "ACTS"]
@@ -111,7 +116,7 @@ def _finish(y: torch.Tensor, act: Optional[str], with_stats: bool, dtype: torch.
 def _bias32(b: Optional[torch.Tensor], co: int, device) -> torch.Tensor:
     if b is None:
         return torch.zeros(co, dtype=torch.float32, device=device)
-    return b.detach().float()
+    return b.float()
 
 
 def _check_conv3(x, w, b, prologue, act) -> None:
@@ -128,7 +133,7 @@ def conv3x3_stats_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tens
     """Plain PyTorch version of K4b: F.conv2d(padding=1) over the prologue'd,
     rounded input, rounding where the kernel rounds."""
     _check_conv3(x, w, b, prologue, act)
-    y = F.conv2d(_prologued(x, prologue), w.detach().to(x.dtype).float(), padding=1)
+    y = F.conv2d(_prologued(x, prologue), w.to(x.dtype).float(), padding=1)
     y = y + _bias32(b, w.shape[0], x.device)[None, :, None, None]
     return _finish(y, act, with_stats, x.dtype)
 
@@ -156,7 +161,7 @@ def _pair_bias(streams, co: int, device) -> torch.Tensor:
     bias = torch.zeros(co, dtype=torch.float32, device=device)
     for _, _, b, _ in streams:
         if b is not None:
-            bias = bias + b.detach().float()
+            bias = bias + b.float()
     return bias
 
 
@@ -168,7 +173,7 @@ def convt_pair_plain(streams: Sequence, act: Optional[str] = None, with_stats: b
     x0, co = streams[0][0], streams[0][1].shape[1]
     y = None
     for x, w, _, prologue in streams:
-        t = F.conv_transpose2d(_prologued(x, prologue), w.detach().to(x.dtype).float(),
+        t = F.conv_transpose2d(_prologued(x, prologue), w.to(x.dtype).float(),
                                stride=2, padding=1, output_padding=1)
         y = t if y is None else y + t
     y = y + _pair_bias(streams, co, x0.device)[None, :, None, None]
@@ -205,7 +210,7 @@ def _check_device(x: torch.Tensor, tensors, what: str) -> None:
 
 def _weights(w: torch.Tensor, dtype: torch.dtype, co_pad: int, transposed: bool):
     """[Ci, 9, co_pad] f32, tap-major, rounded to the stream dtype."""
-    w = w.detach().to(dtype).float()
+    w = w.to(dtype).float()
     w = w.permute(0, 2, 3, 1) if transposed else w.permute(1, 2, 3, 0)
     ci, co = w.shape[0], w.shape[3]
     out = torch.zeros((ci, 9, co_pad), dtype=torch.float32, device=w.device)
@@ -253,6 +258,7 @@ def conv3x3_stats(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_stats runs on cpu or cuda, not {x.device}")
     _check_conv3(x, w, b, prologue, act)
+    _no_grad_needed("conv3x3_stats", [x, w, b, *(prologue or (None, None))[:2]])
     a_, b_, pro = _prologue_args(prologue)
     _check_device(x, [w, b, a_, b_], "conv3x3_stats")
     n, c, h, wd = x.shape
@@ -297,6 +303,8 @@ def convt_pair(streams: Sequence, act: Optional[str] = None, with_stats: bool = 
     if x0.device.type != "cuda":
         raise ValueError(f"convt_pair runs on cpu or cuda, not {x0.device}")
     _check_convt(streams, act)
+    for x, w, b, prologue in streams:
+        _no_grad_needed("convt_pair", [x, w, b, *(prologue or (None, None))[:2]])
     n, _, h, wd = x0.shape
     co = streams[0][1].shape[1]
     co_pad = _function("fmi_decoder_conv_co_pad")(co)

@@ -20,7 +20,11 @@ one program per 2K elements of a plane, reading that plane's a, b once.
 ``instance_norm_act`` launches the kernels for CUDA tensors and raises on what
 they cannot take; for CPU tensors it runs ``instance_norm_act_plain``, a port
 of ``instance_norm_act_reference``, which is also what the kernel is held
-against on the card.
+against on the card. Where a gradient is needed it runs inside a
+``torch.autograd.Function`` whose backward recomputes the plain version under
+autograd and differentiates it, as the JAX ``custom_vjp`` does
+(norm_act.py:143-159): JAX has no Pallas backward for K2, so neither has the
+port.
 """
 
 from __future__ import annotations
@@ -117,14 +121,8 @@ def _check(x, weight, bias, act) -> None:
             raise ValueError("weight/bias must be [C] on the input's device")
 
 
-def instance_norm_act(x: torch.Tensor, weight: Optional[torch.Tensor],
-                      bias: Optional[torch.Tensor], act: str = "LeakyReLU",
-                      slope: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
-    """Fused instance norm (+ optional affine) + activation over NCHW.
-
-    x: [N, C, H, W] float32 or bfloat16; weight/bias: [C] or None. CPU
-    tensors take the plain version; CUDA tensors launch K2.
-    """
+def _forward(x, weight, bias, act, slope, eps) -> torch.Tensor:
+    """K2 for CUDA tensors, the plain version for CPU tensors (no autograd)."""
     if x.device.type == "cpu":
         return instance_norm_act_plain(x, weight, bias, act, slope, eps)
     if x.device.type != "cuda":
@@ -154,6 +152,43 @@ def instance_norm_act(x: torch.Tensor, weight: Optional[torch.Tensor],
             ACT=ACTS.index(act), BLOCK=_APPLY_BLOCK, num_warps=4)
     instance_norm_act.launches += 1
     return y
+
+
+class _InstanceNormAct(torch.autograd.Function):
+    """K2 forward; the backward differentiates the plain version, recomputed
+    from the saved input (JAX ``_ina_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, act, slope, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.config = (act, slope, eps)
+        return _forward(x, weight, bias, act, slope, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_() if need else t
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = instance_norm_act_plain(*inputs, *ctx.config)
+            grads = iter(torch.autograd.grad(
+                y, [t for t, need in zip(inputs, ctx.needs_input_grad) if need], dy))
+        return (*(next(grads) if need else None
+                  for need in ctx.needs_input_grad[:3]), None, None, None)
+
+
+def instance_norm_act(x: torch.Tensor, weight: Optional[torch.Tensor],
+                      bias: Optional[torch.Tensor], act: str = "LeakyReLU",
+                      slope: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
+    """Fused instance norm (+ optional affine) + activation over NCHW.
+
+    x: [N, C, H, W] float32 or bfloat16; weight/bias: [C] or None. CPU
+    tensors take the plain version; CUDA tensors launch K2. Differentiable
+    in x, weight and bias.
+    """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias)):
+        return _InstanceNormAct.apply(x, weight, bias, act, slope, eps)
+    return _forward(x, weight, bias, act, slope, eps)
 
 
 instance_norm_act.launches = 0

@@ -16,7 +16,10 @@ says what bounds the kernel on the card and what its design does about that.
 
 ``output_head`` launches the kernel for CUDA tensors and raises on what it
 cannot take; for CPU tensors it runs ``output_head_plain``, which is also what
-the kernel is held against on the card.
+the kernel is held against on the card. The kernel has no backward (the JAX
+package runs it in inference only, ``use_packed_output_kernel(train)``), so on
+CUDA tensors it raises when a gradient would be needed; the plain version is
+differentiable.
 """
 
 from __future__ import annotations
@@ -74,6 +77,14 @@ def output_head_plain(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor,
     return F.avg_pool2d(torch.tanh(y), pool).to(h.dtype)
 
 
+def _no_grad_needed(what: str, tensors) -> None:
+    """Raise where a kernel without a backward would cut a gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward; run it under "
+                           "torch.no_grad() (inference), or train with the module in "
+                           "training mode, which takes the differentiable path")
+
+
 def _function(dtype: torch.dtype):
     fn = getattr(build.load("output_head"), _SYMBOLS[dtype])
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -94,6 +105,7 @@ def output_head(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor,
     if h.device.type != "cuda":
         raise ValueError(f"output_head runs on cpu or cuda, not {h.device}")
     _check(h, s, weight, bias, act, pool)
+    _no_grad_needed("output_head", (h, s, weight, bias))
     for t in (s, weight, bias):
         if t.device != h.device:
             raise ValueError("h, s, weight and bias must lie on one device")
@@ -104,8 +116,8 @@ def output_head(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor,
     # [C, 9, 4] f32, tap-major, co padded to four: the weight rounded to the
     # stream dtype, as the TPU kernel rounds it
     w = torch.zeros((c, 9, _CO_MAX), dtype=torch.float32, device=h.device)
-    w[:, :, :co] = weight.detach().to(h.dtype).float().permute(1, 2, 3, 0).reshape(c, 9, co)
-    b = bias.detach().float().contiguous()
+    w[:, :, :co] = weight.to(h.dtype).float().permute(1, 2, 3, 0).reshape(c, 9, co)
+    b = bias.float().contiguous()
     out = torch.empty((n, co, height // pool, width // pool), dtype=h.dtype, device=h.device)
     with torch.cuda.device(h.device):
         rc = _function(h.dtype)(

@@ -1,11 +1,12 @@
 """PICNet pluralistic encoder and generator, over NCHW tensors.
 
 Port of face_mask_inpaint_tpu/models/picnet.py (``ResEncoder``, ``sample_z``,
-``ResGenerator``, ``define_e``, ``define_g``; the discriminators wait for the
-training slice). Input channel counts, which flax infers from the data, are
-explicit: the generator takes ``input_nc`` (the fused encoder features) and
-``z_channels`` (the sampled latent), and checks that ``encoded + f`` adds
-tensors of one width (picnet.py:215).
+``ResGenerator``, ``ResDiscriminator``, ``PatchDiscriminator``, ``define_e``,
+``define_g``, ``define_d``). Input channel counts, which flax infers from the
+data, are explicit: the generator takes ``input_nc`` (the fused encoder
+features) and ``z_channels`` (the sampled latent), and checks that
+``encoded + f`` adds tensors of one width (picnet.py:215); the
+discriminators take ``input_nc``.
 """
 
 from __future__ import annotations
@@ -17,9 +18,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from face_mask_inpaint_tpu_torch.nn.blocks import (
-    AutoAttention, Output, ResBlock, ResBlockDecoder, ResBlockEncoderOptimized)
+    AutoAttention, CoordConvWrap, Output, ResBlock, ResBlockDecoder,
+    ResBlockEncoderOptimized)
+from face_mask_inpaint_tpu_torch.nn.layers import Activation, Conv2d
 
-__all__ = ["ResEncoder", "ResGenerator", "sample_z", "define_e", "define_g"]
+__all__ = ["ResEncoder", "ResGenerator", "ResDiscriminator", "PatchDiscriminator",
+           "sample_z", "define_e", "define_g", "define_d"]
 
 
 class ResEncoder(nn.Module):
@@ -104,7 +108,12 @@ class ResGenerator(nn.Module):
     their fused tail, kernels K4b and K4a, with instance-norm statistics
     handed from block to block. A block packs when its output side exceeds
     ``pack_threshold`` or the block before it packed, the attention after
-    decoder 1 ending such a run (JAX picnet.py:227-237, :280-288)."""
+    decoder 1 ending such a run (JAX picnet.py:227-237, :280-288).
+
+    The K3 pair and the fused tail run in eval mode only: their kernels have
+    no backward, and the JAX generator takes both only when ``not train``
+    (``use_packed_output_kernel(train)``, ``use_packed_convt_kernel(train)``).
+    In training mode every block runs its dense, differentiable path."""
 
     def __init__(self, input_nc: int, z_channels: Optional[int] = None,
                  output_nc: int = 3, ngf: int = 64, z_nc: int = 512,
@@ -142,12 +151,13 @@ class ResGenerator(nn.Module):
 
     def forward(self, encoded: torch.Tensor, z: Optional[torch.Tensor] = None,
                 fuse_pool: Optional[int] = None) -> torch.Tensor:
-        """fuse_pool: an integer factor of the caller's average pool. The
-        last decoder then hands the Output head its (h, bypass) pair, and the
-        head returns the pooled image through kernel K3 (JAX picnet.py:243-262,
-        without the packing conditions). When the last decoder runs its fused
-        tail instead, it hands the head one pre-activated map, as in JAX; the
-        head then works at full size and leaves the pool to the caller."""
+        """fuse_pool: an integer factor of the caller's average pool. In eval
+        mode the last decoder then hands the Output head its (h, bypass)
+        pair, and the head returns the pooled image through kernel K3 (JAX
+        picnet.py:243-262, without the packing conditions). When the last
+        decoder runs its fused tail instead, it hands the head one
+        pre-activated map, as in JAX; the head then works at full size and
+        leaves the pool to the caller, as it does in training mode."""
         out = encoded
         if z is not None:
             f = self.generator(z)
@@ -156,14 +166,14 @@ class ResGenerator(nn.Module):
             out = encoded + f
         last = self.layers - 1
         head = getattr(self, f"out{last}")
-        pair = (isinstance(fuse_pool, int) and head.pair_ok()
+        pair = (not self.training and isinstance(fuse_pool, int) and head.pair_ok()
                 and not (last == 1 and self.use_attn))
         packable = self.norm in ("instance", "none")
         r, stats, pre_activated = 1, None, False  # r: the JAX space-to-depth factor
         for i in range(self.layers):
             dec = getattr(self, f"decoder{i}")
             pack_out = r > 1 or (packable and 2 * min(out.shape[2:]) > self.pack_threshold)
-            if self.packed_convt and pack_out and dec.fused_ok():
+            if self.packed_convt and not self.training and pack_out and dec.fused_ok():
                 # the Output head's leading activation, unless the attention
                 # (i == 1) still reads the raw map (JAX picnet.py:243-249)
                 fuse_act = (dec.activation if i == last and not (i == 1 and self.use_attn)
@@ -185,6 +195,78 @@ class ResGenerator(nn.Module):
         return head(out, pre_activated=pre_activated)
 
 
+class ResDiscriminator(nn.Module):
+    """ResNet discriminator (network.py:310-370): a stem, ``layers - 1``
+    downsampling ResBlocks with self-attention before the one at i == 2, a
+    ResBlock, the activation and a spectral-norm 3x3 valid conv to one
+    channel. The attention sees (H/8)^2 tokens, 1,024 at 256^2: under
+    ``block_threshold``, so its map is materialized and runs no kernel."""
+
+    def __init__(self, input_nc: int = 3, ndf: int = 64, img_f: int = 512,
+                 layers: int = 6, norm: str = "none", activation: str = "LeakyReLU",
+                 use_spect: bool = True, use_coord: bool = False, use_attn: bool = True,
+                 init_type: str = "orthogonal"):
+        super().__init__()
+        kw = dict(norm=norm, activation=activation, use_spect=use_spect,
+                  use_coord=use_coord, init_type=init_type)
+        self.layers, self.use_attn = layers, use_attn
+        self.block0 = ResBlockEncoderOptimized(input_nc, ndf, **kw)
+        mult = 1
+        for i in range(layers - 1):
+            mult_prev = mult
+            mult = min(2 ** (i + 1), img_f // ndf)
+            if i == 2 and use_attn:
+                self.add_module(f"attn{i}", AutoAttention(ndf * mult_prev,
+                                                          init_type=init_type))
+            self.add_module(f"encoder{i}", ResBlock(
+                ndf * mult_prev, ndf * mult, ndf * mult_prev, sample_type="down", **kw))
+        self.block1 = ResBlock(ndf * mult, ndf * mult, ndf * mult, sample_type="none", **kw)
+        self.act = Activation(activation)
+        self.conv = Conv2d(ndf * mult, 1, 3, padding=0, use_spect=True, init_type=init_type)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [N, input_nc, H, W] -> [N, 1, H/2^layers - 2, W/2^layers - 2]."""
+        out = self.block0(x)
+        for i in range(self.layers - 1):
+            if i == 2 and self.use_attn:
+                out = getattr(self, f"attn{i}")(out)
+            out = getattr(self, f"encoder{i}")(out)
+        return self.conv(self.act(self.block1(out)))
+
+
+class PatchDiscriminator(nn.Module):
+    """70x70 PatchGAN discriminator (network.py:373-430): 4x4 convs without
+    bias, stride 2 then 1, each followed by the activation but the last. The
+    reference builds a norm but never applies it, and so does this port."""
+
+    def __init__(self, input_nc: int = 3, ndf: int = 64, img_f: int = 512,
+                 layers: int = 3, norm: str = "batch", activation: str = "LeakyReLU",
+                 use_spect: bool = True, use_coord: bool = False, use_attn: bool = False,
+                 init_type: str = "orthogonal"):
+        super().__init__()
+        del norm, use_attn  # unused by the reference's forward
+        self.layers = layers
+        self.act = Activation(activation)
+
+        def cc(cin, cout, stride):
+            return CoordConvWrap(cin, cout, 4, stride, 1, bias=False, use_spect=use_spect,
+                                 use_coord=use_coord, init_type=init_type)
+
+        self.conv0 = cc(input_nc, ndf, 2)
+        mult = 1
+        for i in range(1, layers):
+            mult_prev, mult = mult, min(2 ** i, img_f // ndf)
+            self.add_module(f"conv{i}", cc(ndf * mult_prev, ndf * mult, 2))
+        self.conv_pre = cc(ndf * mult, ndf * mult, 1)
+        self.conv_out = cc(ndf * mult, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.act(self.conv0(x))
+        for i in range(1, self.layers):
+            out = self.act(getattr(self, f"conv{i}")(out))
+        return self.conv_out(self.act(self.conv_pre(out)))
+
+
 def define_e(encoder_type: str = "src", input_nc: int = 3, ngf: int = 64,
              z_nc: int = 512, img_f: int = 512, L: int = 6, layers: int = 5,
              norm: str = "none", activation: str = "ReLU", use_spect: bool = True,
@@ -203,3 +285,16 @@ def define_g(input_nc: int, z_channels: Optional[int] = None, output_nc: int = 3
     return ResGenerator(input_nc, z_channels, output_nc, ngf, z_nc, img_f, L, layers,
                         norm, activation, use_spect, use_coord, use_attn, init_type,
                         pack_threshold, packed_convt)
+
+
+def define_d(input_nc: int = 3, ndf: int = 64, img_f: int = 512, layers: int = 6,
+             norm: str = "none", activation: str = "LeakyReLU", use_spect: bool = True,
+             use_coord: bool = False, use_attn: bool = True, model_type: str = "ResDis",
+             init_type: str = "orthogonal", **_unused) -> nn.Module:
+    if model_type == "ResDis":
+        return ResDiscriminator(input_nc, ndf, img_f, layers, norm, activation, use_spect,
+                                use_coord, use_attn, init_type)
+    if model_type == "PatchDis":
+        return PatchDiscriminator(input_nc, ndf, img_f, layers, norm, activation, use_spect,
+                                  use_coord, use_attn, init_type)
+    raise NotImplementedError(f"model_type [{model_type}]")

@@ -6,8 +6,8 @@ Port of face_mask_inpaint_tpu/ops/attention.py:
 
 (query == key, no 1/sqrt(d) scale, one shared map for several value tensors).
 Up to ``block_threshold`` tokens the map is materialized; above it the
-streaming formulation runs: kernel K1 on CUDA tensors, its plain version
-(``blockwise_attention``) on CPU tensors.
+streaming formulation runs: kernel K1 forward and K5 backward on CUDA tensors,
+their plain versions on CPU tensors, joined in one autograd Function.
 """
 
 from __future__ import annotations
@@ -36,4 +36,4 @@ def attention_apply(query: torch.Tensor, values: Sequence[torch.Tensor],
         att = torch.softmax(torch.matmul(q32, q32.transpose(1, 2)), dim=-1)
         att = att.to(query.dtype)
         return [torch.matmul(att.to(v.dtype), v) for v in values]
-    return fa.flash_attention(query, values)
+    return fa.flash_attention_autograd(query, values)
