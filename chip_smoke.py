@@ -49,7 +49,22 @@ it and read just after. Phases:
    time (CUDA events, median and quartiles of STEP_ROUNDS steps after two
    warm-up steps), its peak device memory and a ``torch.profiler`` top
    list; and at batch 2 in float32 with a seeded non-zero attention gamma,
-   the kernel path's G and D gradients against the plain path's.
+   the kernel path's G and D gradients against the plain path's;
+8. Stack B, pSp -> StyleGAN2 inference at BASELINE config 4 (the path of
+   ``psp_inference.py --use_ref --use_attention 1``): K6 (upfirdn2d) and
+   K7a (fused_leaky_relu) against their plain versions in float32 and
+   bfloat16 at the shapes of one config-4 forward and ragged ones, timed
+   over the 16 K6 and 17 K7a calls of one batch-16 forward beside their
+   bounds and a PyTorch yardstick; the pSp model of the CLI's
+   ``build_models`` (output 1024, attention, random weights from --seed)
+   with the UNet detector in front at batch 2 in float32: output shape and
+   finiteness, the kernel path against the plain versions, the launches of
+   one forward (K6 16 times, K7a 17 times, K1-K5 never); the CLI's
+   ``infer_batch`` over three seeded batches with SSIM and one
+   ``ModelInterface.infer``; then config 4 at batch 16 in bfloat16 (the
+   model as bench.py builds it): the forward timed with CUDA events in
+   turns against the plain versions (median and quartiles), its peak device
+   memory and a ``torch.profiler`` window.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -106,6 +121,18 @@ PACKED_PER_FORWARD = {"flash_attention_fwd": 1, "flash_attention_bwd": 0,
                       "convt_pair": 2}
 PER_STEP = {"flash_attention_fwd": 1, "flash_attention_bwd": 1, "instance_norm_act": 10,
             "output_head": 0, "conv3x3_stats": 0, "convt_pair": 0}
+# Stack B's kernels run in none of the Stack A paths above
+for _d in (PER_FORWARD, PACKED_PER_FORWARD, PER_STEP):
+    _d.update(upfirdn2d=0, fused_leaky_relu=0)
+# one config-4 pSp forward: a K6 blur after each of the 8 upsampling convTs
+# and a K6 upsample of each of the 8 ToRGB skips; K7a for conv1 and the 16
+# StyledConvs
+PSP_PER_FORWARD = dict({k: 0 for k in PER_FORWARD}, upfirdn2d=16, fused_leaky_relu=17)
+# pSp, kernel path against plain path: max |kernel - plain| <= tol * max |plain|
+# (float32, batch 2; the two differ only in the order of f32 sums)
+PSP_TOL = 1e-4
+# timed rounds of the config-4 forward, kernels and plain versions in turns
+PSP_ROUNDS = 5
 # K5: max |kernel - plain| <= tol * max |plain| for dq and each dv. bf16
 # rounds P and the summed dS once on both sides, from f32 values summed in
 # another order, so single terms may sit one bf16 ulp apart in sums of
@@ -134,6 +161,12 @@ KERNELS = {
     "convt_pair": dict(
         route="cuda", source="face_mask_inpaint_tpu_torch/csrc/decoder_conv.cu",
         replaces="face_mask_inpaint_tpu/ops/pallas/packed_convt.py:247"),
+    "upfirdn2d": dict(
+        route="cuda", source="face_mask_inpaint_tpu_torch/csrc/upfirdn2d.cu",
+        replaces="face_mask_inpaint_tpu/ops/pallas/upfirdn2d_pallas.py:44"),
+    "fused_leaky_relu": dict(
+        route="triton", source="face_mask_inpaint_tpu_torch/kernels/fused_act.py",
+        replaces="face_mask_inpaint_tpu/ops/pallas/fused_act_pallas.py:40"),
 }
 
 
@@ -187,11 +220,14 @@ def plain_versions():
     comparisons and the plain timing only; launches are not counted)."""
     from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
     from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
     from face_mask_inpaint_tpu_torch.kernels import norm_act as na
     from face_mask_inpaint_tpu_torch.kernels import output_head as oh
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
 
     saved = (fa.flash_attention, fa.flash_attention_bwd, na.instance_norm_act,
-             oh.output_head, dc.conv3x3_stats, dc.convt_pair)
+             oh.output_head, dc.conv3x3_stats, dc.convt_pair, fir.upfirdn2d,
+             act.fused_leaky_relu)
     fa.flash_attention = lambda q, values, with_lse=False: fa.flash_attention_plain(
         q, values, with_lse=with_lse)
     fa.flash_attention_bwd = fa.flash_attention_bwd_plain
@@ -199,11 +235,13 @@ def plain_versions():
     oh.output_head = oh.output_head_plain
     dc.conv3x3_stats = dc.conv3x3_stats_plain
     dc.convt_pair = dc.convt_pair_plain
+    fir.upfirdn2d = fir.upfirdn2d_plain
+    act.fused_leaky_relu = act.fused_leaky_relu_plain
     try:
         yield
     finally:
         (fa.flash_attention, fa.flash_attention_bwd, na.instance_norm_act, oh.output_head,
-         dc.conv3x3_stats, dc.convt_pair) = saved
+         dc.conv3x3_stats, dc.convt_pair, fir.upfirdn2d, act.fused_leaky_relu) = saved
 
 
 def phase_build():
@@ -570,15 +608,19 @@ def _models(seed: int, dtype):
 def _counts():
     from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
     from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
     from face_mask_inpaint_tpu_torch.kernels import norm_act as na
     from face_mask_inpaint_tpu_torch.kernels import output_head as oh
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
 
     return {"flash_attention_fwd": fa.flash_attention.launches,
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "instance_norm_act": na.instance_norm_act.launches,
             "output_head": oh.output_head.launches,
             "conv3x3_stats": dc.conv3x3_stats.launches,
-            "convt_pair": dc.convt_pair.launches}
+            "convt_pair": dc.convt_pair.launches,
+            "upfirdn2d": fir.upfirdn2d.launches,
+            "fused_leaky_relu": act.fused_leaky_relu.launches}
 
 
 @contextlib.contextmanager
@@ -993,6 +1035,300 @@ def phase_train(run: Run, seed: int, card: str) -> dict:
     return launches
 
 
+# -- Stack B: pSp -> StyleGAN2 inference at BASELINE config 4 ----------------
+
+def _psp_kernel_shapes(batch: int = 16):
+    """The K6 and K7a calls of one config-4 forward, in order: K6 (label,
+    input shape, up, down, pad, gain) and K7a output shapes."""
+    from face_mask_inpaint_tpu_torch.models.stylegan2 import channels_for
+
+    ch = channels_for(1024)
+    k6, k7 = [], [(batch, ch[4], 4, 4)]
+    for r in (2 ** i for i in range(3, 11)):
+        k6.append((f"blur {r}^2", (batch, ch[r], r + 1, r + 1), 1, 1, (1, 1), 4.0))
+        k6.append((f"skip up {r}^2", (batch, 3, r // 2, r // 2), 2, 1, (2, 1), 4.0))
+        k7 += [(batch, ch[r], r, r)] * 2
+    return k6, k7
+
+
+def _k6_library(x, taps, up, pad):
+    """K6's yardstick: one depthwise cuDNN call on the same input, conv2d
+    for the blur (symmetric pad), conv_transpose2d(stride 2, groups=C) for the
+    upsample (pads (2, 1) of a 4-tap filter are padding 1 there). Timed
+    here only; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    c = x.shape[1]
+    k = torch.as_tensor(taps, dtype=x.dtype, device=x.device)
+    w = (k[:, None] * k[None, :]).flip(0, 1).expand(c, 1, len(taps), len(taps)).contiguous()
+    if up == 1:
+        return F.conv2d(x, w, padding=pad[0], groups=c)
+    return F.conv_transpose2d(x, w.flip(2, 3), stride=2, padding=1, groups=c)
+
+
+def _k6_close(got, want, x, taps, up, down, pad, dname):
+    """(ok, max_abs_err) for K6: |kernel - plain| <= atol + rtol (|plain| + M)
+    with M = upfirdn2d(|x|, |taps|), the sum of the output's terms'
+    magnitudes. Each side rounds the H pass and the output once; where the
+    f32 sums of the two sides fall on either side of a rounding boundary, an
+    intermediate moves by one ulp and the output by at most rtol * M."""
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+
+    atol, rtol = TOL[dname]
+    m = fir.upfirdn2d_plain(x.float().abs(), [abs(t) for t in taps], up, down, pad)
+    err = (got.float() - want.float()).abs()
+    return bool((err <= atol + rtol * (want.float().abs() + m)).all()), float(err.max())
+
+
+def phase_stackb_kernels(run: Run, seed: int, timings: dict):
+    """K6 and K7a against their plain versions, float32 and bfloat16, at the
+    config-4 shapes and ragged ones; bfloat16 times summed over the calls of
+    one batch-16 forward."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+    from face_mask_inpaint_tpu_torch.ops.upfirdn2d import make_taps
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    k6_shapes, k7_shapes = _psp_kernel_shapes()
+    blur = [1, 3, 3, 1]
+    k6_cases = [c for c in k6_shapes if c[0] in ("blur 1024^2", "blur 512^2", "skip up 512^2")]
+    k6_cases += [("ragged", (2, 1, 37, 41), 1, 1, (1, 1), 4.0),
+                 ("ragged", (3, 3, 19, 27), 2, 1, (2, 1), 4.0),
+                 ("ragged", (2, 5, 33, 21), 1, 2, (1, 1), 1.0)]
+    asym = [("asymmetric", (2, 3, 23, 17), up, down, pad, float(up * up))
+            for up, down, pad in ((1, 1, (2, 1)), (2, 1, (1, 2)), (1, 2, (2, 2)))]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for label, shape, up, down, pad, gain in k6_cases + asym:
+            taps = [float(t) for t in make_taps([1, 2, 3, 4] if label == "asymmetric"
+                                                else blur, gain)]
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            y = fir.upfirdn2d(x, taps, up, down, pad)
+            torch.cuda.synchronize()
+            ok, err = _k6_close(y, fir.upfirdn2d_plain(x, taps, up, down, pad), x, taps, up,
+                                down, pad, dname)
+            run.err["upfirdn2d"] = max(run.err["upfirdn2d"], err)
+            run.check(ok, f"K6 {label} {list(shape)} up={up} down={down} pad={pad} taps="
+                          f"{'1234' if label == 'asymmetric' else '1331'} {dname}: max_abs_err "
+                          f"{err:.3e} (tol atol {TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*"
+                          f"(|ref| + upfirdn2d(|x|, |taps|)))")
+            del x, y
+        k7_cases = [("1024^2 StyledConv", k7_shapes[-1], True), ("ragged", (3, 5, 37, 41), True),
+                    ("ragged rows", (7, 13), True), ("ragged, no bias", (2, 3, 9, 11), False)]
+        for label, shape, with_bias in k7_cases:
+            x = (torch.randn(shape, device="cuda", generator=gen) * 2).to(dtype)
+            b = torch.randn(shape[1], device="cuda", generator=gen) if with_bias else None
+            y = act.fused_leaky_relu(x, b)
+            torch.cuda.synchronize()
+            ok, err = _close(y, act.fused_leaky_relu_plain(x, b), dname)
+            run.err["fused_leaky_relu"] = max(run.err["fused_leaky_relu"], err)
+            run.check(ok, f"K7a {label} {list(shape)} {dname}: max_abs_err {err:.3e} (tol atol "
+                          f"{TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|)")
+            del x, y
+        torch.cuda.empty_cache()
+
+    # bfloat16 times over one batch-16 forward's calls
+    dtype = torch.bfloat16
+    sums = {k: dict(ms=0.0, plain=0.0, lib=0.0, nbytes=0.0, ops=0.0) for k in ("k6", "k7")}
+    for label, shape, up, down, pad, gain in k6_shapes:
+        taps = [float(t) for t in make_taps(blur, gain)]
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        y = fir.upfirdn2d(x, taps, up, down, pad)
+        lib = _k6_library(x, taps, up, pad)
+        torch.cuda.synchronize()
+        err = float((lib.float() - y.float()).abs().max()) / float(y.float().abs().max())
+        run.check(err <= 2.0 ** -5, f"K6 yardstick {label}: the depthwise cuDNN call computes "
+                                    f"the same function (max_abs_err {err:.3e} of max |y|, "
+                                    f"tol 2^-5: a misplaced tap errs by O(1))")
+        t = sums["k6"]
+        t["ms"] += _time_ms(lambda: fir.upfirdn2d(x, taps, up, down, pad), 5)
+        t["plain"] += _time_ms(lambda: fir.upfirdn2d_plain(x, taps, up, down, pad), 3)
+        t["lib"] += _time_ms(lambda: _k6_library(x, taps, up, pad), 5)
+        # x read once, y written once; two passes of len(taps) / up multiply-adds
+        t["nbytes"] += (x.numel() + y.numel()) * x.element_size()
+        t["ops"] += 2.0 * 2 * y.numel() * len(taps) / up
+        del x, y, lib
+    for shape in k7_shapes:
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        b = torch.randn(shape[1], device="cuda", generator=gen)
+        t = sums["k7"]
+        t["ms"] += _time_ms(lambda: act.fused_leaky_relu(x, b), 5)
+        t["plain"] += _time_ms(lambda: act.fused_leaky_relu_plain(x, b), 5)
+        t["lib"] += _time_ms(lambda: F.leaky_relu(x + b.to(dtype)[None, :, None, None], 0.2)
+                             * math.sqrt(2.0), 5)
+        t["nbytes"] += 2 * x.numel() * x.element_size() + b.numel() * 4
+        t["ops"] += 4.0 * x.numel()
+        del x
+    torch.cuda.empty_cache()
+    for key, name, what in (("k6", "upfirdn2d", "K6, 16 calls"),
+                            ("k7", "fused_leaky_relu", "K7a, 17 calls")):
+        t = sums[key]
+        bound = _bound(t["nbytes"], t["ops"], F32_RATE)
+        timings[(name, "bfloat16")] = (t["ms"], t["plain"], *bound, t["lib"])
+        print(f"[time] {what} of one config-4 forward, bf16 batch 16: kernel {t['ms']:.3f} ms, "
+              f"plain {t['plain']:.3f} ms, library {t['lib']:.3f} ms, bound {bound[0]:.3f} ms "
+              f"({bound[1]}, {t['nbytes'] / 1e9:.3f} GB)", flush=True)
+
+
+def phase_psp(run: Run, seed: int) -> dict:
+    """The CLI's models at config-4 widths, batch 2, float32: one forward's
+    launches, its output, the kernel path against the plain path; then
+    infer_batch over seeded batches and one ModelInterface.infer. Returns
+    the launches of one forward."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from face_mask_inpaint_tpu_torch.cli import gradio_serve
+    from face_mask_inpaint_tpu_torch.cli import psp_inference as cli
+    from face_mask_inpaint_tpu_torch.evaluations.ssim import ssim
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+
+    batch = 2
+    args = cli.get_args(["--device", "cuda", "--seed", str(seed), "--batch_size", str(batch),
+                         "--use_ref", "--use_attention", "1", "--mask_detector_path", "",
+                         "--pt_ckpt_path", "", "--output_size", "1024"])
+    detector, psp = cli.build_models(args, cli.resolve_device(args.device))
+    infer_batch = cli.make_infer_batch(detector, psp, args.use_ref)
+    print(f"[psp] config 4: {sum(p.numel() for p in psp.parameters())} parameters, "
+          f"{psp.n_styles} styles, output {psp.output_size}^2 pooled to 256^2", flush=True)
+    data = torch.Generator(device="cuda").manual_seed(seed + 6)
+    src = torch.rand(batch, HW, HW, 3, device="cuda", generator=data) * 2 - 1
+    ref = torch.rand(batch, HW, HW, 3, device="cuda", generator=data) * 2 - 1
+
+    reset_launch_counts()
+    out, mask = infer_batch(src, ref)
+    torch.cuda.synchronize()
+    launches = _counts()
+    print(f"[psp] launches in one forward: {launches}", flush=True)
+    run.check(launches == PSP_PER_FORWARD,
+              f"pSp forward launches K6 16 times, K7a 17 times, K1-K5 never: {launches}")
+    run.check(tuple(out.shape) == (batch, HW, HW, 3) and bool(torch.isfinite(out).all()),
+              f"pSp output {tuple(out.shape)} finite, max |y| {float(out.abs().max()):.4f}")
+    print(f"[psp] mask mean {float(mask.mean()):.4f}")
+    with plain_versions():
+        out_plain, mask_plain = infer_batch(src, ref)
+    err = float((out - out_plain).abs().max())
+    scale = float(out_plain.abs().max())
+    run.check(torch.equal(mask, mask_plain) and err <= PSP_TOL * scale,
+              f"pSp kernel path vs plain versions (float32, batch {batch}): max_abs_err "
+              f"{err:.3e}, {err / scale:.3e} of max |plain| {scale:.3e} (tol {PSP_TOL})")
+    del out_plain, mask_plain
+
+    reset_launch_counts()
+    for step in range(3):
+        s = torch.rand(batch, HW, HW, 3, device="cuda", generator=data) * 2 - 1
+        r = torch.rand(batch, HW, HW, 3, device="cuda", generator=data) * 2 - 1
+        gen, m = infer_batch(s, r)
+        score = float(ssim((r + 1) / 2, (gen.float() + 1) / 2))
+        run.check(tuple(gen.shape) == (batch, HW, HW, 3) and tuple(m.shape) == (batch, HW, HW)
+                  and bool(torch.isfinite(gen).all()) and score == score,
+                  f"pSp infer_batch step {step}: ssim against the reference {score:.4f}")
+    launches3 = _counts()
+    run.check(launches3 == {k: 3 * v for k, v in PSP_PER_FORWARD.items()},
+              f"pSp infer_batch x3 launches: {launches3}")
+    del detector, psp, infer_batch
+    torch.cuda.empty_cache()
+
+    model = gradio_serve.ModelInterface(gradio_serve.get_args(
+        ["--device", "cuda", "--seed", str(seed), "--use_attention", "1"]),
+        torch.device("cuda"))
+    rng = np.random.RandomState(seed)
+    src_img = Image.fromarray(rng.randint(0, 255, (300, 260, 3), dtype=np.uint8))
+    ref_img = Image.fromarray(rng.randint(0, 255, (300, 260, 3), dtype=np.uint8))
+    reset_launch_counts()
+    gen_img, mask_img = model.infer(src_img, ref_img)
+    served = _counts()
+    run.check(gen_img.shape == (300, 260, 3) and gen_img.dtype == np.uint8
+              and mask_img.shape == (300, 260, 3) and served == PSP_PER_FORWARD,
+              f"ModelInterface.infer on the card: {gen_img.shape} {gen_img.dtype}, launches "
+              f"{served}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_psp_timing(run: Run, seed: int, rounds: int, card: str):
+    """Config 4 at batch 16 in bfloat16, built as bench.py builds it: the
+    forward in turns with the kernels and the plain versions, its peak
+    device memory, and a torch.profiler window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from face_mask_inpaint_tpu_torch.cli.psp_inference import make_infer_batch
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+    from face_mask_inpaint_tpu_torch.models.psp import PSP
+    from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
+
+    batch, dtype = 16, torch.bfloat16
+    weights = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("cuda"):
+        detector = MaskDetector(dtype=dtype, generator=weights)
+        psp = PSP(output_size=1024, use_attention=True, dtype=dtype, generator=weights)
+    forward = make_infer_batch(detector, psp, use_ref=True)
+    data = torch.Generator(device="cuda").manual_seed(seed + 7)
+    src = torch.rand(batch, HW, HW, 3, device="cuda", generator=data) * 2 - 1
+    ref = torch.rand(batch, HW, HW, 3, device="cuda", generator=data) * 2 - 1
+
+    forward(src, ref)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    reset_launch_counts()
+    out, _ = forward(src, ref)
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run.check(launches == PSP_PER_FORWARD and out.dtype == dtype
+              and tuple(out.shape) == (batch, HW, HW, 3) and bool(torch.isfinite(out.float()).all()),
+              f"config-4 forward, bf16 batch {batch}: {out.dtype} {tuple(out.shape)} finite, "
+              f"launches {launches}")
+    del out
+    sides = {"kernels": contextlib.nullcontext, "plain": plain_versions}
+    times = {side: [] for side in sides}
+    enqueue = {side: [] for side in sides}
+    for r in range(rounds):
+        for side in (list(sides) if r % 2 == 0 else list(sides)[::-1]):
+            with sides[side]():
+                times[side].append(_time_ms(lambda: forward(src, ref), 3))
+                t0 = time.perf_counter()
+                forward(src, ref)
+                enqueue[side].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+    for side, v in times.items():
+        q = statistics.quantiles(v, n=4)
+        print(f"[psp] config-4 forward, bf16 batch {batch}, {side}, {rounds} rounds (ms): median "
+              f"{statistics.median(v):.2f}, quartiles {q[0]:.2f}-{q[2]:.2f}, range "
+              f"{min(v):.2f}-{max(v):.2f} ({batch / statistics.median(v) * 1e3:.2f} images/s); "
+              f"host enqueue {min(enqueue[side]):.2f}-{max(enqueue[side]):.2f} ms on {card}",
+              flush=True)
+    print(f"[psp] peak device memory of the bf16 batch-{batch} forward {peak:.2f} GiB "
+          f"({base:.2f} GiB of it weights and inputs) on {card}", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            forward(src, ref)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[psp] profile, three forwards: wall {wall:.2f} ms, summed device time {busy:.2f} ms, "
+          f"device busy {100 * busy / wall:.1f}% on {card}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:20]:
+        print(f"[psp]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:100]}")
+    del detector, psp, forward, prof
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1021,6 +1357,9 @@ def main(argv=None) -> int:
     phase_timing(run, args.seed, timings, smi)
     phase_profile(args.seed, PROFILE_ROUNDS, smi)
     train_launches = phase_train(run, args.seed, smi)
+    phase_stackb_kernels(run, args.seed, timings)
+    psp_launches = phase_psp(run, args.seed)
+    phase_psp_timing(run, args.seed, PSP_ROUNDS, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:", file=sys.stderr)
@@ -1032,9 +1371,11 @@ def main(argv=None) -> int:
     for name, meta in KERNELS.items():
         ms, plain_ms, bound_ms, bound_by, library_ms = timings[(name, "bfloat16")]
         # K4b and K4a count one forward of the configuration that runs them,
-        # K5 one training step
+        # K5 one training step, K6 and K7a one pSp forward
         n = (packed_launches[name] if name in ("conv3x3_stats", "convt_pair")
-             else train_launches[name] if name == "flash_attention_bwd" else launches[name])
+             else train_launches[name] if name == "flash_attention_bwd"
+             else psp_launches[name] if name in ("upfirdn2d", "fused_leaky_relu")
+             else launches[name])
         kernels.append({"name": name, **meta, "launches": n,
                         "max_abs_err": run.err[name], "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,

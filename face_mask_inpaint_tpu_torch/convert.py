@@ -1,12 +1,21 @@
 """JAX variables of the reference package -> this port's ``state_dict``.
 
 The JAX variables are a nested dict of arrays under the collections
-``params``, ``spectral`` and ``batch_stats``. The port's submodules carry the
-flax module names, so each leaf's path, joined with dots, is its state_dict
-key; the rules below only rename leaves and change layouts:
+``params``, ``spectral``, ``batch_stats``, ``noises`` and ``latent_avg``. The
+port's submodules carry the flax module names, so each leaf's path, joined
+with dots, is its state_dict key; the rules below only rename leaves and
+change layouts:
 
 - conv kernel HWIO -> OIHW, transposed-conv kernel HWIO -> IOHW (the port
-  module at the path says which it is);
+  module at the path says which it is); Dense kernel [in, out] -> weight
+  [out, in];
+- StyleGAN2 ``weight``: EqualLinear [in, out] -> [out, in], EqualConv2d and
+  ModulatedConv2d HWIO -> OIHW, NoiseInjection's scalar as it is; the
+  generator's ``input`` constant NHWC -> NCHW; ``activate_bias`` and PReLU's
+  ``alpha`` as they are;
+- the generator's fixed noise maps ``noises/noise_<i>`` [1, H, W, 1] ->
+  buffers ``noise_<i>`` [1, 1, H, W]; pSp's ``latent_avg/value`` -> the
+  buffer ``latent_avg``;
 - instance-norm and batch-norm ``scale``/``bias`` -> ``weight``/``bias``;
 - batch-norm ``mean``/``var`` -> ``running_mean``/``running_var``; flax's
   ``BatchNorm2d`` wraps an ``nn.BatchNorm`` named ``bn``, a level the port's
@@ -29,13 +38,18 @@ import torch
 from torch import nn
 
 from face_mask_inpaint_tpu_torch.losses.vgg import VGG16Features
+from face_mask_inpaint_tpu_torch.models.irse import GradualStyleEncoder
 from face_mask_inpaint_tpu_torch.models.picnet import PatchDiscriminator, ResDiscriminator
+from face_mask_inpaint_tpu_torch.models.psp import PSP
 from face_mask_inpaint_tpu_torch.models.reference_fill import ReferenceFill
+from face_mask_inpaint_tpu_torch.models.stylegan2 import (
+    EqualConv2d, EqualLinear, Generator, ModulatedConv2d, NoiseInjection)
 from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
-from face_mask_inpaint_tpu_torch.nn.layers import BatchNorm2d, Conv2d, ConvTranspose2d
+from face_mask_inpaint_tpu_torch.nn.layers import BatchNorm2d, Conv2d, ConvTranspose2d, Dense
 
 __all__ = ["state_dict_from_jax", "convert_mask_detector", "convert_reference_fill",
-           "convert_discriminator", "convert_vgg16", "vgg16_state_dict_from_torchvision"]
+           "convert_discriminator", "convert_vgg16", "vgg16_state_dict_from_torchvision",
+           "convert_stylegan2_generator", "convert_gradual_style_encoder", "convert_psp"]
 
 # torchvision vgg16().features index of each conv in features[:23]
 _VGG16_TORCHVISION = {0: "conv1_1", 2: "conv1_2", 5: "conv2_1", 7: "conv2_2",
@@ -48,6 +62,10 @@ _LEAF_NAMES = {
     ("params", "scale"): "weight",
     ("params", "gamma"): "gamma",
     ("params", "alpha"): "alpha",
+    ("params", "weight"): "weight",
+    ("params", "input"): "input",
+    ("params", "activate_bias"): "activate_bias",
+    ("latent_avg", "value"): "latent_avg",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
     ("spectral", "u"): "u",
@@ -63,6 +81,32 @@ def _leaves(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
         yield path, tree
 
 
+def _layout(collection: str, name: str, module: nn.Module, prefix: str,
+            arr: np.ndarray) -> np.ndarray:
+    """The leaf in the port module's layout."""
+    if collection != "params":
+        return arr
+    if name == "kernel":
+        if isinstance(module, ConvTranspose2d):
+            return arr.transpose(2, 3, 0, 1)
+        if isinstance(module, Conv2d):
+            return arr.transpose(3, 2, 0, 1)
+        if isinstance(module, Dense):
+            return arr.T
+        raise TypeError(f"kernel at {prefix} belongs to {type(module).__name__}")
+    if name == "weight":
+        if isinstance(module, EqualLinear):
+            return arr.T
+        if isinstance(module, (EqualConv2d, ModulatedConv2d)):
+            return arr.transpose(3, 2, 0, 1)
+        if isinstance(module, NoiseInjection):
+            return arr
+        raise TypeError(f"weight at {prefix} belongs to {type(module).__name__}")
+    if name == "input":
+        return arr.transpose(0, 3, 1, 2)
+    return arr
+
+
 def state_dict_from_jax(model: nn.Module, variables: dict) -> dict[str, torch.Tensor]:
     """Map every leaf of ``variables`` onto ``model``'s state_dict keys."""
     sd = {}
@@ -74,17 +118,14 @@ def state_dict_from_jax(model: nn.Module, variables: dict) -> dict[str, torch.Te
                 mods = mods[:-1]
             prefix = ".".join(mods)
             module = model.get_submodule(prefix)
-            if (collection, name) not in _LEAF_NAMES:
-                raise KeyError(f"no rule for {collection}/{'/'.join(path)}")
             arr = np.array(leaf, dtype=np.float32)
-            if collection == "params" and name == "kernel":
-                if isinstance(module, ConvTranspose2d):
-                    arr = arr.transpose(2, 3, 0, 1)
-                elif isinstance(module, Conv2d):
-                    arr = arr.transpose(3, 2, 0, 1)
-                else:
-                    raise TypeError(f"kernel at {prefix} belongs to {type(module).__name__}")
-            key = _LEAF_NAMES[(collection, name)]
+            if collection == "noises":  # [1, H, W, 1] -> [1, 1, H, W]
+                key, arr = name, arr.transpose(0, 3, 1, 2)
+            elif (collection, name) in _LEAF_NAMES:
+                key = _LEAF_NAMES[(collection, name)]
+                arr = _layout(collection, name, module, prefix, arr)
+            else:
+                raise KeyError(f"no rule for {collection}/{'/'.join(path)}")
             sd[f"{prefix}.{key}" if prefix else key] = torch.from_numpy(
                 np.ascontiguousarray(arr))
     return sd
@@ -117,6 +158,29 @@ def convert_vgg16(model: VGG16Features, params: dict) -> dict[str, torch.Tensor]
     if not isinstance(model, VGG16Features):
         raise TypeError(f"expected a VGG16Features, got {type(model).__name__}")
     return state_dict_from_jax(model, {"params": params})
+
+
+def convert_stylegan2_generator(model: Generator, variables: dict) -> dict[str, torch.Tensor]:
+    """JAX StyleGAN2 ``Generator`` variables (params + noises) -> state_dict."""
+    if not isinstance(model, Generator):
+        raise TypeError(f"expected a Generator, got {type(model).__name__}")
+    return state_dict_from_jax(model, variables)
+
+
+def convert_gradual_style_encoder(model: GradualStyleEncoder,
+                                  variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``GradualStyleEncoder`` variables (params + batch_stats) -> state_dict."""
+    if not isinstance(model, GradualStyleEncoder):
+        raise TypeError(f"expected a GradualStyleEncoder, got {type(model).__name__}")
+    return state_dict_from_jax(model, variables)
+
+
+def convert_psp(model: PSP, variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``PSP`` variables (params, batch_stats, noises, latent_avg) ->
+    state_dict."""
+    if not isinstance(model, PSP):
+        raise TypeError(f"expected a PSP, got {type(model).__name__}")
+    return state_dict_from_jax(model, variables)
 
 
 def vgg16_state_dict_from_torchvision(sd: dict) -> dict[str, torch.Tensor]:

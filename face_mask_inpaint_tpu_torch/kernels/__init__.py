@@ -6,13 +6,16 @@ it launches its kernel (never for the plain version).
 
 from face_mask_inpaint_tpu_torch.kernels import decoder_conv as _dc
 from face_mask_inpaint_tpu_torch.kernels import flash_attention as _fa
+from face_mask_inpaint_tpu_torch.kernels import fused_act as _act
 from face_mask_inpaint_tpu_torch.kernels import norm_act as _na
 from face_mask_inpaint_tpu_torch.kernels import output_head as _oh
+from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as _fir
 
 __all__ = ["WRAPPERS", "reset_launch_counts"]
 
 WRAPPERS = (_fa.flash_attention, _fa.flash_attention_bwd, _na.instance_norm_act,
-            _oh.output_head, _dc.conv3x3_stats, _dc.convt_pair)
+            _oh.output_head, _dc.conv3x3_stats, _dc.convt_pair, _fir.upfirdn2d,
+            _act.fused_leaky_relu)
 
 
 def reset_launch_counts() -> None:

@@ -1,4 +1,5 @@
-"""K1, K5, K2, K3, K4a and K4b against their plain versions on an NVIDIA GPU.
+"""K1, K5, K2, K3, K4a, K4b, K6 and K7a against their plain versions on an
+NVIDIA GPU.
 Marked ``cuda``: they skip where torch.cuda.is_available() is False (the
 decision is taken in a fixture, at run time). Run on the card, where JAX need
 not be installed, with
@@ -8,8 +9,11 @@ K5 (the flash-attention backward) is held against
 ``flash_attention_bwd_plain`` for dq and each dv at ragged L, on both of its
 paths (CUDA cores, tensor cores), and through the autograd Function that joins
 it with K1. K2's autograd Function is held against autograd of its plain
-version. K3, K4a and K4b have no backward: their wrappers raise under grad
-mode when an input or weight requires grad, and run under ``torch.no_grad()``.
+version. K3, K4a, K4b, K6 and K7a have no backward: their wrappers raise
+under grad mode when an input or weight requires grad, and run under
+``torch.no_grad()``. K6 rounds its H pass and its output, each once, so its
+bfloat16 tolerance adds rtol times the sum of the output's terms' magnitudes
+(see the test).
 
 Tolerance: |kernel - plain| <= atol + rtol |plain| with (1e-4, 1e-4) in
 float32 (TF32 off; only the order of f32 sums differs) and (1e-3, 2^-7) in
@@ -324,3 +328,112 @@ def test_decoder_conv_kernels_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         dc.convt_pair([(x, wt, None, (torch.ones(1, 4), torch.zeros(1, 4, device="cuda"),
                                       "ReLU"))])
+
+
+# K6 cases (shape, up, down, pad, taps, gain): the StyleGAN2 blur, skip
+# upsample and downsample on ragged shapes, and an asymmetric filter that a
+# missing flip gets wrong
+K6_CASES = [((2, 3, 37, 41), 1, 1, (1, 1), [1, 3, 3, 1], 4.0),
+            ((3, 1, 19, 27), 2, 1, (2, 1), [1, 3, 3, 1], 4.0),
+            ((2, 5, 33, 21), 1, 2, (1, 1), [1, 3, 3, 1], 1.0),
+            ((2, 3, 23, 17), 1, 1, (2, 1), [1, 2, 3, 4], 1.0),
+            ((2, 3, 23, 17), 2, 1, (1, 2), [1, 2, 3, 4], 4.0),
+            ((2, 3, 23, 17), 1, 2, (2, 2), [1, 2, 3, 4], 1.0),
+            ((1, 2, 20, 30), 1, 1, (-1, 2), [1, 2, 3, 4], 1.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,up,down,pad,taps,gain", K6_CASES)
+def test_upfirdn2d_kernel_matches_plain(cuda, dtype, shape, up, down, pad, taps, gain):
+    """|kernel - plain| <= atol + rtol (|plain| + upfirdn2d(|x|, |taps|)):
+    each side rounds the H pass once, so where their f32 sums straddle a
+    rounding boundary an intermediate moves by one ulp."""
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+    from face_mask_inpaint_tpu_torch.ops.upfirdn2d import make_taps
+
+    k = [float(t) for t in make_taps(taps, gain)]
+    x = torch.randn(shape, device="cuda", generator=cuda).to(dtype)
+    before = fir.upfirdn2d.launches
+    got = fir.upfirdn2d(x, k, up, down, pad)
+    torch.cuda.synchronize()
+    assert fir.upfirdn2d.launches == before + 1
+    want = fir.upfirdn2d_plain(x, k, up, down, pad)
+    assert got.dtype == dtype and got.shape == want.shape
+    atol, rtol = TOL[dtype]
+    m = fir.upfirdn2d_plain(x.float().abs(), [abs(t) for t in k], up, down, pad)
+    assert bool(((got.float() - want.float()).abs() <= atol + rtol * (want.float().abs() + m))
+                .all())
+
+
+def test_upfirdn2d_kernel_rejects_bad_input(cuda):
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+
+    x = torch.randn(1, 2, 8, 8, device="cuda")
+    with pytest.raises(NotImplementedError, match=r"up=2, down=2"):
+        fir.upfirdn2d(x, [0.5, 0.5], 2, 2, (0, 0))
+    with pytest.raises(ValueError):
+        fir.upfirdn2d(x.transpose(2, 3), [0.5, 0.5])
+    with pytest.raises(TypeError):
+        fir.upfirdn2d(x.half(), [0.5, 0.5])
+    with pytest.raises(ValueError):
+        fir.upfirdn2d(x, [0.1] * 17)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,with_bias", [((3, 5, 37, 41), True), ((2, 32, 64, 64), True),
+                                             ((7, 13), True), ((2, 3, 9, 11), False)])
+def test_fused_leaky_relu_kernel_matches_plain(cuda, dtype, shape, with_bias):
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+
+    x = (torch.randn(shape, device="cuda", generator=cuda) * 2).to(dtype)
+    b = torch.randn(shape[1], device="cuda", generator=cuda) if with_bias else None
+    before = act.fused_leaky_relu.launches
+    got = act.fused_leaky_relu(x, b)
+    torch.cuda.synchronize()
+    assert act.fused_leaky_relu.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _assert_close(got, act.fused_leaky_relu_plain(x, b), dtype)
+
+
+def test_stackb_kernels_raise_under_grad(cuda):
+    """K6 and K7a have no backward yet (they come with Stack B training)."""
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+
+    x = torch.randn(1, 4, 8, 8, device="cuda", requires_grad=True)
+    b = torch.zeros(4, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fir.upfirdn2d(x, [0.25, 0.75, 0.75, 0.25], 1, 1, (1, 1))
+    with pytest.raises(RuntimeError, match="no backward"):
+        act.fused_leaky_relu(x.detach(), b)
+    with torch.no_grad():  # inference: the kernels run
+        fir.upfirdn2d(x, [0.25, 0.75, 0.75, 0.25], 1, 1, (1, 1))
+        act.fused_leaky_relu(x, b)
+
+
+def test_small_psp_launches_k6_and_k7a_and_matches_plain(cuda):
+    """PSP(output_size=32, num_layers=4, decoder_base_channels=32) on the
+    card: 3 upsampling stages make 6 K6 calls, conv1 and 6 StyledConvs 7 K7a
+    calls, and the output matches the plain versions' (float32)."""
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+    from face_mask_inpaint_tpu_torch.models.psp import PSP
+
+    with torch.device("cuda"):
+        psp = PSP(output_size=32, num_layers=4, decoder_base_channels=32, use_attention=True,
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    x = torch.rand(2, 64, 64, 3, device="cuda", generator=cuda) * 2 - 1
+    mask = (torch.rand(2, 64, 64, device="cuda", generator=cuda) > 0.5).float()
+    before = (fir.upfirdn2d.launches, act.fused_leaky_relu.launches)
+    with torch.inference_mode():
+        got = psp(x, x.flip(0), mask, randomize_noise=False)
+    assert (fir.upfirdn2d.launches - before[0], act.fused_leaky_relu.launches - before[1]) == (6, 7)
+    saved = fir.upfirdn2d, act.fused_leaky_relu
+    fir.upfirdn2d, act.fused_leaky_relu = fir.upfirdn2d_plain, act.fused_leaky_relu_plain
+    try:
+        with torch.inference_mode():
+            want = psp(x, x.flip(0), mask, randomize_noise=False)
+    finally:
+        fir.upfirdn2d, act.fused_leaky_relu = saved
+    assert got.shape == (2, 256, 256, 3) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
