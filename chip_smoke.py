@@ -10,7 +10,9 @@ configurations: the default one (kernels K1, K2, K3) and the packed-convt one
 of ``FMI_PACKED_CONVT=1`` (``packed_convt=True``: decoders 3 and 4 run their
 fused tail, kernels K4b and K4a, and K3 does not run); and the Stack A GAN
 training step of ``train_reference_fill.py`` at BASELINE config 5 (kernels
-K1, K5 and K2). Each path runs with the launch counts set to 0 just before
+K1, K5 and K2); pSp -> StyleGAN2 inference at BASELINE config 4 (K6, K7a);
+and the pSp training step of ``train_psp.py`` at config 4 (K6 in both
+directions, K7a, K7b). Each path runs with the launch counts set to 0 just before
 it and read just after. Phases:
 
 1. build the CUDA kernels from the sources in the checkout (set-up time);
@@ -64,7 +66,25 @@ it and read just after. Phases:
    ``ModelInterface.infer``; then config 4 at batch 16 in bfloat16 (the
    model as bench.py builds it): the forward timed with CUDA events in
    turns against the plain versions (median and quartiles), its peak device
-   memory and a ``torch.profiler`` window.
+   memory and a ``torch.profiler`` window;
+9. Stack B training at BASELINE config 4 (the path of ``train_psp.py``,
+   the ``scripts/train_psp.sh`` recipe with ``--use_attention``: decoder
+   trained, identity, LPIPS, L2, logged style and contextual terms, latent
+   average, randomized noise, Adam): K7b (fused_leaky_relu_bwd) and K6's
+   backward (upfirdn2d_bwd) against their plain versions in float32 and
+   bfloat16 at the shapes of one batch-8 step and ragged ones, dbias against
+   the plain f32 channel sum, both autograd Functions (grad-of-grad
+   included) against autograd of their plain versions, float32 times over
+   the 17 and 16 calls of one step beside their bounds and a PyTorch
+   yardstick; then the trainer of the CLI's ``get_args`` and ``Trainer``
+   (``--device cuda``): at batch 2 in float32 with the fixed noise and
+   cuDNN's deterministic algorithms, the kernel path's encoder and decoder
+   gradients against the plain path's; at
+   batch 8, the launches of one step (K6 16 times forward and 16 backward,
+   K7a and K7b 17 times each, K1-K5 never), finite losses with
+   ``skipped_nonfinite`` 0, the step time (CUDA events, median and quartiles
+   of STEP_ROUNDS steps after two warm-up), its peak device memory and a
+   ``torch.profiler`` window (device-busy share).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -77,6 +97,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -123,11 +144,21 @@ PER_STEP = {"flash_attention_fwd": 1, "flash_attention_bwd": 1, "instance_norm_a
             "output_head": 0, "conv3x3_stats": 0, "convt_pair": 0}
 # Stack B's kernels run in none of the Stack A paths above
 for _d in (PER_FORWARD, PACKED_PER_FORWARD, PER_STEP):
-    _d.update(upfirdn2d=0, fused_leaky_relu=0)
+    _d.update(upfirdn2d=0, upfirdn2d_bwd=0, fused_leaky_relu=0, fused_leaky_relu_bwd=0)
 # one config-4 pSp forward: a K6 blur after each of the 8 upsampling convTs
 # and a K6 upsample of each of the 8 ToRGB skips; K7a for conv1 and the 16
 # StyledConvs
 PSP_PER_FORWARD = dict({k: 0 for k in PER_FORWARD}, upfirdn2d=16, fused_leaky_relu=17)
+# one config-4 training step: each of those calls once forward and once
+# backward (K6's backward, K7b), the decoder frozen or not
+PSP_PER_STEP = dict(PSP_PER_FORWARD, upfirdn2d_bwd=16, fused_leaky_relu_bwd=17)
+# the config-4 training recipe: scripts/train_psp.sh with --use_attention
+# (BASELINE config 4's model), batch 8 on 256^2 inputs
+PSP_TRAIN_ARGS = ["--use_ref", "--use_attention", "--output_size", "1024",
+                  "--train_decoder", "1", "--lpips_lambda", "0.8", "--l2_lambda", "2",
+                  "--id_lambda", "0.1", "--style_lambda", "1000", "--cx_lambda", "1",
+                  "--w_norm_lambda", "0", "--start_from_latent_avg", "--randomize_noise",
+                  "--optimizer", "adam", "--learning_rate", "1e-4", "--img_scale", "1"]
 # pSp, kernel path against plain path: max |kernel - plain| <= tol * max |plain|
 # (float32, batch 2; the two differ only in the order of f32 sums)
 PSP_TOL = 1e-4
@@ -167,7 +198,18 @@ KERNELS = {
     "fused_leaky_relu": dict(
         route="triton", source="face_mask_inpaint_tpu_torch/kernels/fused_act.py",
         replaces="face_mask_inpaint_tpu/ops/pallas/fused_act_pallas.py:40"),
+    "upfirdn2d_bwd": dict(
+        route="cuda", source="face_mask_inpaint_tpu_torch/csrc/upfirdn2d.cu",
+        replaces="face_mask_inpaint_tpu/ops/pallas/upfirdn2d_pallas.py:225",
+        timed_dtype="float32"),
+    "fused_leaky_relu_bwd": dict(
+        route="triton", source="face_mask_inpaint_tpu_torch/kernels/fused_act.py",
+        replaces="face_mask_inpaint_tpu/ops/pallas/fused_act_pallas.py:88",
+        timed_dtype="float32"),
 }
+# each kernel's timings entry for the kernels line: bfloat16 unless its
+# entry names another timed_dtype (the Stack B backward kernels are timed in
+# float32, the trainer's precision, over the calls of one batch-8 step)
 
 
 class Run:
@@ -620,7 +662,9 @@ def _counts():
             "conv3x3_stats": dc.conv3x3_stats.launches,
             "convt_pair": dc.convt_pair.launches,
             "upfirdn2d": fir.upfirdn2d.launches,
-            "fused_leaky_relu": act.fused_leaky_relu.launches}
+            "upfirdn2d_bwd": fir.upfirdn2d_bwd.launches,
+            "fused_leaky_relu": act.fused_leaky_relu.launches,
+            "fused_leaky_relu_bwd": act.fused_leaky_relu_bwd.launches}
 
 
 @contextlib.contextmanager
@@ -1271,7 +1315,7 @@ def phase_psp_timing(run: Run, seed: int, rounds: int, card: str):
     weights = torch.Generator(device="cuda").manual_seed(seed)
     with torch.device("cuda"):
         detector = MaskDetector(dtype=dtype, generator=weights)
-        psp = PSP(output_size=1024, use_attention=True, dtype=dtype, generator=weights)
+        psp = PSP(output_size=1024, use_attention=True, dtype=dtype, generator=weights).eval()
     forward = make_infer_batch(detector, psp, use_ref=True)
     data = torch.Generator(device="cuda").manual_seed(seed + 7)
     src = torch.rand(batch, HW, HW, 3, device="cuda", generator=data) * 2 - 1
@@ -1329,6 +1373,309 @@ def phase_psp_timing(run: Run, seed: int, rounds: int, card: str):
     torch.cuda.empty_cache()
 
 
+# -- Stack B training: the backward kernels and the config-4 trainer ---------
+
+def _k6_bwd_library(g, taps, up, pad):
+    """K6's backward yardstick: the gradient of ``_k6_library``'s call as one
+    depthwise cuDNN call on the same output gradient, conv_transpose2d for
+    the blur, conv2d(stride 2) for the upsample. Timed here only; the port
+    never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    c = g.shape[1]
+    k = torch.as_tensor(taps, dtype=g.dtype, device=g.device)
+    w = (k[:, None] * k[None, :]).flip(0, 1).expand(c, 1, len(taps), len(taps)).contiguous()
+    if up == 1:
+        return F.conv_transpose2d(g, w, padding=pad[0], groups=c)
+    return F.conv2d(g, w.flip(2, 3), stride=2, padding=1, groups=c)
+
+
+def _function_grads_check(run: Run, gen):
+    """Both Functions against autograd of their plain versions (f32, one
+    small shape each): the gradients, and grad-of-grad through them."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+    from face_mask_inpaint_tpu_torch.ops.upfirdn2d import make_taps
+
+    taps = [float(t) for t in make_taps([1, 2, 3, 4], 4.0)]
+    for up, down, pad in ((1, 1, (1, 1)), (2, 1, (2, 1)), (1, 2, (1, 1))):
+        x = torch.randn(2, 3, 18, 18, device="cuda", generator=gen, requires_grad=True)
+        errs = []
+        for fn in (fir.upfirdn2d, fir.upfirdn2d_plain):
+            y = fn(x, taps, up, down, pad)
+            g = torch.linspace(-1, 1, y.numel(), device="cuda").view_as(y).requires_grad_()
+            (dx,) = torch.autograd.grad(y, x, g, create_graph=True)
+            (dg,) = torch.autograd.grad((dx * dx).sum(), g)
+            errs.append((dx, dg))
+        err = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(*errs))
+        run.check(err <= 1e-5, f"K6 Function up={up} down={down}: dx and d(|dx|^2)/dg vs "
+                               f"autograd of the plain version, {err:.3e} of max |plain| "
+                               f"(tol 1e-5, f32)")
+    x = torch.randn(2, 5, 9, 11, device="cuda", generator=gen, requires_grad=True)
+    b = torch.randn(5, device="cuda", generator=gen, requires_grad=True)
+    outs = []
+    for fn in (act.fused_leaky_relu, act.fused_leaky_relu_plain):
+        y = fn(x, b)
+        g = torch.linspace(-1, 1, y.numel(), device="cuda").view_as(y).requires_grad_()
+        dx, db = torch.autograd.grad(y, (x, b), g, create_graph=True)
+        (dg,) = torch.autograd.grad((dx * dx).sum() + db.sum(), g)
+        outs.append((dx, db, dg))
+    err = max(float((a - b_).abs().max()) / float(b_.abs().max()) for a, b_ in zip(*outs))
+    run.check(err <= 1e-6, f"K7a/K7b Function: dx, dbias and the grad-of-grad vs autograd of "
+                           f"the plain version, {err:.3e} of max |plain| (tol 1e-6, f32)")
+
+
+def phase_stackb_backward(run: Run, seed: int, timings: dict):
+    """K7b and K6's backward against their plain versions, float32 and
+    bfloat16, at the shapes of one config-4 training step (batch 8) and
+    ragged ones; dbias against the plain f32 channel sum; the Functions
+    against autograd of the plain versions; float32 times summed over the
+    calls of one batch-8 step."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+    from face_mask_inpaint_tpu_torch.ops.upfirdn2d import make_taps
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    k6_shapes, k7_shapes = _psp_kernel_shapes(batch=8)
+    blur = [1, 3, 3, 1]
+    scale, slope = math.sqrt(2.0), 0.2
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        k7_cases = [(f"StyledConv {s[2]}^2", s) for s in k7_shapes[::2]] + [
+            ("ragged C=1", (2, 1, 37, 41)), ("ragged C=3", (3, 3, 19, 27)),
+            ("ragged C=5", (2, 5, 33, 21))]
+        for label, shape in k7_cases:
+            y = (torch.randn(shape, device="cuda", generator=gen) * 2).to(dtype)
+            g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            dx = act.fused_leaky_relu_bwd(y, g)
+            torch.cuda.synchronize()
+            ok, err = _close(dx, act.fused_leaky_relu_bwd_plain(y, g), dname)
+            run.err["fused_leaky_relu_bwd"] = max(run.err["fused_leaky_relu_bwd"], err)
+            run.check(ok, f"K7b {label} {list(shape)} {dname}: max_abs_err {err:.3e} (tol atol "
+                          f"{TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|)")
+            del y, g, dx
+        # dbias: the channel sum of K7b's dx through the Function, in f32
+        x = torch.randn(k7_shapes[-1], device="cuda", generator=gen).to(dtype)
+        b = torch.randn(x.shape[1], device="cuda", generator=gen).to(dtype).requires_grad_()
+        x.requires_grad_()
+        y = act.fused_leaky_relu(x, b)
+        g = torch.randn(y.shape, device="cuda", generator=gen).to(dtype)
+        dx, db = torch.autograd.grad(y, (x, b), g)
+        want = act.fused_leaky_relu_bwd_plain(y.detach(), g).float().sum(dim=(0, 2, 3))
+        ok, err = _close(db, want.to(dtype), dname)
+        run.check(ok and db.dtype == dtype, f"dbias {list(x.shape)} {dname}: max_abs_err "
+                                            f"{err:.3e} against the plain f32 channel sum")
+        del x, b, y, g, dx, db
+        for label, shape, up, down, pad, gain in k6_shapes + [
+                ("ragged blur", (2, 1, 38, 42), 1, 1, (1, 1), 4.0),
+                ("ragged skip up", (3, 3, 19, 27), 2, 1, (2, 1), 4.0)]:
+            taps = [float(t) for t in make_taps(blur, gain)]
+            h, w = shape[2:]
+            ho = fir.out_len(h, up, down, *pad, len(taps))
+            wo = fir.out_len(w, up, down, *pad, len(taps))
+            gpad = fir.transposed_pads(h, ho, len(taps), up, down, pad[0])
+            g = torch.randn(shape[0], shape[1], ho, wo, device="cuda", generator=gen).to(dtype)
+            dx = fir.upfirdn2d_bwd(g, taps, up, down, pad, (h, w))
+            torch.cuda.synchronize()
+            ok, err = _k6_close(dx, fir.upfirdn2d_plain(g, taps[::-1], down, up, gpad), g,
+                                taps[::-1], down, up, gpad, dname)
+            ok = ok and tuple(dx.shape) == tuple(shape) and min(gpad) >= 0
+            run.err["upfirdn2d_bwd"] = max(run.err["upfirdn2d_bwd"], err)
+            run.check(ok, f"K6 backward {label} grad {list(g.shape)} mode ({down}, {up}) pads "
+                          f"{gpad} {dname}: max_abs_err {err:.3e} (K6's tolerance)")
+            del g, dx
+        torch.cuda.empty_cache()
+    _function_grads_check(run, gen)
+
+    # float32 times over one batch-8 training step's calls
+    dtype = torch.float32
+    sums = {k: dict(ms=0.0, plain=0.0, lib=0.0, nbytes=0.0, ops=0.0) for k in ("k6", "k7")}
+    for label, shape, up, down, pad, gain in k6_shapes:
+        taps = [float(t) for t in make_taps(blur, gain)]
+        h, w = shape[2:]
+        ho = fir.out_len(h, up, down, *pad, len(taps))
+        wo = fir.out_len(w, up, down, *pad, len(taps))
+        gpad = fir.transposed_pads(h, ho, len(taps), up, down, pad[0])
+        g = torch.randn(shape[0], shape[1], ho, wo, device="cuda", generator=gen)
+        dx = fir.upfirdn2d_bwd(g, taps, up, down, pad, (h, w))
+        lib = _k6_bwd_library(g, taps, up, pad)
+        torch.cuda.synchronize()
+        err = float((lib - dx).abs().max()) / float(dx.abs().max())
+        run.check(err <= 1e-5, f"K6 backward yardstick {label}: the depthwise cuDNN gradient "
+                               f"computes the same function ({err:.3e} of max |dx|, tol 1e-5)")
+        t = sums["k6"]
+        t["ms"] += _time_ms(lambda: fir.upfirdn2d_bwd(g, taps, up, down, pad, (h, w)), 5)
+        t["plain"] += _time_ms(lambda: fir.upfirdn2d_plain(g, taps[::-1], down, up, gpad), 3)
+        t["lib"] += _time_ms(lambda: _k6_bwd_library(g, taps, up, pad), 5)
+        # g read once, dx written once; two passes of len(taps) / up' multiply-adds
+        t["nbytes"] += (g.numel() + dx.numel()) * g.element_size()
+        t["ops"] += 2.0 * 2 * dx.numel() * len(taps) / down
+        del g, dx, lib
+    for shape in k7_shapes:
+        y = torch.randn(shape, device="cuda", generator=gen)
+        g = torch.randn(shape, device="cuda", generator=gen)
+        t = sums["k7"]
+        t["ms"] += _time_ms(lambda: act.fused_leaky_relu_bwd(y, g), 5)
+        t["plain"] += _time_ms(lambda: act.fused_leaky_relu_bwd_plain(y, g), 5)
+        t["lib"] += _time_ms(lambda: g * torch.where(y >= 0, scale, slope * scale), 5)
+        # y and g read once, dx written once; a compare and a multiply each
+        t["nbytes"] += 3 * y.numel() * y.element_size()
+        t["ops"] += 2.0 * y.numel()
+        del y, g
+    torch.cuda.empty_cache()
+    for key, name, what in (("k6", "upfirdn2d_bwd", "K6 backward, 16 calls"),
+                            ("k7", "fused_leaky_relu_bwd", "K7b, 17 calls")):
+        t = sums[key]
+        bound = _bound(t["nbytes"], t["ops"], F32_RATE)
+        timings[(name, "float32")] = (t["ms"], t["plain"], *bound, t["lib"])
+        print(f"[time] {what} of one config-4 training step, f32 batch 8: kernel "
+              f"{t['ms']:.3f} ms, plain {t['plain']:.3f} ms, library {t['lib']:.3f} ms, bound "
+              f"{bound[0]:.3f} ms ({bound[1]}, {t['nbytes'] / 1e9:.3f} GB)", flush=True)
+
+
+def _psp_train_batch(gen, n: int):
+    """A seeded batch as the pSp trainer's loader hands it over: images
+    normalized to [-1, 1], NHWC, and a mask of one random rectangle each."""
+    batch = _train_batch(gen, n)
+    for k in ("src_img", "gt_img", "ref_img"):
+        batch[k] = batch[k] * 2 - 1
+    return batch
+
+
+def _psp_grads(trainer, batch, cfg):
+    """The loss and the gradients of every trainable tensor for one batch
+    with the fixed noise, without an update (zero for the style MLP, which
+    a pSp forward from w+ codes does not run)."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.train.psp import _forward_loss
+
+    named = [(n, p) for n, p in trainer.psp.named_parameters() if p.requires_grad]
+    loss, _, _ = _forward_loss(trainer.psp, cfg, trainer.nets, batch, True, False, True, None)
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    return float(loss.detach()), {n: torch.zeros_like(p) if g is None else g
+                                  for (n, p), g in zip(named, grads)}
+
+
+def phase_psp_train(run: Run, seed: int, card: str) -> dict:
+    """Stack B training at config 4 (the recipe of PSP_TRAIN_ARGS), built
+    through the trainer CLI's ``get_args`` and ``Trainer``: at batch 2 in
+    float32 with the fixed noise, the kernel path's gradients against the
+    plain path's; at batch 8, the launches of one step, its losses, and the
+    step time, peak memory and device-busy share. Returns the launches of
+    one step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from face_mask_inpaint_tpu_torch.cli import train_psp as cli
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+
+    batch = 8
+    args = cli.get_args(["--device", "cuda", "--seed", str(seed), "--batch_size", str(batch),
+                         *PSP_TRAIN_ARGS])
+    t0 = time.perf_counter()
+    trainer = cli.Trainer(args, cli.resolve_device(args.device))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainer.psp.parameters())
+    n_train = sum(p.numel() for p in trainer.psp.parameters() if p.requires_grad)
+    print(f"[psp-train] config 4: {n_params} parameters, {n_train} trained, loss nets "
+          f"{sorted(trainer.nets)}, built in {time.perf_counter() - t0:.1f} s", flush=True)
+    data = torch.Generator(device="cuda").manual_seed(seed + 11)
+
+    # (a) kernel path vs plain path, f32, batch 2, fixed noise; cuDNN's
+    # deterministic algorithms, so that the two runs differ only where the
+    # kernels and their plain versions do
+    b2 = _psp_train_batch(data, 2)
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        loss_k, got = _psp_grads(trainer, b2, trainer.cfg)
+        with plain_versions():
+            loss_p, want = _psp_grads(trainer, b2, trainer.cfg)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    for part in ("encoder", "decoder"):
+        keys = [k for k in want if k.startswith(part + ".")]
+        floor = GRAD_FLOOR * max(float(want[k].abs().max()) for k in keys)
+        used, rel = 0.0, 0.0
+        for k in keys:
+            err = float((got[k] - want[k]).abs().max())
+            scale = float(want[k].abs().max())
+            used = max(used, err / (GRAD_TOL * scale + floor))
+            rel = max(rel, err / scale if scale > floor else 0.0)
+        run.check(used <= 1.0, f"config-4 f32 step, batch 2: kernel path vs plain path, {part} "
+                               f"({len(keys)} tensors): max_abs_err uses at most {used:.3f} of "
+                               f"its tolerance ({GRAD_TOL} * max|plain| + {GRAD_FLOOR} * "
+                               f"the part's largest entry); worst max_abs_err / max|plain| "
+                               f"{rel:.3e} over tensors above the floor")
+    run.check(abs(loss_k - loss_p) <= 1e-4 * abs(loss_p),
+              f"config-4 f32 loss, batch 2: kernel path {loss_k:.6f}, plain path {loss_p:.6f}")
+    del got, want, b2
+    torch.cuda.empty_cache()
+
+    # (b) one batch-8 step: launches, losses, the guard
+    batches = [_psp_train_batch(data, batch) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    metrics = trainer.train_step(batches[0], noise=trainer.noise)
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = {k: float(v) for k, v in metrics.items()}
+    print(f"[psp-train] launches in one step: {launches}; losses {losses}", flush=True)
+    run.check(launches == PSP_PER_STEP, f"config-4 step launches K6 16 + 16, K7a 17, K7b 17, "
+                                        f"K1-K5 never: {launches}")
+    run.check(all(math.isfinite(v) for v in losses.values())
+              and losses["skipped_nonfinite"] == 0.0,
+              f"config-4 step losses finite, skipped_nonfinite 0: {losses}")
+
+    # (c) step time after two warm-up steps
+    times, walls = [], []
+    for i in range(2 + STEP_ROUNDS):
+        b = batches[i % len(batches)]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        trainer.train_step(b, noise=trainer.noise)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+            walls.append((time.perf_counter() - t0) * 1e3)
+    q = statistics.quantiles(times, n=4)
+    print(f"[psp-train] config-4 step, f32 (TF32 off) batch {batch}, {STEP_ROUNDS} steps after 2 "
+          f"warm-up: median {statistics.median(times):.2f} ms, quartiles {q[0]:.2f}-{q[2]:.2f}, "
+          f"range {min(times):.2f}-{max(times):.2f} ({batch / statistics.median(times) * 1e3:.2f} "
+          f"images/s); host wall median {statistics.median(walls):.2f} ms; peak device memory of "
+          f"the first step {peak:.2f} GiB, on {card}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[:2]:
+            trainer.train_step(b, noise=trainer.noise)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[psp-train] profile, two steps: wall {wall:.2f} ms, summed device time {busy:.2f} ms, "
+          f"device busy {100 * busy / wall:.1f}% on {card}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:20]:
+        print(f"[psp-train]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
+              f"{e.key[:100]}")
+    del trainer, batches, metrics, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1360,6 +1707,8 @@ def main(argv=None) -> int:
     phase_stackb_kernels(run, args.seed, timings)
     psp_launches = phase_psp(run, args.seed)
     phase_psp_timing(run, args.seed, PSP_ROUNDS, smi)
+    phase_stackb_backward(run, args.seed, timings)
+    psp_train_launches = phase_psp_train(run, args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:", file=sys.stderr)
@@ -1369,12 +1718,16 @@ def main(argv=None) -> int:
 
     kernels = []
     for name, meta in KERNELS.items():
-        ms, plain_ms, bound_ms, bound_by, library_ms = timings[(name, "bfloat16")]
+        meta = dict(meta)
+        timed_dtype = meta.pop("timed_dtype", "bfloat16")
+        ms, plain_ms, bound_ms, bound_by, library_ms = timings[(name, timed_dtype)]
         # K4b and K4a count one forward of the configuration that runs them,
-        # K5 one training step, K6 and K7a one pSp forward
+        # K5 one config-5 training step, K6 and K7a one pSp forward, K6's
+        # backward and K7b one config-4 training step
         n = (packed_launches[name] if name in ("conv3x3_stats", "convt_pair")
              else train_launches[name] if name == "flash_attention_bwd"
              else psp_launches[name] if name in ("upfirdn2d", "fused_leaky_relu")
+             else psp_train_launches[name] if name in ("upfirdn2d_bwd", "fused_leaky_relu_bwd")
              else launches[name])
         kernels.append({"name": name, **meta, "launches": n,
                         "max_abs_err": run.err[name], "ms": ms, "plain_ms": plain_ms,

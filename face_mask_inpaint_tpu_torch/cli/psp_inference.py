@@ -121,7 +121,7 @@ def build_models(args, device: torch.device):
                   init=not (args.pt_ckpt_path and Path(args.pt_ckpt_path).is_file()))
     _load_state(detector, args.mask_detector_path, 'mask detector')
     _load_state(psp, args.pt_ckpt_path, 'pSp')
-    return detector, psp
+    return detector, psp.eval()
 
 
 def make_infer_batch(detector: MaskDetector, psp: PSP, use_ref: bool):

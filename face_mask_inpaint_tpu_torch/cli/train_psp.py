@@ -1,0 +1,333 @@
+"""Train the Stack B RefpSp (pSp encoder -> StyleGAN2): the port of
+``train_psp.py`` with its flags and defaults, on one device.
+
+    python -m face_mask_inpaint_tpu_torch.cli.train_psp \\
+        --data_root <celeba root> --use_ref --run_name <name> [--device cuda]
+
+Encoder-only optimization unless ``--train_decoder 1`` (train/psp.py),
+adam or ranger, the pSpLoss lambda surface (losses/psp_loss.py, style and
+contextual computed and logged, never added), the non-finite-loss guard, an
+eval round every n_train // (10 * batch) steps with the validation loss and
+SSIM (and MS-SSIM) of (gen + 1) / 2 against the raw ground truth, the plateau
+tracker (mode 'max', patience 2, factor 0.8) stepped on the validation loss,
+weight and gradient histograms without the style MLP (``decoder.style_*``)
+on eval steps, a per-epoch checkpoint under ``<checkpoint_path>/<run_name>/``
+and ``--resume`` from the latest (train/checkpoint.py: the model, the
+optimizer with Ranger's slow buffers, the tracker, the step and the noise
+generator's state). Metrics go to ``<checkpoint_path>/<run_name>/
+metrics.jsonl`` with the JAX trainer's keys.
+
+``--device`` defaults to cuda and fails when CUDA is absent; ``--device
+cpu`` runs on the CPU. ``--seed`` seeds the weights (drawn on ``--device``),
+the shuffle and the noise. Training is float32, as the JAX trainer is.
+Without weight files the nets start from the JAX initialisers'
+distributions. ``--pt_ckpt_path`` loads a ``.pt`` of this port's PSP
+state_dict; ``--vgg_weights`` a torchvision ``vgg16`` ``.pth``. A reference
+``.pth`` for ``--pt_ckpt_path``, and any existing file for
+``--stylegan_weights``, ``--irse50_weights``, ``--alexnet_weights`` or
+``--lpips_lin_weights``, raises: those key maps wait for ROADMAP.md queue 1,
+item 3. ``--eval_options fid`` raises too (queue 1, item 6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+from pathlib import Path
+
+import torch
+
+from face_mask_inpaint_tpu_torch.cli.psp_inference import check_checkpoint
+from face_mask_inpaint_tpu_torch.cli.train_reference_fill import load_vgg, resolve_device
+from face_mask_inpaint_tpu_torch.convert import jax_leading_dims
+from face_mask_inpaint_tpu_torch.data.loader import get_reference_dataloader
+from face_mask_inpaint_tpu_torch.evaluations.ssim import ms_ssim, ssim
+from face_mask_inpaint_tpu_torch.losses.id_loss import make_backbone
+from face_mask_inpaint_tpu_torch.losses.lpips import LPIPSNet
+from face_mask_inpaint_tpu_torch.losses.psp_loss import PSPLossConfig
+from face_mask_inpaint_tpu_torch.models.psp import PSP
+from face_mask_inpaint_tpu_torch.nn.layers import init_weights
+from face_mask_inpaint_tpu_torch.train import checkpoint as ckpt
+from face_mask_inpaint_tpu_torch.train.optim import (
+    PlateauTracker, adam, ranger, set_learning_rate)
+from face_mask_inpaint_tpu_torch.train.psp import (
+    make_psp_eval_step, make_psp_train_step, partition_params)
+from face_mask_inpaint_tpu_torch.utils.metrics_logger import MetricsLogger, histogram_summary
+from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
+
+__all__ = ["get_args", "loss_config", "build_models", "Trainer", "train_net", "main"]
+
+_REFERENCE_WEIGHTS = ("is a reference weight file; its key map is not ported yet "
+                      "(ROADMAP.md queue 1, item 3: the loose ends)")
+
+
+def get_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--epochs', type=int, default=5, help='Number of epochs')
+    parser.add_argument('--batch_size', dest='batch_size', type=int, default=8)
+    parser.add_argument('--learning_rate', type=float, default=1e-5)
+    parser.add_argument('--eval_options', nargs="+", default={'ssim'})
+    parser.add_argument('--debug', type=int, default=0,
+                        help='debug with turning off not implemented parts')
+    parser.add_argument('--img_scale', type=float, default=1.)
+    parser.add_argument('--optimizer', type=str, default='adam')
+    parser.add_argument('--use_ref', action='store_true', help='use reference image')
+    parser.add_argument('--use_attention', action='store_true', help='use attention')
+
+    # path args
+    parser.add_argument('--run_name', type=str, default='', help='exp name')
+    parser.add_argument('--checkpoint_path', type=str, default='saved_model')
+    parser.add_argument('--mask_detector_path', type=str, default='')
+    parser.add_argument('--data_root', type=str, default='/data/mohaa/project1/CelebA')
+    parser.add_argument('--src_img_path', type=str, default='img_align_celeba_masked1')
+    parser.add_argument('--ref_img_path', type=str, default='img_align_celeba')
+    parser.add_argument('--mask_path', type=str, default='binary_map')
+    parser.add_argument('--identity_file_path', type=str, default='identity_CelebA.txt')
+
+    # pSp args
+    parser.add_argument('--encoder_type', type=str, default='GradualStyleEncoder')
+    parser.add_argument('--output_size', default=1024, type=int,
+                        help='Output size of generator')
+    parser.add_argument('--train_decoder', default=0, type=int,
+                        help='Whether to train the decoder model')
+    parser.add_argument('--start_from_latent_avg', action='store_true',
+                        help='Whether to add average latent vector')
+    parser.add_argument('--learn_in_w', action='store_true',
+                        help='Whether to learn in w space instead of w+')
+    parser.add_argument('--randomize_noise', action='store_true',
+                        help='whether to randomize noise in stylegan')
+
+    # loss weights
+    parser.add_argument('--lpips_lambda', default=0.8, type=float)
+    parser.add_argument('--id_lambda', default=0, type=float)
+    parser.add_argument('--l2_lambda', default=1.0, type=float)
+    parser.add_argument('--w_norm_lambda', default=0, type=float)
+    parser.add_argument('--lpips_lambda_ref', default=0, type=float)
+    parser.add_argument('--l2_lambda_ref', default=0, type=float)
+    parser.add_argument('--style_lambda', default=250, type=float)
+    parser.add_argument('--cx_lambda', default=1, type=float)
+
+    # pretrained weight paths
+    parser.add_argument('--stylegan_weights', default=None, type=str,
+                        help='Path to StyleGAN model weights')
+    parser.add_argument('--pt_ckpt_path', default=None, type=str,
+                        help='Path to pretrained pSp model checkpoint')
+    parser.add_argument('--irse50_weights', default='', type=str,
+                        help='ir_se50 .pth for encoder init + ID loss')
+    parser.add_argument('--inception_weights', type=str, default='',
+                        help='torchvision inception_v3 .pth for --eval_options fid')
+    parser.add_argument('--alexnet_weights', default='', type=str)
+    parser.add_argument('--lpips_lin_weights', default='', type=str)
+    parser.add_argument('--vgg_weights', default='', type=str)
+    parser.add_argument('--use_wandb', type=int, default=0)
+    parser.add_argument('--resume', type=int, default=0,
+                        help='resume from the latest checkpoint under '
+                             '<checkpoint_path>/<run_name> (full state)')
+    parser.add_argument('--device', type=str, default='cuda',
+                        help="torch device; 'cpu' must be asked for explicitly")
+    parser.add_argument('--seed', type=int, default=0,
+                        help='seed of the weights, the shuffle and the noise')
+    add_profile_args(parser)
+    args = parser.parse_args(argv)
+
+    args.src_img_path = os.path.join(args.data_root, args.src_img_path)
+    args.ref_img_path = os.path.join(args.data_root, args.ref_img_path)
+    args.mask_path = os.path.join(args.data_root, args.mask_path)
+    args.identity_file_path = os.path.join(args.data_root, args.identity_file_path)
+    args.train_decoder = bool(args.train_decoder)
+    return args
+
+
+def check_options(args) -> None:
+    """Raise, before anything is built, for the options that are not ported."""
+    if 'fid' in set(args.eval_options):
+        raise NotImplementedError("--eval_options fid: the InceptionV3 features are not "
+                                  "ported yet (ROADMAP.md queue 1, item 6: Remainder)")
+    check_checkpoint(args.pt_ckpt_path or '', 'pSp')
+    for flag in ('stylegan_weights', 'irse50_weights', 'alexnet_weights',
+                 'lpips_lin_weights'):
+        path = getattr(args, flag)
+        if path and Path(path).exists():
+            raise NotImplementedError(f"--{flag} {path} {_REFERENCE_WEIGHTS}")
+
+
+def loss_config(args) -> PSPLossConfig:
+    return PSPLossConfig(
+        id_lambda=args.id_lambda, lpips_lambda=args.lpips_lambda, l2_lambda=args.l2_lambda,
+        style_lambda=args.style_lambda, lpips_lambda_ref=args.lpips_lambda_ref,
+        l2_lambda_ref=args.l2_lambda_ref, cx_lambda=args.cx_lambda,
+        w_norm_lambda=args.w_norm_lambda, start_from_latent_avg=args.start_from_latent_avg)
+
+
+def build_models(args, cfg: PSPLossConfig, device: torch.device):
+    """(psp, nets): PSP with weights from ``--seed`` drawn on ``device`` (or
+    a ``.pt`` of its state_dict), its latent average when
+    ``--start_from_latent_avg`` finds it zero, and the loss nets the active
+    lambdas need, frozen, in eval mode."""
+    weights = torch.Generator(device=device).manual_seed(args.seed)
+    ckpt_file = args.pt_ckpt_path and Path(args.pt_ckpt_path).is_file()
+    with torch.device(device):
+        psp = PSP(encoder_type=args.encoder_type, output_size=args.output_size,
+                  start_from_latent_avg=args.start_from_latent_avg,
+                  learn_in_w=args.learn_in_w, use_attention=args.use_attention,
+                  generator=weights, init=not ckpt_file)
+        if ckpt_file:
+            psp.load_state_dict(torch.load(args.pt_ckpt_path, map_location=device),
+                                strict=True)
+            logging.info('Loaded pSp from checkpoint: %s', args.pt_ckpt_path)
+        else:
+            logging.warning('No pretrained pSp weights; using random init')
+        if args.start_from_latent_avg and not bool(psp.latent_avg.any()):
+            psp.latent_avg.copy_(psp.compute_latent_avg(10_000, weights))
+            logging.info('Computed latent_avg from decoder.mean_latent')
+        nets = {}
+        if cfg.lpips_lambda > 0 or cfg.lpips_lambda_ref > 0:
+            nets['lpips'] = init_weights(LPIPSNet('alex'), weights).eval()
+            logging.warning('LPIPS running with random weights')
+        if cfg.id_lambda > 0:
+            nets['facenet'] = init_weights(make_backbone(), weights)
+            logging.warning('No pretrained ir_se50 weights; using random init')
+    if cfg.style_lambda > 0 or cfg.cx_lambda > 0:
+        nets['vgg'] = load_vgg(args.vgg_weights, torch.Generator().manual_seed(args.seed)
+                               ).to(device).eval()
+    return psp.train(), nets
+
+
+def _to_device(batch: dict, device: torch.device) -> dict:
+    b = {k: batch[k].to(device, non_blocking=True) for k in ("src_img", "gt_img", "ref_img")}
+    b["mask"] = (batch["mask"] > 0).float().to(device, non_blocking=True)
+    return b
+
+
+class Trainer:
+    """The model, the loss nets, the optimizer and plateau tracker, the step
+    counter and the noise generator; ``state_dict``/``load_state_dict`` are
+    what a checkpoint holds."""
+
+    def __init__(self, args, device: torch.device):
+        self.device = device
+        self.cfg = loss_config(args)
+        self.psp, self.nets = build_models(args, self.cfg, device)
+        named = partition_params(self.psp, args.train_decoder)
+        params = [p for _, p in named]
+        if args.optimizer == 'ranger':
+            dims = jax_leading_dims(self.psp)
+            self.optimizer = ranger(params, args.learning_rate,
+                                    keep_dims={p: dims[n] for n, p in named if n in dims})
+        else:
+            self.optimizer = adam(params, args.learning_rate)
+        # ReduceLROnPlateau parity (train_psp.py:294-298, stepped on the val
+        # loss at :382): mode 'max', patience 2, factor 0.8
+        self.sched = PlateauTracker(args.learning_rate, mode='max', patience=2, factor=0.8)
+        self.noise = torch.Generator(device=device).manual_seed(args.seed)
+        self.step = 0
+        self.train_step = make_psp_train_step(self.psp, self.optimizer, self.cfg, self.nets,
+                                              use_ref=args.use_ref,
+                                              randomize_noise=args.randomize_noise)
+        self.eval_step = make_psp_eval_step(self.psp, self.cfg, self.nets,
+                                            use_ref=args.use_ref)
+
+    def state_dict(self) -> dict:
+        return {'model': self.psp.state_dict(), 'opt': self.optimizer.state_dict(),
+                'sched': self.sched.state_dict(), 'step': self.step,
+                'rng': self.noise.get_state()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.psp.load_state_dict(state['model'])
+        self.optimizer.load_state_dict(state['opt'])
+        self.sched.load_state_dict(state['sched'])
+        self.step = int(state['step'])
+        self.noise.set_state(state['rng'].cpu())
+
+
+def evaluate(trainer: Trainer, val_loader, eval_options: set) -> dict:
+    """Mean validation loss (and SSIM, MS-SSIM of (gen + 1) / 2 against the
+    raw ground truth) over the val loader."""
+    metrics = {'validation loss': 0.0}
+    n = 0
+    for batch in val_loader:
+        out = trainer.eval_step(_to_device(batch, trainer.device))
+        metrics['validation loss'] += float(out['loss'])
+        gen01 = (out['gen'].float() + 1) / 2
+        gt = batch['raw_gt_img'].to(trainer.device)
+        if 'ssim' in eval_options:
+            metrics['ssim'] = metrics.get('ssim', 0.0) + float(ssim(gt, gen01))
+        if 'ms_ssim' in eval_options and gen01.shape[1] > 160:
+            metrics['ms_ssim'] = metrics.get('ms_ssim', 0.0) + float(ms_ssim(gt, gen01))
+        n += 1
+    return {k: v / max(n, 1) for k, v in metrics.items()}
+
+
+def _drop_style(named) -> list:
+    """Without the style MLP, as the reference logs (train_psp.py:352-359)."""
+    items = named.items() if isinstance(named, dict) else named
+    return [(n, t) for n, t in items if not n.startswith('decoder.style_')]
+
+
+def train_net(trainer: Trainer, train_loader, val_loader, args):
+    run_dir = ckpt.checkpoint_dir(args.checkpoint_path, args.run_name)
+    logger = MetricsLogger(run_dir, 'RefpSp', args.run_name, config=vars(args),
+                           use_wandb=bool(args.use_wandb))
+    if len(train_loader) == 0:
+        raise SystemExit(f'train loader is empty: need at least one batch of '
+                         f'{args.batch_size}')
+    n_train = len(train_loader) * args.batch_size
+
+    start_epoch = 0
+    if args.resume:
+        last = ckpt.latest_epoch(run_dir, 'G')
+        if last is None:
+            logging.warning('--resume set but no checkpoint under %s; starting fresh', run_dir)
+        else:
+            trainer.load_state_dict(ckpt.restore_state(run_dir / f'G_checkpoint_epoch{last}'))
+            start_epoch = last
+            logging.info('Resumed from epoch %d (step %d, lr=%g)', last, trainer.step,
+                         trainer.sched.lr)
+
+    eval_options = set(args.eval_options)
+    profiler = ProfileWindow(args.profile_dir, args.profile_steps)
+    division_step = max(n_train // (10 * args.batch_size), 1)
+    for epoch in range(start_epoch, args.epochs):
+        for batch in train_loader:
+            profiler.tick(trainer.step)
+            is_eval_step = (trainer.step + 1) % division_step == 0
+            metrics = trainer.train_step(_to_device(batch, trainer.device),
+                                         noise=trainer.noise, return_grads=is_eval_step)
+            grads = metrics.pop('grads', None)
+            trainer.step += 1
+            logger.log({k: float(v) for k, v in metrics.items()} | {'epoch': epoch},
+                       step=trainer.step)
+            if is_eval_step:
+                hists = histogram_summary(_drop_style(trainer.psp.named_parameters()),
+                                          'Weights')
+                hists.update(histogram_summary(_drop_style(grads), 'Gradients'))
+                val_metrics = evaluate(trainer, val_loader, eval_options)
+                set_learning_rate(trainer.optimizer,
+                                  trainer.sched.step(val_metrics['validation loss']))
+                val_metrics['lr'] = trainer.sched.lr
+                logging.info('Validation: %s', val_metrics)
+                logger.log({**val_metrics, **hists}, step=trainer.step)
+        ckpt.save_state(run_dir, 'G', epoch + 1, trainer.state_dict())
+        logging.info('Checkpoint epoch %d saved under %s', epoch + 1, run_dir)
+    profiler.close()
+    logger.close()
+    return trainer
+
+
+def main(argv=None):
+    args = get_args(argv)
+    logging.basicConfig(level=logging.INFO, format='%(levelname)s: %(message)s')
+    check_options(args)
+    device = resolve_device(args.device)
+    logging.info('Using device %s', device)
+    trainer = Trainer(args, device)
+    train_loader, val_loader = get_reference_dataloader(
+        args.src_img_path, args.ref_img_path, args.mask_path, args.identity_file_path,
+        args.batch_size, apply_transform=True, val_amount=0.1, img_scale=args.img_scale,
+        use_ssim=True, device=device, seed=args.seed, pin_memory=device.type == "cuda")
+    return train_net(trainer, train_loader, val_loader, args)
+
+
+if __name__ == '__main__':
+    main()

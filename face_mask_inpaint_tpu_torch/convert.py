@@ -17,12 +17,16 @@ change layouts:
   buffers ``noise_<i>`` [1, 1, H, W]; pSp's ``latent_avg/value`` -> the
   buffer ``latent_avg``;
 - instance-norm and batch-norm ``scale``/``bias`` -> ``weight``/``bias``;
+- the ArcFace ``Backbone``'s BatchNorm1d leaves ``out_bn1d_{scale,bias}``
+  and ``out_bn1d_{mean,var}`` as they are;
 - batch-norm ``mean``/``var`` -> ``running_mean``/``running_var``; flax's
   ``BatchNorm2d`` wraps an ``nn.BatchNorm`` named ``bn``, a level the port's
   BatchNorm2d does not have;
 - spectral ``u`` and ``v`` -> buffers of the same names and layout.
 
-The result loads with ``load_state_dict(strict=True)``.
+The result loads with ``load_state_dict(strict=True)``. ``jax_leading_dims``
+reads the same layout rules the other way: it says which port dimension
+holds each JAX leaf's axis 0, for the Ranger optimizer's centralization.
 
 ``vgg16_state_dict_from_torchvision`` maps torchvision's ``vgg16()`` layout
 (``features.<index>.weight``, OIHW already) onto ``VGG16Features``, the
@@ -31,14 +35,15 @@ port's counterpart of the JAX ``tools/convert_torch.convert_vgg16_features``.
 
 from __future__ import annotations
 
-from typing import Any, Iterator
+from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from face_mask_inpaint_tpu_torch.losses.lpips import LPIPSNet
 from face_mask_inpaint_tpu_torch.losses.vgg import VGG16Features
-from face_mask_inpaint_tpu_torch.models.irse import GradualStyleEncoder
+from face_mask_inpaint_tpu_torch.models.irse import Backbone, GradualStyleEncoder
 from face_mask_inpaint_tpu_torch.models.picnet import PatchDiscriminator, ResDiscriminator
 from face_mask_inpaint_tpu_torch.models.psp import PSP
 from face_mask_inpaint_tpu_torch.models.reference_fill import ReferenceFill
@@ -49,7 +54,8 @@ from face_mask_inpaint_tpu_torch.nn.layers import BatchNorm2d, Conv2d, ConvTrans
 
 __all__ = ["state_dict_from_jax", "convert_mask_detector", "convert_reference_fill",
            "convert_discriminator", "convert_vgg16", "vgg16_state_dict_from_torchvision",
-           "convert_stylegan2_generator", "convert_gradual_style_encoder", "convert_psp"]
+           "convert_stylegan2_generator", "convert_gradual_style_encoder", "convert_psp",
+           "convert_lpips", "convert_backbone", "jax_leading_dims"]
 
 # torchvision vgg16().features index of each conv in features[:23]
 _VGG16_TORCHVISION = {0: "conv1_1", 2: "conv1_2", 5: "conv2_1", 7: "conv2_2",
@@ -65,6 +71,10 @@ _LEAF_NAMES = {
     ("params", "weight"): "weight",
     ("params", "input"): "input",
     ("params", "activate_bias"): "activate_bias",
+    ("params", "out_bn1d_scale"): "out_bn1d_scale",
+    ("params", "out_bn1d_bias"): "out_bn1d_bias",
+    ("batch_stats", "out_bn1d_mean"): "out_bn1d_mean",
+    ("batch_stats", "out_bn1d_var"): "out_bn1d_var",
     ("latent_avg", "value"): "latent_avg",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
@@ -81,30 +91,47 @@ def _leaves(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
         yield path, tree
 
 
+def _perm(module: nn.Module, key: str) -> Optional[tuple[int, ...]]:
+    """The transpose that takes the JAX leaf of the port parameter ``key``
+    of ``module`` to the port's layout (port dim d holds JAX axis perm[d]),
+    or None where the layouts agree."""
+    if key == "weight":
+        if isinstance(module, ConvTranspose2d):
+            return 2, 3, 0, 1
+        if isinstance(module, (Conv2d, EqualConv2d, ModulatedConv2d)):
+            return 3, 2, 0, 1
+        if isinstance(module, (Dense, EqualLinear)):
+            return 1, 0
+    if key == "input":
+        return 0, 3, 1, 2
+    return None
+
+
 def _layout(collection: str, name: str, module: nn.Module, prefix: str,
             arr: np.ndarray) -> np.ndarray:
     """The leaf in the port module's layout."""
     if collection != "params":
         return arr
-    if name == "kernel":
-        if isinstance(module, ConvTranspose2d):
-            return arr.transpose(2, 3, 0, 1)
-        if isinstance(module, Conv2d):
-            return arr.transpose(3, 2, 0, 1)
-        if isinstance(module, Dense):
-            return arr.T
-        raise TypeError(f"kernel at {prefix} belongs to {type(module).__name__}")
-    if name == "weight":
-        if isinstance(module, EqualLinear):
-            return arr.T
-        if isinstance(module, (EqualConv2d, ModulatedConv2d)):
-            return arr.transpose(3, 2, 0, 1)
-        if isinstance(module, NoiseInjection):
-            return arr
-        raise TypeError(f"weight at {prefix} belongs to {type(module).__name__}")
-    if name == "input":
-        return arr.transpose(0, 3, 1, 2)
-    return arr
+    owners = {"kernel": (Conv2d, ConvTranspose2d, Dense),
+              "weight": (EqualLinear, EqualConv2d, ModulatedConv2d, NoiseInjection)}
+    if name in owners and not isinstance(module, owners[name]):
+        raise TypeError(f"{name} at {prefix} belongs to {type(module).__name__}")
+    perm = _perm(module, _LEAF_NAMES[(collection, name)])
+    return arr if perm is None else arr.transpose(perm)
+
+
+def jax_leading_dims(model: nn.Module) -> dict[str, int]:
+    """For each parameter of two or more dimensions whose layout differs
+    from the JAX leaf's: the dimension of the port tensor that holds the JAX
+    leaf's axis 0 (the H of an HWIO conv kernel, the ``in`` of an [in, out]
+    dense one). Where the layouts agree it is dim 0."""
+    dims = {}
+    for name, p in model.named_parameters():
+        prefix, _, key = name.rpartition(".")
+        perm = _perm(model.get_submodule(prefix), key)
+        if p.dim() >= 2:
+            dims[name] = perm.index(0) if perm is not None else 0
+    return dims
 
 
 def state_dict_from_jax(model: nn.Module, variables: dict) -> dict[str, torch.Tensor]:
@@ -180,6 +207,21 @@ def convert_psp(model: PSP, variables: dict) -> dict[str, torch.Tensor]:
     state_dict."""
     if not isinstance(model, PSP):
         raise TypeError(f"expected a PSP, got {type(model).__name__}")
+    return state_dict_from_jax(model, variables)
+
+
+def convert_lpips(model: LPIPSNet, params: dict) -> dict[str, torch.Tensor]:
+    """JAX ``LPIPSNet`` params (trunk and lin heads) -> state_dict."""
+    if not isinstance(model, LPIPSNet):
+        raise TypeError(f"expected an LPIPSNet, got {type(model).__name__}")
+    return state_dict_from_jax(model, {"params": params})
+
+
+def convert_backbone(model: Backbone, variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ArcFace ``Backbone`` variables (params + batch_stats, the
+    BatchNorm1d's ``out_bn1d_*`` included) -> state_dict."""
+    if not isinstance(model, Backbone):
+        raise TypeError(f"expected a Backbone, got {type(model).__name__}")
     return state_dict_from_jax(model, variables)
 
 

@@ -15,7 +15,7 @@ __all__ = ["WRAPPERS", "reset_launch_counts"]
 
 WRAPPERS = (_fa.flash_attention, _fa.flash_attention_bwd, _na.instance_norm_act,
             _oh.output_head, _dc.conv3x3_stats, _dc.convt_pair, _fir.upfirdn2d,
-            _act.fused_leaky_relu)
+            _fir.upfirdn2d_bwd, _act.fused_leaky_relu, _act.fused_leaky_relu_bwd)
 
 
 def reset_launch_counts() -> None:

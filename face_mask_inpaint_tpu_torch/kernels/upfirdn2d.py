@@ -16,12 +16,17 @@ before the W pass reads it, as ``upfirdn1d_axis`` writes it. The taps come
 from the caller's 1-D list (``ops.upfirdn2d.make_taps``), with any gain
 already split evenly between the two axes: no decomposition of a 2-D kernel.
 
-``upfirdn2d`` launches the kernel for CUDA tensors in the modes (1, 1),
-(2, 1) and (1, 2), the ones StyleGAN2 uses, and raises for any other mode;
-for CPU tensors it runs ``upfirdn2d_plain``, which is also what the kernel is
-held against on the card. The kernel has no backward yet (it comes with
-Stack B training), so on CUDA tensors the wrapper raises when a gradient
-would be needed; the plain version is differentiable.
+``upfirdn2d`` is a ``torch.autograd.Function``. Its forward launches the
+kernel for CUDA tensors in the modes (1, 1), (2, 1) and (1, 2), the ones
+StyleGAN2 uses, and raises for any other mode; for CPU tensors it runs
+``upfirdn2d_plain``, which is also what the kernel is held against on the
+card. It saves only x's shape, as the JAX ``_make_op.fwd`` does
+(upfirdn2d_pallas.py:222-223). Its backward is ``upfirdn2d_bwd``: the same
+Function with (up, down) swapped, the taps reversed and the pads transposed
+(upfirdn2d_pallas.py:225-235), so the StyleGAN2 modes map onto the kernel's
+own, (1, 1) -> (1, 1), (2, 1) -> (1, 2), (1, 2) -> (2, 1), and grad-of-grad
+runs the forward mode again. ``upfirdn2d.launches`` counts the forward
+calls and ``upfirdn2d_bwd.launches`` the backward ones, on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -34,9 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from face_mask_inpaint_tpu_torch.kernels import build
-from face_mask_inpaint_tpu_torch.kernels.output_head import _no_grad_needed
 
-__all__ = ["upfirdn2d", "upfirdn2d_plain", "out_len", "MODES"]
+__all__ = ["upfirdn2d", "upfirdn2d_bwd", "upfirdn2d_plain", "transposed_pads", "out_len",
+           "MODES"]
 
 MODES = ((1, 1), (2, 1), (1, 2))
 _MAX_TAPS = 16
@@ -103,23 +108,11 @@ def _function(dtype: torch.dtype):
     return fn
 
 
-def upfirdn2d(x: torch.Tensor, taps: Sequence[float], up: int = 1, down: int = 1,
-              pad: tuple[int, int] = (0, 0)) -> torch.Tensor:
-    """upfirdn2d of NCHW x with the separable kernel outer(taps, taps).
-
-    x: [N, C, H, W] contiguous, float32 or bfloat16; taps: the 1-D filter
-    (at most 16). CPU tensors take the plain version; CUDA tensors launch
-    K6. ``launches`` counts calls: one call makes two CUDA launches, the H
-    pass and the W pass.
-    """
-    if x.device.type == "cpu":
-        return upfirdn2d_plain(x, taps, up, down, pad)
-    if x.device.type != "cuda":
-        raise ValueError(f"upfirdn2d runs on cpu or cuda, not {x.device}")
-    up, down, pad = int(up), int(down), (int(pad[0]), int(pad[1]))
+def _launch(x: torch.Tensor, taps: Sequence[float], up: int, down: int,
+            pad: tuple[int, int]) -> torch.Tensor:
+    """One K6 call (two CUDA launches, the H pass and the W pass)."""
     k = _flipped(taps)
     _check(x, k, up, down, pad)
-    _no_grad_needed("upfirdn2d", (x,))
     n, c, h, w = x.shape
     ho = out_len(h, up, down, *pad, len(k))
     wo = out_len(w, up, down, *pad, len(k))
@@ -134,8 +127,67 @@ def upfirdn2d(x: torch.Tensor, taps: Sequence[float], up: int = 1, down: int = 1
                     down, pad[0], length, stream)
             if rc != 0:
                 raise RuntimeError(f"upfirdn2d launch failed: cudaError {rc}")
-    upfirdn2d.launches += 1
     return out
 
 
+def transposed_pads(in_len: int, out_len_: int, ktaps: int, up: int, down: int,
+                    pad0: int) -> tuple[int, int]:
+    """Pads of the gradient's upfirdn2d along one axis of length ``in_len``
+    whose forward output had ``out_len_`` samples (upfirdn2d_pallas.py:229-
+    230): (k - pad0 - 1, in_len * up - out_len * down + pad0 - up + 1)."""
+    return ktaps - pad0 - 1, in_len * up - out_len_ * down + pad0 - up + 1
+
+
+class _Upfirdn2d(torch.autograd.Function):
+    """upfirdn2d over NCHW; ``counter`` is the wrapper whose ``launches``
+    this call adds to on a CUDA tensor."""
+
+    @staticmethod
+    def forward(ctx, x, taps, up, down, pad, counter):
+        ctx.consts = tuple(x.shape[2:]), taps, up, down, pad
+        if x.device.type == "cpu":
+            return upfirdn2d_plain(x, taps, up, down, pad)
+        if x.device.type != "cuda":
+            raise ValueError(f"upfirdn2d runs on cpu or cuda, not {x.device}")
+        out = _launch(x, taps, up, down, pad)
+        counter.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        in_hw, taps, up, down, pad = ctx.consts
+        return upfirdn2d_bwd(g, taps, up, down, pad, in_hw), None, None, None, None, None
+
+
+def upfirdn2d(x: torch.Tensor, taps: Sequence[float], up: int = 1, down: int = 1,
+              pad: tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """upfirdn2d of NCHW x with the separable kernel outer(taps, taps).
+
+    x: [N, C, H, W] contiguous, float32 or bfloat16; taps: the 1-D filter
+    (at most 16). CPU tensors take the plain version; CUDA tensors launch
+    K6. ``launches`` counts calls: one call makes two CUDA launches, the H
+    pass and the W pass.
+    """
+    taps = tuple(float(t) for t in np.asarray(taps, np.float32).reshape(-1))
+    return _Upfirdn2d.apply(x, taps, int(up), int(down), (int(pad[0]), int(pad[1])),
+                            upfirdn2d)
+
+
+def upfirdn2d_bwd(g: torch.Tensor, taps: Sequence[float], up: int, down: int,
+                  pad: tuple[int, int], in_hw: tuple[int, int]) -> torch.Tensor:
+    """The gradient of ``upfirdn2d(x, taps, up, down, pad)`` with respect to
+    x of spatial size ``in_hw``, from the output gradient g: upfirdn2d of g
+    with (down, up), the taps reversed and the transposed pads, themselves
+    differentiable. CUDA tensors launch K6 (counted in ``launches``)."""
+    taps = tuple(float(t) for t in taps)
+    pads = {transposed_pads(n, m, len(taps), up, down, pad[0])
+            for n, m in zip(in_hw, g.shape[2:])}
+    if len(pads) != 1:
+        raise ValueError(f"upfirdn2d_bwd: the H and W axes need different pads {pads}; "
+                         "the kernel takes one pair for both")
+    (gpad,) = pads
+    return _Upfirdn2d.apply(g.contiguous(), taps[::-1], down, up, gpad, upfirdn2d_bwd)
+
+
 upfirdn2d.launches = 0
+upfirdn2d_bwd.launches = 0

@@ -2,8 +2,11 @@
 
 Port of face_mask_inpaint_tpu/models/irse.py: the bottleneck units and block
 specs (reference encoders/helpers.py), the GradualStyleEncoder with the
-reference fusion (psp_encoders.py:40-152) and the two last-layer backbone
-encoders. Eval mode only (BatchNorm on running statistics). The submodules
+reference fusion (psp_encoders.py:40-152), the two last-layer backbone
+encoders and the ArcFace ``Backbone`` of the identity loss
+(model_irse.py:8-46). ``train()`` and ``eval()`` select the BatchNorm mode
+(nn/layers.py: batch statistics with flax's running-stat update, or the
+running statistics), as the JAX modules' ``train`` argument does. The submodules
 carry the flax names (``input_layer``, ``body.body_<i>``, ``latlayer1``,
 ``attention1``, ``styles_<j>.conv<i>``), so convert.py maps the JAX variables
 by path. The 18 style heads are plain modules, one for each w vector.
@@ -30,7 +33,7 @@ from face_mask_inpaint_tpu_torch.ops.resize import (
 
 __all__ = ["get_blocks", "tap_indices", "SEModule", "BottleneckIR", "IRBody", "InputLayer",
            "GradualStyleBlock", "GradualStyleEncoder", "BackboneEncoderUsingLastLayerIntoW",
-           "BackboneEncoderUsingLastLayerIntoWPlus"]
+           "BackboneEncoderUsingLastLayerIntoWPlus", "Backbone"]
 
 
 class BlockSpec(NamedTuple):
@@ -275,3 +278,58 @@ class BackboneEncoderUsingLastLayerIntoWPlus(nn.Module):
         h = adaptive_avg_pool2d(self.out_bn(h), (7, 7))
         h = self.out_linear(h.permute(0, 2, 3, 1).reshape(h.shape[0], -1))
         return self.linear(h).reshape(-1, self.n_styles, 512)
+
+
+class Backbone(nn.Module):
+    """ArcFace recognition net of the identity loss (model_irse.py:8-46):
+    the IR-SE body, ``out_bn``, the 7x7 map flattened in NHWC order (the JAX
+    package's, so its Dense weight carries over as it is), ``out_linear``,
+    a BatchNorm1d on the buffers ``out_bn1d_mean``/``out_bn1d_var`` with the
+    affine ``out_bn1d_scale``/``out_bn1d_bias``, and the l2 norm. It runs in
+    eval mode only, as the identity loss runs it (id_loss.py:18), so its
+    dropout is never active and ``train()`` raises. Its parameters are
+    frozen (``requires_grad`` off)."""
+
+    def __init__(self, input_size: int = 112, num_layers: int = 50, mode: str = "ir_se",
+                 drop_ratio: float = 0.6, affine: bool = True):
+        super().__init__()
+        if input_size not in (112, 224):
+            raise ValueError(f"input_size should be 112 or 224, got {input_size}")
+        self.drop_ratio, self.affine = drop_ratio, affine
+        side = input_size // 16
+        self.input_layer = InputLayer()
+        self.body = IRBody(num_layers, mode)
+        self.out_bn = BatchNorm2d(512)
+        self.out_linear = Dense(512 * side * side, 512)
+        self.register_buffer("out_bn1d_mean", torch.empty(512))
+        self.register_buffer("out_bn1d_var", torch.empty(512))
+        if affine:
+            self.out_bn1d_scale = nn.Parameter(torch.empty(512))
+            self.out_bn1d_bias = nn.Parameter(torch.empty(512))
+        self.requires_grad_(False)
+        self.eval()
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.out_bn1d_mean.zero_()
+            self.out_bn1d_var.fill_(1.0)
+            if self.affine:
+                self.out_bn1d_scale.fill_(1.0)
+                self.out_bn1d_bias.zero_()
+
+    def train(self, mode: bool = True):
+        if mode:
+            raise NotImplementedError("Backbone runs in eval mode only, as the identity "
+                                      "loss runs it")
+        return super().train(False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [N, 3, S, S] -> l2-normalized [N, 512] embeddings."""
+        h, _ = self.body(self.input_layer(x))
+        h = self.out_bn(h)
+        h = self.out_linear(h.permute(0, 2, 3, 1).reshape(h.shape[0], -1))
+        h32 = h.float()
+        h = ((h32 - self.out_bn1d_mean) * torch.rsqrt(self.out_bn1d_var + 1e-5)).to(h.dtype)
+        if self.affine:
+            h = h * self.out_bn1d_scale.to(h.dtype) + self.out_bn1d_bias.to(h.dtype)
+        return h / torch.linalg.vector_norm(h, dim=1, keepdim=True)

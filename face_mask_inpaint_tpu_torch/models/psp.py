@@ -8,11 +8,12 @@ with optional latent-mask style mixing; the image is adaptive-average pooled
 to 256^2. The public entry points take NHWC images and [N, H, W] masks and
 return NHWC images, as the JAX package's do.
 
-``latent_avg`` is a buffer ([1 or n_styles, 512]), zero until loaded (the
-JAX package's ``compute_latent_avg`` comes with Stack B training). Weights
-are drawn from ``generator`` at construction, with the JAX initialisers'
-distributions; ``init=False`` leaves them unset, for a state_dict that is
-loaded next.
+``latent_avg`` is a buffer ([1 or n_styles, 512]), zero until loaded or
+set from ``compute_latent_avg``. Weights are drawn from ``generator`` at
+construction, with the JAX initialisers' distributions; ``init=False``
+leaves them unset, for a state_dict that is loaded next. ``train()`` and
+``eval()`` select the encoder's BatchNorm mode, as the JAX ``train``
+argument does; the decoder has no mode-dependent layer.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 class PSP(nn.Module):
-    """Encoder + StyleGAN2 decoder (psp.py:21-130), eval mode.
+    """Encoder + StyleGAN2 decoder (psp.py:21-130).
 
     ``num_layers`` 4 and ``decoder_base_channels`` below 512 are the JAX
     package's small test configurations; the reference is 50 and 512.
@@ -70,7 +71,15 @@ class PSP(nn.Module):
         if init:
             init_weights(self, generator if generator is not None
                          else torch.Generator().manual_seed(0))
-        self.eval()
+
+    @torch.no_grad()
+    def compute_latent_avg(self, n_latent: int = 100_000,
+                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """decoder.mean_latent repeated to [1 or n_styles, 512]
+        (psp.py:206-210, train_psp.py:133-134); the caller stores it in
+        ``latent_avg``."""
+        avg = self.decoder.mean_latent(n_latent, generator)
+        return avg.float().repeat(self.latent_avg.shape[0], 1)
 
     def _add_latent_avg(self, codes: torch.Tensor) -> torch.Tensor:
         if not self.start_from_latent_avg:

@@ -16,7 +16,8 @@ its dtype, the noise added in the image dtype.
 Kernels on this path: every StyledConv's bias + LeakyReLU is K7a
 (ops/fused_act.py), and the blur after each upsampling convolution and
 every ToRGB skip upsample are K6 (ops/upfirdn2d.py). At size 1024 one
-forward makes 17 K7a and 16 K6 calls.
+forward makes 17 K7a and 16 K6 calls; its backward makes 17 K7b calls and
+16 more K6 calls (the gradients of the blurs and skip upsamples).
 
 Weights are drawn from a ``torch.Generator`` with the distributions of the
 JAX initialisers: EqualLinear N(0, 1) / lr_mul with its bias_init (1 for the
@@ -117,7 +118,7 @@ class EqualConv2d(nn.Module):
 class ModulatedConv2d(nn.Module):
     """Style-modulated conv (model.py:187-279) in the input/output-scaling
     form, the generator's: plain or upsampling (the downsampling form
-    serves only the discriminator, which comes with Stack B training). The
+    serves only the discriminator, which no entry point builds). The
     OIHW weight serves the transposed convolution of the upsampling form as
     well, transposed to IOHW: the JAX package reads its one HWIO kernel as
     Cin -> Cout for both (ops/conv.py:61-100)."""

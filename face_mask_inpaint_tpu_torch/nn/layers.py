@@ -228,8 +228,17 @@ class Dense(nn.Module):
 
 
 class BatchNorm2d(nn.Module):
-    """torch BatchNorm2d(eps=1e-5, affine) in eval mode: running statistics.
-    Training (batch statistics) waits for the mask-detector training slice."""
+    """torch BatchNorm2d(eps=1e-5, affine) with flax's training semantics.
+
+    Eval mode normalizes with the running statistics. Training mode is the
+    JAX package's ``BatchNorm2d``, a ``flax.linen.BatchNorm(momentum=0.9)``
+    (layers.py:406-429), not torch's: it normalizes with the batch mean and
+    the biased batch variance E[x^2] - E[x]^2 (clipped at 0), both in f32,
+    and moves each running statistic 0.1 of the way to the batch's, the
+    variance being the same biased one (torch would store the unbiased).
+    """
+
+    momentum = 0.1
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -247,11 +256,21 @@ class BatchNorm2d(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("BatchNorm2d runs in eval mode only")
-        return F.batch_norm(x, self.running_mean.to(x.dtype), self.running_var.to(x.dtype),
-                            self.weight.to(x.dtype), self.bias.to(x.dtype), False,
-                            0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean.to(x.dtype),
+                                self.running_var.to(x.dtype), self.weight.to(x.dtype),
+                                self.bias.to(x.dtype), False, 0.0, self.eps)
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        x32 = x.float()
+        mean = x32.mean(dim=dims)
+        var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class InstanceNorm2d(nn.Module):

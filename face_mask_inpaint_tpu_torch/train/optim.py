@@ -1,22 +1,24 @@
-"""Adam and the host-side ReduceLROnPlateau of the GAN trainer.
+"""Adam, Ranger and the host-side ReduceLROnPlateau of the trainers.
 
-Port of face_mask_inpaint_tpu/train/optim.py ``adam`` and ``PlateauTracker``
-(train/optim.py:75-131). The reference steps two ReduceLROnPlateau schedulers
-on the validation losses with mode 'max', patience 2 and factor 0.8
-(train_reference_fill.py:310-319, :403-404); ``PlateauTracker.step`` returns
-the new learning rate and ``set_learning_rate`` writes it into a torch
-optimizer, the counterpart of the JAX ``set_learning_rate`` on an
-``inject_hyperparams`` state.
+Port of face_mask_inpaint_tpu/train/optim.py ``adam``, ``ranger`` and
+``PlateauTracker`` (train/optim.py:75-219). The reference steps its
+ReduceLROnPlateau schedulers on the validation losses with mode 'max',
+patience 2 and factor 0.8 (train_reference_fill.py:310-319, :403-404,
+train_psp.py:294-298); ``PlateauTracker.step`` returns the new learning rate
+and ``set_learning_rate`` writes it into a torch optimizer's param_groups.
+A torch optimizer always holds its learning rate there, so ``adam`` and
+``ranger`` are already the counterparts of the JAX ``adam_injected`` and
+``ranger_injected`` (an ``inject_hyperparams`` state).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional
+from typing import Iterable, Mapping, Optional
 
 import torch
 
-__all__ = ["adam", "set_learning_rate", "PlateauTracker"]
+__all__ = ["adam", "ranger", "Ranger", "set_learning_rate", "PlateauTracker"]
 
 
 def adam(params: Iterable[torch.nn.Parameter], learning_rate: float) -> torch.optim.Adam:
@@ -72,3 +74,93 @@ class PlateauTracker:
         best = float(d["best"])
         self.best = None if math.isnan(best) else best
         self.num_bad = int(d["num_bad"])
+
+
+class Ranger(torch.optim.Optimizer):
+    """RAdam + Lookahead(k, alpha) + gradient centralization, the JAX
+    package's ``ranger`` (train/optim.py:140-219; reference
+    modules/psp/ranger.py:29-184): betas (0.95, 0.999), eps 1e-5, the
+    rectification threshold 5, and a slow copy of each parameter, taken at
+    construction as optax's init takes it, that every k-th step pulls the
+    fast weights halfway to.
+
+    Gradient centralization subtracts from each gradient of two or more
+    dimensions its mean over the axes 1.. of the parameter's JAX layout, as
+    the JAX package does: HWIO for convolutions, [in, out] for dense layers,
+    where the reference centralizes OIHW and [out, in] per output channel.
+    ``keep_dims`` maps each parameter of two or more dimensions to the
+    dimension of its port layout that holds the JAX layout's axis 0
+    (``convert.jax_leading_dims``): the mean is taken over every other
+    dimension.
+    """
+
+    def __init__(self, params, lr: float = 1e-3, alpha: float = 0.5, k: int = 6,
+                 n_sma_threshold: int = 5, betas: tuple[float, float] = (0.95, 0.999),
+                 eps: float = 1e-5, weight_decay: float = 0.0, use_gc: bool = True, *,
+                 keep_dims: Mapping[torch.Tensor, int]):
+        defaults = dict(lr=lr, alpha=alpha, k=k, n_sma_threshold=n_sma_threshold,
+                        betas=betas, eps=eps, weight_decay=weight_decay, use_gc=use_gc)
+        super().__init__(params, defaults)
+        self.keep_dims = dict(keep_dims)
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.dim() >= 2 and p not in self.keep_dims:
+                    raise ValueError(f"keep_dims has no entry for a parameter of shape "
+                                     f"{tuple(p.shape)}")
+                self.state[p]["slow"] = p.detach().clone()
+
+    def _centralize(self, p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        if g.dim() < 2:
+            return g
+        dims = [d for d in range(g.dim()) if d != self.keep_dims[p]]
+        return g - g.mean(dim=dims, keepdim=True)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Ranger.step takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            lr, eps = group["lr"], group["eps"]
+            for p in group["params"]:
+                state = self.state[p]
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                if group["use_gc"]:
+                    g = self._centralize(p, g)
+                if "exp_avg" not in state:
+                    state["step"] = 0
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                state["step"] += 1
+                t = state["step"]
+                m, v = state["exp_avg"], state["exp_avg_sq"]
+                m.mul_(b1).add_(g, alpha=1 - b1)
+                v.mul_(b2).addcmul_(g, g, value=1 - b2)
+                beta2_t = b2 ** t
+                n_sma_max = 2.0 / (1.0 - b2) - 1.0
+                n_sma = n_sma_max - 2.0 * t * beta2_t / (1.0 - beta2_t)
+                if n_sma > group["n_sma_threshold"]:
+                    step_size = math.sqrt(
+                        (1.0 - beta2_t) * (n_sma - 4.0) / (n_sma_max - 4.0)
+                        * (n_sma - 2.0) / n_sma * n_sma_max / (n_sma_max - 2.0)
+                    ) / (1.0 - b1 ** t)
+                    direction = m / (v.sqrt() + eps)
+                else:
+                    step_size = 1.0 / (1.0 - b1 ** t)
+                    direction = m
+                fast = p - lr * step_size * direction
+                if group["weight_decay"]:
+                    fast = fast - group["weight_decay"] * lr * p
+                if t % group["k"] == 0:
+                    slow = state["slow"]
+                    slow.add_(fast - slow, alpha=group["alpha"])
+                    p.copy_(slow)
+                else:
+                    p.copy_(fast)
+        return None
+
+
+def ranger(params: Iterable[torch.nn.Parameter], learning_rate: float,
+           keep_dims: Mapping[torch.Tensor, int]) -> Ranger:
+    """Ranger with the JAX package's defaults and centralization axes."""
+    return Ranger(params, lr=learning_rate, keep_dims=keep_dims)

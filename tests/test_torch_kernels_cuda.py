@@ -1,5 +1,5 @@
-"""K1, K5, K2, K3, K4a, K4b, K6 and K7a against their plain versions on an
-NVIDIA GPU.
+"""K1, K5, K2, K3, K4a, K4b, K6 (forward and backward), K7a and K7b against
+their plain versions on an NVIDIA GPU.
 Marked ``cuda``: they skip where torch.cuda.is_available() is False (the
 decision is taken in a fixture, at run time). Run on the card, where JAX need
 not be installed, with
@@ -9,9 +9,10 @@ K5 (the flash-attention backward) is held against
 ``flash_attention_bwd_plain`` for dq and each dv at ragged L, on both of its
 paths (CUDA cores, tensor cores), and through the autograd Function that joins
 it with K1. K2's autograd Function is held against autograd of its plain
-version. K3, K4a, K4b, K6 and K7a have no backward: their wrappers raise
-under grad mode when an input or weight requires grad, and run under
-``torch.no_grad()``. K6 rounds its H pass and its output, each once, so its
+version, and so are the K6 Function (its backward K6 again, with the modes
+swapped) and the K7a/K7b Function, grad-of-grad included. K3, K4a and K4b
+have no backward: their wrappers raise under grad mode when an input or
+weight requires grad, and run under ``torch.no_grad()``. K6 rounds its H pass and its output, each once, so its
 bfloat16 tolerance adds rtol times the sum of the output's terms' magnitudes
 (see the test).
 
@@ -395,20 +396,145 @@ def test_fused_leaky_relu_kernel_matches_plain(cuda, dtype, shape, with_bias):
     _assert_close(got, act.fused_leaky_relu_plain(x, b), dtype)
 
 
-def test_stackb_kernels_raise_under_grad(cuda):
-    """K6 and K7a have no backward yet (they come with Stack B training)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 512, 4, 4), (2, 32, 64, 64), (2, 1, 37, 41),
+                                   (3, 3, 19, 27), (2, 5, 33, 21), (7, 13)])
+def test_fused_leaky_relu_bwd_kernel_matches_plain(cuda, dtype, shape):
+    """K7b against its plain version, at a StyleGAN2 shape and ragged ones."""
     from face_mask_inpaint_tpu_torch.kernels import fused_act as act
-    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
 
-    x = torch.randn(1, 4, 8, 8, device="cuda", requires_grad=True)
-    b = torch.zeros(4, device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fir.upfirdn2d(x, [0.25, 0.75, 0.75, 0.25], 1, 1, (1, 1))
-    with pytest.raises(RuntimeError, match="no backward"):
-        act.fused_leaky_relu(x.detach(), b)
-    with torch.no_grad():  # inference: the kernels run
-        fir.upfirdn2d(x, [0.25, 0.75, 0.75, 0.25], 1, 1, (1, 1))
-        act.fused_leaky_relu(x, b)
+    y = (torch.randn(shape, device="cuda", generator=cuda) * 2).to(dtype)
+    g = torch.randn(shape, device="cuda", generator=cuda).to(dtype)
+    before = act.fused_leaky_relu_bwd.launches
+    got = act.fused_leaky_relu_bwd(y, g)
+    torch.cuda.synchronize()
+    assert act.fused_leaky_relu_bwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == g.shape
+    _assert_close(got, act.fused_leaky_relu_bwd_plain(y, g), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_leaky_relu_function_grads_launch_k7a_and_k7b(cuda, dtype):
+    """dx through K7b and dbias, the f32 channel sum of dx in g's dtype,
+    against the plain versions; one K7a and one K7b launch."""
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+
+    x = torch.randn(4, 6, 17, 19, device="cuda", generator=cuda).to(dtype).requires_grad_()
+    b = torch.randn(6, device="cuda", generator=cuda).to(dtype).requires_grad_()
+    g = torch.randn(4, 6, 17, 19, device="cuda", generator=cuda).to(dtype)
+    before = act.fused_leaky_relu.launches, act.fused_leaky_relu_bwd.launches
+    y = act.fused_leaky_relu(x, b)
+    dx, db = torch.autograd.grad(y, (x, b), g)
+    torch.cuda.synchronize()
+    assert (act.fused_leaky_relu.launches - before[0],
+            act.fused_leaky_relu_bwd.launches - before[1]) == (1, 1)
+    want = act.fused_leaky_relu_bwd_plain(y.detach(), g)
+    _assert_close(dx, want, dtype)
+    _assert_close(db, want.float().sum(dim=(0, 2, 3)).to(dtype), dtype)
+
+
+def test_fused_leaky_relu_grad_of_grad_matches_plain(cuda):
+    """grad-of-grad through the Function against autograd of the plain
+    version (f32): d/dg applies the mask again, d/dy is zero."""
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+
+    x = torch.randn(2, 5, 9, 11, device="cuda", generator=cuda, requires_grad=True)
+    b = torch.randn(5, device="cuda", generator=cuda, requires_grad=True)
+    outs = []
+    for fn in (act.fused_leaky_relu, act.fused_leaky_relu_plain):
+        y = fn(x, b)
+        g = torch.linspace(-1, 1, y.numel(), device="cuda").view_as(y).requires_grad_()
+        dx, db = torch.autograd.grad(y, (x, b), g, create_graph=True)
+        (dg,) = torch.autograd.grad((dx * dx).sum() + db.sum(), g)
+        outs.append((dx, db, dg))
+    for got, want in zip(*outs):
+        _assert_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,up,down,pad", [((2, 32, 65, 65), 1, 1, (1, 1)),
+                                               ((2, 3, 32, 32), 2, 1, (2, 1)),
+                                               ((2, 5, 33, 21), 1, 2, (1, 1)),
+                                               ((2, 1, 38, 42), 1, 1, (1, 1))])
+def test_upfirdn2d_bwd_kernel_matches_autograd_of_plain(cuda, dtype, shape, up, down, pad):
+    """K6's backward (mode (down, up), taps reversed, pads transposed)
+    against the plain version of the same call; in f32 also against
+    autograd of the plain forward. K6's tolerance (see
+    test_upfirdn2d_kernel_matches_plain)."""
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+    from face_mask_inpaint_tpu_torch.ops.upfirdn2d import make_taps
+
+    k = [float(t) for t in make_taps([1, 2, 3, 4], float(up * up))]
+    h, w = shape[2:]
+    ho, wo = (fir.out_len(n, up, down, *pad, len(k)) for n in (h, w))
+    gpad = fir.transposed_pads(h, ho, len(k), up, down, pad[0])
+    assert min(gpad) >= 0
+    g = torch.randn(shape[0], shape[1], ho, wo, device="cuda", generator=cuda).to(dtype)
+    before = fir.upfirdn2d_bwd.launches
+    got = fir.upfirdn2d_bwd(g, k, up, down, pad, (h, w))
+    torch.cuda.synchronize()
+    assert fir.upfirdn2d_bwd.launches == before + 1 and tuple(got.shape) == shape
+    want = fir.upfirdn2d_plain(g, k[::-1], down, up, gpad)
+    atol, rtol = TOL[dtype]
+    m = fir.upfirdn2d_plain(g.float().abs(), [abs(t) for t in k[::-1]], down, up, gpad)
+    assert bool(((got.float() - want.float()).abs()
+                 <= atol + rtol * (want.float().abs() + m)).all())
+    if dtype == torch.float32:
+        x = torch.zeros(shape, device="cuda", requires_grad=True)
+        (auto,) = torch.autograd.grad(fir.upfirdn2d_plain(x, k, up, down, pad), x, g)
+        _assert_close(got, auto, dtype)
+
+
+@pytest.mark.parametrize("up,down,pad", [(1, 1, (1, 1)), (2, 1, (2, 1)), (1, 2, (1, 1))])
+def test_upfirdn2d_function_grad_and_grad_of_grad(cuda, up, down, pad):
+    """The K6 Function's gradient and grad-of-grad against autograd of the
+    plain version (f32); the forward and the backward each launch once."""
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+    from face_mask_inpaint_tpu_torch.ops.upfirdn2d import make_taps
+
+    k = [float(t) for t in make_taps([1, 2, 3, 4], 4.0)]
+    x = torch.randn(2, 3, 18, 18, device="cuda", generator=cuda, requires_grad=True)
+    outs = []
+    for fn in (fir.upfirdn2d, fir.upfirdn2d_plain):
+        before = fir.upfirdn2d.launches, fir.upfirdn2d_bwd.launches
+        y = fn(x, k, up, down, pad)
+        g = torch.linspace(-1, 1, y.numel(), device="cuda").view_as(y).requires_grad_()
+        (dx,) = torch.autograd.grad(y, x, g, create_graph=True)
+        if fn is fir.upfirdn2d:
+            assert (fir.upfirdn2d.launches - before[0],
+                    fir.upfirdn2d_bwd.launches - before[1]) == (1, 1)
+        (dg,) = torch.autograd.grad((dx * dx).sum(), g)
+        outs.append((dx, dg))
+    for got, want in zip(*outs):
+        _assert_close(got, want, torch.float32)
+
+
+def test_small_psp_train_step_launches_stackb_kernels(cuda):
+    """One pSp training step (output_size 64: 4 upsampling stages, so 8 K6
+    calls and 9 K7a calls a forward) launches each kernel once forward and
+    once backward, with finite losses."""
+    from face_mask_inpaint_tpu_torch.kernels import WRAPPERS, reset_launch_counts
+    from face_mask_inpaint_tpu_torch.losses.psp_loss import PSPLossConfig
+    from face_mask_inpaint_tpu_torch.models.psp import PSP
+    from face_mask_inpaint_tpu_torch.train.optim import adam
+    from face_mask_inpaint_tpu_torch.train.psp import make_psp_train_step, partition_params
+
+    with torch.device("cuda"):
+        psp = PSP(output_size=64, num_layers=4, decoder_base_channels=32, use_attention=True,
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = adam([p for _, p in partition_params(psp, True)], 1e-4)
+    cfg = PSPLossConfig(l2_lambda=1.0, lpips_lambda=0.0, style_lambda=0.0, cx_lambda=0.0)
+    step = make_psp_train_step(psp, opt, cfg, {}, use_ref=True, resize=False)
+    img = lambda: torch.rand(2, 64, 64, 3, device="cuda", generator=cuda) * 2 - 1
+    batch = {"src_img": img(), "gt_img": img(), "ref_img": img(),
+             "mask": (torch.rand(2, 64, 64, device="cuda", generator=cuda) > 0.5).float()}
+    reset_launch_counts()
+    out = step(batch, noise=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in WRAPPERS}
+    assert counts == dict({k: 0 for k in counts}, upfirdn2d=8, upfirdn2d_bwd=8,
+                          fused_leaky_relu=9, fused_leaky_relu_bwd=9)
+    assert float(out["skipped_nonfinite"]) == 0.0 and bool(torch.isfinite(out["loss"]))
 
 
 def test_small_psp_launches_k6_and_k7a_and_matches_plain(cuda):
@@ -421,7 +547,7 @@ def test_small_psp_launches_k6_and_k7a_and_matches_plain(cuda):
 
     with torch.device("cuda"):
         psp = PSP(output_size=32, num_layers=4, decoder_base_channels=32, use_attention=True,
-                  generator=torch.Generator(device="cuda").manual_seed(0))
+                  generator=torch.Generator(device="cuda").manual_seed(0)).eval()
     x = torch.rand(2, 64, 64, 3, device="cuda", generator=cuda) * 2 - 1
     mask = (torch.rand(2, 64, 64, device="cuda", generator=cuda) > 0.5).float()
     before = (fir.upfirdn2d.launches, act.fused_leaky_relu.launches)

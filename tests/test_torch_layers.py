@@ -118,8 +118,9 @@ def test_batch_norm_eval_matches_jax():
         got = _nhwc(tmod(_nchw(x)))
     np.testing.assert_allclose(got, np.asarray(jmod.apply(variables, jnp.asarray(x))),
                                rtol=0, atol=ATOL)
-    with pytest.raises(NotImplementedError):
-        tmod.train()(_nchw(x))
+    # eval mode reads the running statistics and leaves them as they were
+    np.testing.assert_array_equal(tmod.running_mean.numpy(), np.asarray(stats["bn"]["mean"]))
+    np.testing.assert_array_equal(tmod.running_var.numpy(), np.asarray(stats["bn"]["var"]))
 
 
 @pytest.mark.parametrize("kind", ["ReLU", "SELU", "LeakyReLU"])

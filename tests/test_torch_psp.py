@@ -189,7 +189,7 @@ def test_psp_slice_matches_jax(monkeypatch):
 
     want, want_mask = jax_slice(md_vars, variables, jnp.asarray(src), jnp.asarray(ref))
 
-    psp = PSP(**cfg, init=False)
+    psp = PSP(**cfg, init=False).eval()
     psp.load_state_dict(convert_psp(psp, variables), strict=True)
     assert float(psp.latent_avg.abs().max()) > 0  # the offset is live
     with torch.no_grad():
