@@ -22,7 +22,10 @@ it and read just after. Phases:
    the memory rate and its operations over the peak rate) and, for K1, K5,
    K4b and K4a, beside the PyTorch call that computes the same function;
    K5, the flash-attention backward, at the config-5 shape (batch 16) and
-   ragged ones, for dq and each dv;
+   ragged ones, for dq and each dv; check that K4b takes its tensor-core
+   route in bfloat16 where W % 8 == 0 (the flagship's decoders 3 and 4
+   among them) and its CUDA-core one elsewhere, and K5 its tensor-core
+   route at config 5, and print each one's route and achieved TFLOP/s;
 3. the flagship models at batch 4, float32, random weights from --seed:
    output shape, range and finiteness; the kernel path against the plain
    versions on the card; the launch counts of one forward (K1 once, K2 ten
@@ -43,14 +46,17 @@ it and read just after. Phases:
    of the forward over PROFILE_ROUNDS rounds of three forwards a side in
    alternating order (kernels, dense head, plain versions) with the host's
    enqueue time, and a ``torch.profiler`` window of three forwards in each
-   configuration (device-busy share, kernels by device time);
+   configuration (device-busy share, kernels by device time); that window
+   must show K4b's tensor-core kernel, and not its CUDA-core one, in the
+   packed-convt forward;
 7. the config-5 GAN training step (G, D and VGG built by the trainer CLI's
    ``get_args`` and ``Trainer`` with ``--device cuda --decoder_img_f 256``)
    at batch 16 in bfloat16 on seeded batches: finite losses, the launches
    of one step (K1 once, K5 once, K2 ten times, K3 and K4 never), the step
    time (CUDA events, median and quartiles of STEP_ROUNDS steps after two
    warm-up steps), its peak device memory and a ``torch.profiler`` top
-   list; and at batch 2 in float32 with a seeded non-zero attention gamma,
+   list, which must show K5's tensor-core kernel and neither CUDA-core one;
+   and at batch 2 in float32 with a seeded non-zero attention gamma,
    the kernel path's G and D gradients against the plain path's;
 8. Stack B, pSp -> StyleGAN2 inference at BASELINE config 4 (the path of
    ``psp_inference.py --use_ref --use_attention 1``): K6 (upfirdn2d) and
@@ -165,7 +171,8 @@ PSP_TOL = 1e-4
 # timed rounds of the config-4 forward, kernels and plain versions in turns
 PSP_ROUNDS = 5
 # K5: max |kernel - plain| <= tol * max |plain| for dq and each dv. bf16
-# rounds P and the summed dS once on both sides, from f32 values summed in
+# rounds P and dS on both sides (the tensor-core route each dS[r, c] apart,
+# the plain version their sum over both roles), from f32 values summed in
 # another order, so single terms may sit one bf16 ulp apart in sums of
 # thousands
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -373,6 +380,10 @@ def _phase_flash_backward(run: Run, gen, timings: dict):
                           f"max_abs_err / max|ref| {rel:.3e} (tol {BWD_TOL[dname]})")
             del dq_ref, dv_ref
             if label == "config 5":
+                route = fa.flash_attention_bwd_route(q, v_cat)
+                if dtype == torch.bfloat16:
+                    run.check(route == "tensor_cores",
+                              f"K5 config 5 {dname} takes the tensor cores (route {route})")
                 reps = 5 if dtype == torch.bfloat16 else 2
                 ms = _time_ms(lambda: fa.flash_attention_bwd(q, v_cat, lse, do_cat, dsum), reps)
                 plain_ms = _time_ms(
@@ -386,8 +397,14 @@ def _phase_flash_backward(run: Run, gen, timings: dict):
                 lib_ms = (_library_attention_bwd_ms(q, v_cat, do_cat)
                           if dtype == torch.bfloat16 else None)
                 timings[("flash_attention_bwd", dname)] = (ms, plain_ms, *bound, lib_ms)
-                print(f"[time] K5 config 5 {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-                      f"ms, bound {bound[0]:.3f} ms ({bound[1]}), library "
+                # the function's operations (the bound's count) and the
+                # tensor-core kernel's own (704 MACs an ordered pair)
+                rate = 2.0 * n * l * l * (1.5 * d + 2 * c_all) / ms / 1e9
+                own = 2.0 * n * l * l * (3 * d + 2 * c_all) / ms / 1e9
+                print(f"[time] K5 config 5 {dname} ({route}): kernel {ms:.3f} ms "
+                      f"({rate:.1f} TFLOP/s of the function's work, {own:.1f} of the "
+                      f"kernel's), plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms "
+                      f"({bound[1]}), library "
                       f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}", flush=True)
             del q, vs, v_cat, lse, do_cat, dsum, dq, dv
             torch.cuda.empty_cache()
@@ -543,13 +560,16 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
 
     from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
 
+    # W = 41 and 70 take K4b's CUDA-core kernel in bf16; W = 72 its tensor
+    # cores, with H, W, C and Co off its tiles
     ragged = [dict(name="ragged", n=3, c=13, co=3, h=37, w=41, pro="ReLU", act="LeakyReLU"),
-              dict(name="ragged", n=2, c=21, co=80, h=17, w=70, pro=None, act=None)]
+              dict(name="ragged", n=2, c=21, co=80, h=17, w=70, pro=None, act=None),
+              dict(name="ragged", n=2, c=40, co=80, h=19, w=72, pro="LeakyReLU", act="ReLU")]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         rate = BF16_RATE if dtype == torch.bfloat16 else F32_RATE
-        acc = {k: dict(ms=0.0, plain=0.0, lib=0.0, bounds=[]) for k in ("conv3x3_stats",
-                                                                       "convt_pair")}
+        acc = {k: dict(ms=0.0, plain=0.0, lib=0.0, flops=0.0, bounds=[])
+               for k in ("conv3x3_stats", "convt_pair")}
         cases = [dict(d, n=16, w=d["h"], pro="LeakyReLU",
                       act="LeakyReLU" if d["name"] == "decoder 4" else None)
                  for d in DECODER_TAIL] + ragged
@@ -590,6 +610,11 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
                                    f"{TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|), "
                                    f"{s_note}")
             del want
+            if dtype == torch.bfloat16:
+                route, want_route = (dc.conv3x3_route(t["x"]),
+                                     "tensor_cores" if w % 8 == 0 else "cuda_cores")
+                run.check(route == want_route, f"K4b {case['name']} W={w} {dname} takes the "
+                                               f"{want_route} (route {route})")
             if flagship:
                 es = t["x"].element_size()
                 w1, b1 = t["w1"].to(dtype), t["b1"].to(dtype)
@@ -612,13 +637,19 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
                     a = acc[name]
                     ms, plain_ms, lib_ms = (_time_ms(kernel, 5), _time_ms(plain, 3),
                                             _time_ms(library, 5))
+                    flops = (2.0 * n * h * w * 9 * co * c if name == "conv3x3_stats"
+                             else 2.0 * n * h * w * 9 * (co * co + c * co))
                     a["ms"] += ms
                     a["plain"] += plain_ms
                     a["lib"] += lib_ms
+                    a["flops"] += flops
                     a["bounds"].append(bound)
+                    route = (dc.conv3x3_route(t["x"]) if name == "conv3x3_stats"
+                             else "cuda_cores")
                     print(f"[time] {'K4b' if name == 'conv3x3_stats' else 'K4a'} "
-                          f"{case['name']} {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-                          f"ms, library {lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
+                          f"{case['name']} {dname} ({route}): kernel {ms:.3f} ms "
+                          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library "
+                          f"{lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
             del t, y, out, streams
             torch.cuda.empty_cache()
         for name, a in acc.items():
@@ -626,9 +657,9 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
             by = max(a["bounds"])[1]
             timings[(name, dname)] = (a["ms"], a["plain"], bound, by, a["lib"])
             print(f"[time] {'K4b' if name == 'conv3x3_stats' else 'K4a'} decoders 3 + 4 at "
-                  f"N=16 {dname}: kernel {a['ms']:.3f} ms, plain {a['plain']:.3f} ms, bound "
-                  f"{bound:.3f} ms ({by}), library {a['lib']:.3f} ms (no prologue, no stats)",
-                  flush=True)
+                  f"N=16 {dname}: kernel {a['ms']:.3f} ms ({a['flops'] / a['ms'] / 1e9:.1f} "
+                  f"TFLOP/s), plain {a['plain']:.3f} ms, bound {bound:.3f} ms ({by}), library "
+                  f"{a['lib']:.3f} ms (no prologue, no stats)", flush=True)
 
 
 def _models(seed: int, dtype):
@@ -848,7 +879,18 @@ def dense_head(model):
         del model._fuse_pool
 
 
-def phase_profile(seed: int, rounds: int, card: str):
+def _check_launched(run: Run, rows, want: str, unwanted: tuple, what: str):
+    """That a profiler window's device kernels include ``want`` and none of
+    ``unwanted`` (substrings of the kernels' names): the route a wrapper
+    took, read from what ran on the card."""
+    names = [e.key for e in rows]
+    hit = [k for k in names if want in k]
+    wrong = [k[:80] for k in names if any(u in k for u in unwanted)]
+    run.check(bool(hit) and not wrong, f"{what} ran {want} and none of {unwanted} "
+                                       f"(ran: {[k[:80] for k in hit]}, wrong: {wrong})")
+
+
+def phase_profile(run: Run, seed: int, rounds: int, card: str):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -933,6 +975,9 @@ def phase_profile(seed: int, rounds: int, card: str):
         busy = sum(e.self_device_time_total for e in rows) / 1e3
         print(f"[profile] {side}, three forwards: wall {wall:.2f} ms, summed device time "
               f"{busy:.2f} ms, device busy {100 * busy / wall:.1f}% on {card}")
+        if side == "packed-convt":
+            _check_launched(run, rows, "conv3x3_mma_kernel", ("conv3x3_kernel",),
+                            "K4b in the bf16 packed-convt forward")
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
             print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
                   f"{e.key[:100]}")
@@ -1041,6 +1086,8 @@ def phase_train(run: Run, seed: int, card: str) -> dict:
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"[train] profile, two steps: wall {wall:.2f} ms, summed device time {busy:.2f} ms, "
           f"device busy {100 * busy / wall:.1f}% on {card}")
+    _check_launched(run, rows, "flash_bwd_col_kernel",
+                    ("flash_bwd_dq_kernel", "flash_bwd_dv_kernel"), "K5 in the config-5 step")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[train]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:100]}")
     del trainer, batches, metrics, prof
@@ -1702,7 +1749,7 @@ def main(argv=None) -> int:
     launches, packed_launches = phase_flagship(run, args.seed)
     phase_cli(run, args.seed)
     phase_timing(run, args.seed, timings, smi)
-    phase_profile(args.seed, PROFILE_ROUNDS, smi)
+    phase_profile(run, args.seed, PROFILE_ROUNDS, smi)
     train_launches = phase_train(run, args.seed, smi)
     phase_stackb_kernels(run, args.seed, timings)
     psp_launches = phase_psp(run, args.seed)

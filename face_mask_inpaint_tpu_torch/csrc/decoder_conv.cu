@@ -30,10 +30,36 @@
 // What bounds them on an H100 (bf16, batch 16, the flagship's decoders 3 and
 // 4): per call 155 (K4b) or 232 (K4a) GFLOP against 0.40-1.88 GB of traffic,
 // i.e. 120-380 FLOP a byte. On the tensor cores (989 TFLOP/s) the bound is
-// 0.16-0.56 ms, set by bytes for three of the four calls. These kernels run
-// on the CUDA cores (67 TFLOP/s f32 FMA), which makes them compute-bound at
-// 2.3-3.5 ms a call at best. Their design keeps the FMA units fed from
-// registers:
+// 0.16-0.56 ms, set by bytes for three of the four calls; on the CUDA cores
+// (67 TFLOP/s f32 FMA) no kernel can go below 2.3-3.5 ms a call.
+//
+// K4b in bf16 (W % 8 == 0, 16-byte aligned maps; fmi_conv3x3_route) is an
+// implicit GEMM on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// accumulate): M = a tile of TH x 64 output pixels (TH = 4 for 64 output
+// channels, else 8), N = all COP output channels of the block, K = 9 C in
+// chunks of 16 input channels. Per chunk:
+//   - cp.async copies the chunk's raw NCHW rows y0 - 1 .. y0 + TH (16-byte
+//     pieces, zeros outside the image) and its weights, packed once per call
+//     by the wrapper as bf16 [9][c_pad][co_pad], into the other half of a
+//     double buffer while the current chunk computes (cp.async cannot apply
+//     the prologue);
+//   - an in-shared-memory pass applies the prologue (specialised on its
+//     activation) and writes the tile and its one-pixel halo channel-
+//     innermost, [TH + 2][66][16] with 48-byte pixel rows, so that ldmatrix
+//     reads 8 pixels from 8 distinct bank groups; the zero halo is written
+//     after the prologue;
+//   - the nine taps are nine shifted row addresses into that one staged
+//     tile: ldmatrix takes a row address per lane, so im2col costs nothing.
+//     8 warps each keep 32 or 64 pixels x COP channels of f32 accumulators;
+//     2 blocks an SM overlap one block's staging with the other's products.
+// The epilogue adds the bias, takes the per-(n, co) sums of y and y^2 from
+// the f32 fragments (shuffles over the fragment rows, then the 8 warps in a
+// fixed order into the [N, Co, tiles] partials: deterministic, no atomics),
+// applies the activation, rounds once and stores through shared memory so
+// that each channel row leaves in 16-byte pieces, 128 bytes a tile row.
+//
+// K4b in f32 (and bf16 maps the route rejects) and K4a run on the CUDA
+// cores, unchanged:
 //   - a block of 256 threads owns a tile of output pixels for up to 64
 //     output channels, so each input byte is read from device memory about
 //     once per 64 output channels (more than 64 split into channel blocks);
@@ -46,14 +72,13 @@
 //     broadcast and input reads hit 32 banks;
 //   - per-block partial sums of y and y^2 go to a [N, Co, tiles] buffer that
 //     the caller sums: no atomics, so the stats are deterministic.
-// At the flagship in bf16 they reach 24-26 (K4b) and 15-17 (K4a) TFLOP/s,
-// 31-34x their bound and 2-4x the time of cuDNN's tensor-core convs
-// (PERF.md, from chip_smoke.py). The next steps (a later PR): mma.sync /
-// wgmma on bf16 operands with TMA staging, which the FLOP/byte ratio above
-// calls for, and taller K4a tiles at 64 output channels.
+// At the flagship K4a reaches 15-17 TFLOP/s, 2x the time of cuDNN's
+// tensor-core transposed convs (PERF.md, from chip_smoke.py); it is next.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -401,6 +426,248 @@ convt_pair_kernel(Streams ss, const float* __restrict__ bias, T* __restrict__ ou
                        static_cast<size_t>(H) * W * 4, act, red);
 }
 
+// ---------------------------------------------------------------------------
+// K4b, bf16 on the tensor cores: an implicit GEMM with M = a tile of TH x 64
+// output pixels, N = the COP output channels of the block and K = 9 C, taken
+// in chunks of 16 input channels (see the header).
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaCK = 16;  // input channels a chunk
+
+// the C extent of the packed weights: C rounded up to the chunk
+int mma_c_pad(int C) { return (C + kMmaCK - 1) / kMmaCK * kMmaCK; }
+
+template <int COP>
+struct MmaCfg {
+  static constexpr int MT = COP == 64 ? 2 : 4;     // m16 tiles (of 16 pixels) a warp keeps
+  static constexpr int NT = COP / 8;               // n8 tiles a warp keeps
+  static constexpr int TW = 64;                    // tile columns: 128 bytes a channel row
+  static constexpr int WPR = TW / (16 * MT);       // warps a tile row
+  static constexpr int TH = kWarps / WPR;          // tile rows: 4 or 8
+  static constexpr int SH = TH + 2, SW = TW + 2;   // the tile and its one-pixel halo
+  static constexpr int CK = kMmaCK;
+  static constexpr int SP = CK + 8;                // staged pixel stride: 48 bytes
+  static constexpr int RW = TW + 16;               // raw row: columns x0 - 8 .. x0 + TW + 7
+  static constexpr int WS = COP + 8;               // weight row stride
+  static constexpr int kRaw = CK * SH * RW;        // bf16 a raw buffer
+  static constexpr int kStage = SH * SW * SP;      // bf16
+  static constexpr int kW = 9 * CK * WS;           // bf16 a weight buffer
+  static constexpr int OP = TH * TW + 8;           // output plane stride in the epilogue
+  static constexpr size_t kMain =
+      sizeof(__nv_bfloat16) * (2 * kRaw + kStage + 2 * kW) + sizeof(float) * 4 * CK;
+  static constexpr size_t kEpi =
+      sizeof(__nv_bfloat16) * COP * OP + sizeof(float) * 2 * kWarps * COP;
+  static constexpr size_t kSmem = kMain > kEpi ? kMain : kEpi;
+};
+
+// x [N, C, H, W] and out [N, Co, H, W] bf16; wp [9][c_pad][co_pad] bf16 (tap,
+// input channel, output channel; zero past C and Co); A, B [N, C] f32 and the
+// prologue's activation PRO (< 0: no prologue); bias [co_pad] f32; psum, psq
+// [N, Co, tiles] or null. W % 8 == 0 and 16-byte aligned x and out.
+template <int COP, int PRO>
+__global__ void __launch_bounds__(kThreads, 2)
+conv3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wp,
+                   const float* __restrict__ A, const float* __restrict__ B,
+                   const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ psum, float* __restrict__ psq, int C, int c_pad, int H,
+                   int W, int Co, int co_blocks, int co_pad, int act) {
+  using namespace fmi_mma;
+  using Cfg = MmaCfg<COP>;
+  constexpr int MT = Cfg::MT, NT = Cfg::NT, TW = Cfg::TW, TH = Cfg::TH, SH = Cfg::SH,
+                SW = Cfg::SW, CK = Cfg::CK, SP = Cfg::SP, RW = Cfg::RW, WS = Cfg::WS,
+                OP = Cfg::OP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][CK][SH][RW]
+  __nv_bfloat16* stage = raw + 2 * Cfg::kRaw;                        // [SH * SW][SP]
+  __nv_bfloat16* ws = stage + Cfg::kStage;                           // [2][9][CK][WS]
+  float* ab = reinterpret_cast<float*>(ws + 2 * Cfg::kW);            // [2][A, B][CK]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, lm = lane >> 3, li = lane & 7;
+  const int n = blockIdx.z / co_blocks;
+  const int co0 = (blockIdx.z - n * co_blocks) * COP;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int wrow = warp / Cfg::WPR, wcol = (warp % Cfg::WPR) * 16 * MT;
+  const __nv_bfloat16* xn = x + static_cast<size_t>(n) * C * H * W;
+
+  // chunk [c0, c0 + CK) into buffer buf: the raw rows y0 - 1 .. y0 + TH of
+  // the input as they lie in memory (16-byte pieces, zeros outside the
+  // image and past C), the chunk's weights and its prologue affine
+  auto prefetch = [&](int c0, int buf) {
+    constexpr int kPieces = RW / 8;
+    __nv_bfloat16* rb = raw + buf * Cfg::kRaw;
+    for (int i = tid; i < CK * SH * kPieces; i += kThreads) {
+      const int j = i % kPieces, rest = i / kPieces;  // rest = ch * SH + r
+      const int r = rest % SH, c = c0 + rest / SH;
+      const int y = y0 - 1 + r, xx = x0 - 8 + 8 * j;
+      const bool ok = c < C && y >= 0 && y < H && xx >= 0 && xx < W;
+      cp_async16(rb + rest * RW + 8 * j, ok ? xn + (static_cast<size_t>(c) * H + y) * W + xx : xn,
+                 ok ? 16 : 0);
+    }
+    __nv_bfloat16* wb = ws + buf * Cfg::kW;
+    for (int i = tid; i < 9 * CK * NT; i += kThreads) {
+      const int p = i % NT, rest = i / NT;  // rest = tap * CK + ch
+      const int ch = rest % CK, tap = rest / CK;
+      cp_async16(wb + rest * WS + 8 * p,
+                 wp + (static_cast<size_t>(tap) * c_pad + c0 + ch) * co_pad + co0 + 8 * p, 16);
+    }
+    if (PRO >= 0 && tid < 2 * CK) {
+      const int c = c0 + tid % CK;
+      const bool ok = c < C;
+      cp_async4(ab + buf * 2 * CK + tid,
+                (tid < CK ? A : B) + static_cast<size_t>(n) * C + (ok ? c : 0), ok ? 4 : 0);
+    }
+  };
+
+  // raw buffer buf -> stage, channel-innermost, with the prologue: two
+  // roundings and no FMA, then one rounding to bf16 (in pack_bf16); zeros
+  // outside the image, written after the prologue. A thread takes 8 channels
+  // (one group per half block, so the prologue's A and B are warp-uniform)
+  // of one pixel at a time.
+  auto transpose = [&](int buf) {
+    const __nv_bfloat16* rb = raw + buf * Cfg::kRaw;
+    const float* abb = ab + buf * 2 * CK;
+    const int cg = tid / (kThreads / 2);
+    for (int p = tid % (kThreads / 2); p < SH * SW; p += kThreads / 2) {
+      const int r = p / SW, s = p - r * SW;
+      const int y = y0 - 1 + r, xx = x0 - 1 + s;
+      const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;
+      unsigned packed[4];
+#pragma unroll
+      for (int k = 0; k < 8; k += 2) {
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ch = cg * 8 + k + e;
+          float f = __bfloat162float(rb[(ch * SH + r) * RW + s + 7]);
+          if constexpr (PRO >= 0)
+            f = apply_act(__fadd_rn(__fmul_rn(f, abb[ch]), abb[CK + ch]), PRO);
+          v[e] = inside ? f : 0.f;
+        }
+        packed[k / 2] = pack_bf16(v[0], v[1]);
+      }
+      *reinterpret_cast<uint4*>(stage + p * SP + cg * 8) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+  const int n_chunks = c_pad / CK;
+  prefetch(0, 0);
+  cp_async_commit();
+  for (int ck = 0; ck < n_chunks; ++ck) {
+    const int buf = ck & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ck landed; every warp is done with chunk ck - 1
+    if (ck + 1 < n_chunks) prefetch((ck + 1) * CK, buf ^ 1);
+    cp_async_commit();
+    transpose(buf);
+    __syncthreads();
+    const __nv_bfloat16* wb = ws + buf * Cfg::kW;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+      unsigned bf[NT][2];
+      if constexpr (NT == 1) {
+        ldmatrix_x2_trans(bf[0], wb + (tap * CK + (lane & 15)) * WS);
+      } else {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, wb + (tap * CK + (lm & 1) * 8 + li) * WS + np * 16 + (lm >> 1) * 8);
+          bf[2 * np][0] = b[0];
+          bf[2 * np][1] = b[1];
+          bf[2 * np + 1][0] = b[2];
+          bf[2 * np + 1][1] = b[3];
+        }
+      }
+      // the tap is a shift of the staged tile: row address per lane
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        unsigned a[4];
+        ldmatrix_x4(a, stage + ((wrow + ky) * SW + wcol + mt * 16 + (lane & 15) + kx) * SP +
+                           (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16(acc[mt][j], a, bf[j][0], bf[j][1]);
+      }
+    }
+  }
+  __syncthreads();  // the epilogue reuses the staging memory
+
+  // bias, stats from the f32 value, act, one rounding; the tile goes through
+  // shared memory so that each channel row leaves in 16-byte pieces
+  __nv_bfloat16* ot = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [COP][OP]
+  float* red = reinterpret_cast<float*>(ot + COP * OP);            // [2][kWarps][COP]
+  const bool row_in = y0 + wrow < H;
+  float s1[NT][2], s2[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s1[j][0] = s1[j][1] = s2[j][0] = s2[j][1] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = wcol + mt * 16 + g + 8 * (e >> 1);
+        const int co = j * 8 + 2 * t + (e & 1);
+        const float yv = acc[mt][j][e] + bias[co0 + co];  // bias is padded to co_pad
+        if (row_in && x0 + col < W && co0 + co < Co) {
+          s1[j][e & 1] += yv;
+          s2[j][e & 1] += yv * yv;
+        }
+        ot[co * OP + wrow * TW + col] = __float2bfloat16(apply_act(yv, act));
+      }
+  if (psum != nullptr) {
+    // over the 8 pixel rows g of the fragments, then the warps in order
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float a = s1[j][h], b = s2[j][h];
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          a += __shfl_xor_sync(0xffffffffu, a, m);
+          b += __shfl_xor_sync(0xffffffffu, b, m);
+        }
+        if (lane < 4) {
+          red[warp * COP + j * 8 + 2 * lane + h] = a;
+          red[(kWarps + warp) * COP + j * 8 + 2 * lane + h] = b;
+        }
+      }
+  }
+  __syncthreads();
+  if (psum != nullptr && tid < COP && co0 + tid < Co) {
+    float a = 0.f, b = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      a += red[w * COP + tid];
+      b += red[(kWarps + w) * COP + tid];
+    }
+    const int tiles = gridDim.x * gridDim.y;
+    const size_t k = (static_cast<size_t>(n) * Co + co0 + tid) * tiles +
+                     blockIdx.y * gridDim.x + blockIdx.x;
+    psum[k] = a;
+    psq[k] = b;
+  }
+  constexpr int kPieces = TW / 8;
+  for (int i = tid; i < COP * TH * kPieces; i += kThreads) {
+    const int kc = i % kPieces, rest = i / kPieces;  // rest = co * TH + r
+    const int r = rest % TH, co = rest / TH;
+    const int y = y0 + r, xx = x0 + 8 * kc;
+    if (co0 + co < Co && y < H && xx < W) {
+      const size_t dst = ((static_cast<size_t>(n) * Co + co0 + co) * H + y) * W + xx;
+      *reinterpret_cast<uint4*>(out + dst) =
+          *reinterpret_cast<const uint4*>(ot + co * OP + r * TW + 8 * kc);
+    }
+  }
+}
+
 int pick_cop(int Co) {
   int cop = kCPT;
   while (cop < Co && cop < kCoMax) cop *= 2;
@@ -420,6 +687,48 @@ int launch_conv3(const Stream& st, const float* bias, void* out, float* psum, fl
       st, bias, static_cast<T*>(out), psum, psq, H, W, Co, co_blocks, co_pad, act);
   return static_cast<int>(cudaGetLastError());
 }
+
+template <int COP, int PRO>
+int launch_conv3_mma(const __nv_bfloat16* x, const __nv_bfloat16* wp, const float* A,
+                     const float* B, const float* bias, __nv_bfloat16* out, float* psum,
+                     float* psq, int N, int C, int H, int W, int Co, int co_pad, int act,
+                     cudaStream_t stream) {
+  using Cfg = MmaCfg<COP>;
+  const int co_blocks = co_pad / COP;
+  const dim3 grid((W + Cfg::TW - 1) / Cfg::TW, (H + Cfg::TH - 1) / Cfg::TH, N * co_blocks);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_mma_kernel<COP, PRO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Cfg::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv3x3_mma_kernel<COP, PRO><<<grid, kThreads, Cfg::kSmem, stream>>>(
+      x, wp, A, B, bias, out, psum, psq, C, mma_c_pad(C), H, W, Co, co_blocks, co_pad, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the prologue's activation as a template argument: no per-element branches
+template <int COP>
+int launch_conv3_mma(const __nv_bfloat16* x, const __nv_bfloat16* wp, const float* A,
+                     const float* B, int pro, const float* bias, __nv_bfloat16* out, float* psum,
+                     float* psq, int N, int C, int H, int W, int Co, int co_pad, int act,
+                     cudaStream_t s) {
+  switch (pro) {
+    case 0:
+      return launch_conv3_mma<COP, 0>(x, wp, A, B, bias, out, psum, psq, N, C, H, W, Co,
+                                      co_pad, act, s);
+    case 1:
+      return launch_conv3_mma<COP, 1>(x, wp, A, B, bias, out, psum, psq, N, C, H, W, Co,
+                                      co_pad, act, s);
+    case 2:
+      return launch_conv3_mma<COP, 2>(x, wp, A, B, bias, out, psum, psq, N, C, H, W, Co,
+                                      co_pad, act, s);
+    default:
+      return launch_conv3_mma<COP, -1>(x, wp, A, B, bias, out, psum, psq, N, C, H, W, Co,
+                                       co_pad, act, s);
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
 template <typename T, int COP>
 int launch_convt(const Streams& ss, const float* bias, void* out, float* psum, float* psq,
@@ -511,6 +820,49 @@ extern "C" int fmi_conv3x3_stats_bf16(const void* x, const void* w, const void* 
                               act, stream);
 }
 
+// Which K4b kernel takes a call: 1 the tensor-core kernel (bf16, W % 8 == 0,
+// x and out 16-byte aligned), 0 the CUDA-core kernel. By shape and
+// alignment only.
+extern "C" int fmi_conv3x3_route(int bf16, const void* x, const void* out, int W) {
+  return bf16 && W % 8 == 0 && aligned16(x) && aligned16(out) ? 1 : 0;
+}
+
+// K4b on the tensor cores, for the calls fmi_conv3x3_route sends there: as
+// fmi_conv3x3_stats_bf16, but w is bf16 [9][c_pad][co_pad] (tap ky * 3 + kx,
+// input channel, output channel; c_pad = fmi_decoder_conv_c_pad(C); zeros
+// past C and Co) and tiles is fmi_decoder_conv_tiles(2, H, W, Co).
+extern "C" int fmi_conv3x3_stats_bf16_mma(const void* x, const void* w, const void* A,
+                                          const void* B, const void* bias, void* out,
+                                          void* psum, void* psq, int N, int C, int H, int W,
+                                          int Co, int co_pad, int pro, int act, void* stream) {
+  if (bad_shape(N, H, W, Co) || C < 1 || pro > 2 || bad_act(act) ||
+      co_pad != (Co + pick_cop(Co) - 1) / pick_cop(Co) * pick_cop(Co) ||
+      !fmi_conv3x3_route(1, x, out, W) ||
+      !aligned16(w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using B16 = __nv_bfloat16;
+  const B16* xb = static_cast<const B16*>(x);
+  const B16* wb = static_cast<const B16*>(w);
+  const float* a = static_cast<const float*>(A);
+  const float* b = static_cast<const float*>(B);
+  const float* bs = static_cast<const float*>(bias);
+  B16* o = static_cast<B16*>(out);
+  float* s1 = static_cast<float*>(psum);
+  float* s2 = static_cast<float*>(psq);
+  const int p = pro < 0 ? -1 : pro;
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (pick_cop(Co)) {
+    case 8:
+      return launch_conv3_mma<8>(xb, wb, a, b, p, bs, o, s1, s2, N, C, H, W, Co, co_pad, act, cs);
+    case 16:
+      return launch_conv3_mma<16>(xb, wb, a, b, p, bs, o, s1, s2, N, C, H, W, Co, co_pad, act, cs);
+    case 32:
+      return launch_conv3_mma<32>(xb, wb, a, b, p, bs, o, s1, s2, N, C, H, W, Co, co_pad, act, cs);
+    default:
+      return launch_conv3_mma<64>(xb, wb, a, b, p, bs, o, s1, s2, N, C, H, W, Co, co_pad, act, cs);
+  }
+}
+
 // K4a. Streams 0 and 1 (count of them live): x_s [N, C_s, H, W], w_s
 // [C_s, 9, co_pad] f32 from torch's [C_s, Co, 3, 3], A_s, B_s and pro_s as
 // for K4b; bias [co_pad] f32, the streams' biases summed; out
@@ -543,15 +895,30 @@ extern "C" int fmi_decoder_conv_co_pad(int Co) {
   return (Co + cop - 1) / cop * cop;
 }
 
-// The number of tiles, i.e. the last dimension of psum and psq, of K4b
-// (transposed = 0) or K4a (transposed = 1) at H x W input and Co outputs.
-extern "C" int fmi_decoder_conv_tiles(int transposed, int H, int W, int Co) {
+// c_pad for C input channels: the C extent of the tensor-core K4b's packed
+// weights, C rounded up to its channel chunk (16).
+extern "C" int fmi_decoder_conv_c_pad(int C) { return mma_c_pad(C); }
+
+// The number of tiles, i.e. the last dimension of psum and psq, of K4b on
+// the CUDA cores (kind 0), K4a (kind 1) or K4b on the tensor cores (kind 2)
+// at H x W input and Co outputs.
+extern "C" int fmi_decoder_conv_tiles(int kind, int H, int W, int Co) {
+  if (kind == 2) {
+    int th = 0;
+    switch (pick_cop(Co)) {
+      case 8: th = MmaCfg<8>::TH; break;
+      case 16: th = MmaCfg<16>::TH; break;
+      case 32: th = MmaCfg<32>::TH; break;
+      default: th = MmaCfg<64>::TH; break;
+    }
+    return ((W + MmaCfg<64>::TW - 1) / MmaCfg<64>::TW) * ((H + th - 1) / th);
+  }
   int th = 0;
   switch (pick_cop(Co)) {
-    case 8: th = transposed ? ConvTCfg<8>::TIH : Conv3Cfg<8>::TH; break;
-    case 16: th = transposed ? ConvTCfg<16>::TIH : Conv3Cfg<16>::TH; break;
-    case 32: th = transposed ? ConvTCfg<32>::TIH : Conv3Cfg<32>::TH; break;
-    default: th = transposed ? ConvTCfg<64>::TIH : Conv3Cfg<64>::TH; break;
+    case 8: th = kind ? ConvTCfg<8>::TIH : Conv3Cfg<8>::TH; break;
+    case 16: th = kind ? ConvTCfg<16>::TIH : Conv3Cfg<16>::TH; break;
+    case 32: th = kind ? ConvTCfg<32>::TIH : Conv3Cfg<32>::TH; break;
+    default: th = kind ? ConvTCfg<64>::TIH : Conv3Cfg<64>::TH; break;
   }
   return ((W + kTX - 1) / kTX) * ((H + th - 1) / th);
 }

@@ -12,33 +12,54 @@
 //     dS[r, c] = P[r, c] * (dO_r . v_c - D_r)
 //     dq_r     = sum_c (dS[r, c] + dS[c, r]) q_c         (query and key role)
 //     dv_r     = sum_c P[c, r] dO_c
-// S is symmetric (q == k), so both roles of a pair are read from one score
-// tile: P[c, r] = exp2(log2(e) * S[r, c] - lse_c). Each block owns a tile of
-// rows and sweeps all column tiles; dq's two roles are summed in f32 in
-// registers and rounded once, so no atomics and no second pass are needed and
-// the result is deterministic. P and the summed dS are rounded to the input
-// type before their products, with f32 accumulation, as the TPU kernels round
-// them.
+// S is symmetric (q == k), so P[c, r] = exp2(log2(e) * S[r, c] - lse_c)
+// comes from the same scores.
 //
-// What bounds it on an H100: at the flagship (N = 16, L = 16384, d = 64,
-// C = 256, bf16) the function needs 2 N L^2 (1.5 d + 2 C) ~ 5.2 TFLOP against
-// ~0.65 GB of inputs and outputs, so it is compute-bound: the products must
-// run on the tensor cores and the [L, L] maps must stay on chip.
+// What bounds it on an H100: at config 5 (N = 16, L = 16384, d = 64,
+// C = 256, bf16) the function needs 2 N L^2 (1.5 d + 2 C) ~ 5.2 TFLOP (one
+// score tile per unordered pair) against ~0.65 GB of inputs and outputs, so
+// it is compute-bound: the products must run on the tensor cores and the
+// [L, L] maps must stay on chip.
 //
-// Design (simple first; the triangular sweep, wgmma and TMA are later work):
-// two kernels per call, each a variant of K1's loop.
-// - dq: one block per (64-row tile, sample) holds q_r, dO_r and v_r in shared
-//   memory and, per 64-column tile, computes S, both dP tiles (dO_r v_c^T and
-//   v_r dO_c^T, contracted over all C), the summed dS, and dq += dS q_c.
-// - dv: one block per (64-row tile, 128-channel chunk, sample) computes S and
-//   P[c, r] per column tile and dv += P^T dO_c, K1's loop with a fixed lse.
-// bf16 with d in {32, 64, 128} and C % 8 == 0 takes mma.sync m16n8k16
-// (bf16 in, f32 accumulate) with cp.async loads; everything else (f32, other
-// d or C) runs on the CUDA cores in f32. Ragged L is masked: columns past L
-// have P = 0, rows past L are not stored.
+// Tensor-core route (bf16, d in {32, 64}, C <= 256 with C % 8 == 0, 16-byte
+// aligned tensors; mma.sync m16n8k16, bf16 in, f32 accumulate), column-owned
+// as FlashAttention-2's backward: one block of 8 warps per (64-key tile c,
+// sample) holds q_c and v_c (their A fragments in registers) and sweeps the
+// 64-row tiles r through a 3-stage cp.async ring. Per tile pair:
+//     S^T = q_c q_r^T, P^T = exp2(S2 - lse_r), dv_c += P^T dO_r,
+//     dP^T = v_c dO_r^T, dS^T = P^T (dP^T - D_r),
+//     key role dq_c += dS^T q_r, query role dq_r += dS q_c,
+// 704 multiply-adds per ordered pair (the previous design, a row-owned dq
+// kernel reading both dP tiles plus a dv kernel, did 1,024). P^T and dS^T
+// pass through shared memory (double-buffered) between the warps that make
+// them (16 keys x 32 rows each) and those that use them (dv: 32 keys x 64
+// channels; the two dq roles: 16 x d/2 each), with one barrier per tile
+// pair. The query role of a row gathers over all key tiles, so it is added
+// to an f32 [N, L, d] scratch with atomics, as is the key role at the end;
+// a last pass rounds the scratch to dq once. Atomics make dq's f32 sums
+// land in a run-dependent order: the result is not bit-deterministic (dv
+// is). P and each dS[r, c] are rounded to bf16 before their products, dS
+// for either role on its own, as the TPU's `_backward` (K5c) rounds them;
+// `_backward_sym` and the plain version round the summed dS[r, c] +
+// dS[c, r] once instead (within the tolerance the checks hold it to).
+//
+// CUDA-core route (f32, other d or C), unchanged: two kernels, each a
+// variant of K1's loop. dq: one block per (64-row tile, sample) sweeps the
+// column tiles computing S, both dP tiles (dO_r v_c^T and v_r dO_c^T over
+// all C), the summed dS (rounded once to the input type) and dq += dS q_c,
+// both roles in registers, deterministic. dv: one block per (64-row tile,
+// 128-channel chunk, sample) computes P[c, r] per column tile and
+// dv += P^T dO_c.
+//
+// Ragged L is masked on both routes: keys or rows past L have P = 0, and
+// rows past L are not stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -49,7 +70,6 @@ constexpr int kCK = 32;            // dP channels per chunk (CUDA-core dq)
 constexpr int kPStride = kBC + 4;  // padded rows of the P / dS tile
 constexpr int kThreads = 256;
 constexpr int kDMax = 128;
-constexpr int kMaxSmem = 232448;   // bytes of shared memory a block may use
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -351,385 +371,323 @@ int launch(const void* q, const void* v, const void* dout, const void* lse,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path for bf16 (d in {32, 64, 128}, C % 8 == 0, 16-byte aligned
-// rows). Four warps per block; each owns 16 of the 64 rows. Fragments follow
-// K1's mma.sync m16n8k16 layout; shared-memory rows are padded by 16 bytes so
-// ldmatrix reads are free of bank conflicts.
+// Tensor-core path for bf16 (d in {32, 64}, C <= 256 with C % 8 == 0, 16-byte
+// aligned rows): column-owned, see the header. 256 threads, one block per
+// (64-key tile, sample); fragments as csrc/mma.cuh lays them out.
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;
+constexpr int kColThreads = 256;
+constexpr int kColCMax = 256;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&p);
-}
-
-// rows [row0, row0 + kBR) of a [L, width] bf16 matrix into smem rows of
-// `stride` elements, channels padded to `wpad` (a multiple of 16); rows past L
-// and channels past `width` are zero-filled from a clamped, valid address
+// rows [row0, row0 + 64) of a [L, width] bf16 matrix into smem rows of
+// `stride` elements, channels padded to `wpad` (a multiple of 8); rows past L
+// and channels past `width` are zero-filled from a valid address
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int L, int width, int wpad,
-                                          int stride, int tid) {
+                                          int row0, int L, int width, int wpad, int stride,
+                                          int tid) {
   const int per_row = wpad / 8;
-  for (int i = tid; i < kBR * per_row; i += kMmaThreads) {
+  for (int i = tid; i < kBR * per_row; i += kColThreads) {
     const int r = i / per_row, c = (i % per_row) * 8, row = row0 + r;
     const bool ok = row < L && c < width;
-    cp_async16(&dst[r * stride + c], src + (size_t)min(row, L - 1) * width + (ok ? c : 0),
-               ok ? 16 : 0);
+    fmi_mma::cp_async16(&dst[r * stride + c], ok ? src + (size_t)row * width + c : src,
+                        ok ? 16 : 0);
   }
 }
 
-template <int D>
-struct DqPlan {
-  static constexpr int kQS = D + 8;  // padded row stride of q tiles, in bf16
-  static size_t smem(int cs) {
-    return sizeof(__nv_bfloat16) * (size_t)(2 * kBR * kQS + 4 * kBR * cs) +
-           sizeof(float) * 2 * kBC;
-  }
+template <int D, int NCW>
+struct ColPlan {
+  static constexpr int kStages = 3;       // ring of swept row tiles
+  static constexpr int kCpad = 64 * NCW;  // value channels, padded
+  static constexpr int kQS = D + 8;       // row stride of the q tiles (bf16)
+  static constexpr int kCS = kCpad + 8;   // row stride of the v and dO tiles
+  static constexpr int kPS = kBR + 8;     // row stride of P^T and dS^T
+  // q_c, v_c, q_r[3], dO_r[3], P^T[2], dS^T[2] in bf16; lse_r[3], D_r[3] in f32
+  static constexpr size_t kSmem =
+      sizeof(__nv_bfloat16) * ((size_t)kBC * kQS + kBC * kCS + kStages * kBR * (kQS + kCS) +
+                               4 * kBC * kPS) +
+      sizeof(float) * 2 * kStages * kBR;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ dsum,
-                        __nv_bfloat16* __restrict__ dq, int L, int C, int cpad) {
-  constexpr int QS = DqPlan<D>::kQS;
-  const int cs = cpad + 8;  // padded row stride of the value tiles
+template <int D, int NCW>
+__global__ void __launch_bounds__(kColThreads, 1)
+flash_bwd_col_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ dsum, float* __restrict__ dq_acc,
+                     __nv_bfloat16* __restrict__ dv, int L, int C) {
+  using namespace fmi_mma;
+  using P = ColPlan<D, NCW>;
+  constexpr int QS = P::kQS, CS = P::kCS, PS = P::kPS, CP = P::kCpad, NS = P::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qr = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBR][QS]
-  __nv_bfloat16* qc = qr + kBR * QS;                                // [kBC][QS]
-  __nv_bfloat16* dor = qc + kBC * QS;                               // [kBR][cs]
-  __nv_bfloat16* vr = dor + kBR * cs;                               // [kBR][cs]
-  __nv_bfloat16* vc = vr + kBR * cs;                                // [kBC][cs]
-  __nv_bfloat16* doc = vc + kBC * cs;                               // [kBC][cs]
-  float* lsec = reinterpret_cast<float*>(doc + kBC * cs);           // [kBC]
-  float* dcol = lsec + kBC;                                         // [kBC]
+  __nv_bfloat16* qc = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBC][QS] the block's keys
+  __nv_bfloat16* vc = qc + kBC * QS;                                // [kBC][CS]
+  __nv_bfloat16* qr = vc + kBC * CS;                                // [NS][kBR][QS] swept rows
+  __nv_bfloat16* dor = qr + NS * kBR * QS;                          // [NS][kBR][CS]
+  __nv_bfloat16* pts = dor + NS * kBR * CS;                         // [2][kBC][PS] P^T
+  __nv_bfloat16* dsts = pts + 2 * kBC * PS;                         // [2][kBC][PS] dS^T
+  float* lr = reinterpret_cast<float*>(dsts + 2 * kBC * PS);        // [NS][kBR] lse of the rows
+  float* dr = lr + NS * kBR;                                        // [NS][kBR] D of the rows
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;    // mma fragment row group / column pair
-  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix: which 8x8 matrix, which row
-  const int r0 = blockIdx.x * kBR, n = blockIdx.y;
+  const int g = lane >> 2, t = lane & 3, lm = lane >> 3, li = lane & 7;
+  const int c0 = blockIdx.x * kBC, n = blockIdx.y;
+  // warp roles: S^T, dP^T and dS^T on keys kw*16.. x rows rh*32..; dv on
+  // keys dk*32.. x channels dc*16*NCW..; the query role on rows qm*16.. and
+  // the key role on keys qm*16.., each x head columns qh*D/2..
+  const int kw = warp & 3, rh = warp >> 2;
+  const int dk = warp & 1, dc = warp >> 1;
+  const int qm = warp & 3, qh = warp >> 2;
   const __nv_bfloat16* qn = q + (size_t)n * L * D;
   const __nv_bfloat16* vn = v + (size_t)n * L * C;
   const __nv_bfloat16* don = dout + (size_t)n * L * C;
   const float* lsen = lse + (size_t)n * L;
   const float* dn = dsum + (size_t)n * L;
 
-  load_rows(qr, qn, r0, L, D, D, QS, tid);
-  load_rows(dor, don, r0, L, C, cpad, cs, tid);
-  load_rows(vr, vn, r0, L, C, cpad, cs, tid);
-  cp_async_commit();
-  float lse_r[2], d_r[2];  // rows g and g + 8 of this warp
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + warp * 16 + g + 8 * h;
-    lse_r[h] = row < L ? lsen[row] : 0.f;
-    d_r[h] = row < L ? dn[row] : 0.f;
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  unsigned qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], &qr[(warp * 16 + (lm & 1) * 8 + lr) * QS + kk * 16 + (lm >> 1) * 8]);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int n_tiles = (L + kBC - 1) / kBC;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int c0 = tile * kBC;
-    load_rows(qc, qn, c0, L, D, D, QS, tid);
-    load_rows(vc, vn, c0, L, C, cpad, cs, tid);
-    load_rows(doc, don, c0, L, C, cpad, cs, tid);
-    cp_async_commit();
-    if (tid < kBC) {
-      lsec[tid] = c0 + tid < L ? lsen[c0 + tid] : 0.f;
-      dcol[tid] = c0 + tid < L ? dn[c0 + tid] : 0.f;
+  load_rows(qc, qn, c0, L, D, D, QS, tid);
+  load_rows(vc, vn, c0, L, C, CP, CS, tid);
+  auto load_tile = [&](int it, int buf) {
+    const int r0 = it * kBR;
+    load_rows(qr + buf * kBR * QS, qn, r0, L, D, D, QS, tid);
+    load_rows(dor + buf * kBR * CS, don, r0, L, C, CP, CS, tid);
+    if (tid < 2 * kBR) {
+      const int i = tid % kBR, row = r0 + i;
+      const bool ok = row < L;
+      cp_async4((tid < kBR ? lr : dr) + buf * kBR + i, (tid < kBR ? lsen : dn) + (ok ? row : 0),
+                ok ? 4 : 0);
     }
-    cp_async_wait_all();
-    __syncthreads();
-
-    float s[kBC / 8][4], p1[kBC / 8][4], p2[kBC / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBC / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = p1[j][e] = p2[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int jp = 0; jp < kBC / 16; ++jp) {
-        unsigned b[4];
-        ldmatrix_x4(b, &qc[(jp * 16 + (lm >> 1) * 8 + lr) * QS + kk * 16 + (lm & 1) * 8]);
-        mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
-      }
-    }
-    // dP[r, c] = dO_r . v_c and dP[c, r] = v_r . dO_c, over all channels
-    for (int kk = 0; kk < cpad / 16; ++kk) {
-      unsigned a[4];
-      const int arow = (warp * 16 + (lm & 1) * 8 + lr) * cs + kk * 16 + (lm >> 1) * 8;
-      ldmatrix_x4(a, &dor[arow]);
-#pragma unroll
-      for (int jp = 0; jp < kBC / 16; ++jp) {
-        unsigned b[4];
-        ldmatrix_x4(b, &vc[(jp * 16 + (lm >> 1) * 8 + lr) * cs + kk * 16 + (lm & 1) * 8]);
-        mma_bf16(p1[2 * jp], a, b[0], b[1]);
-        mma_bf16(p1[2 * jp + 1], a, b[2], b[3]);
-      }
-      ldmatrix_x4(a, &vr[arow]);
-#pragma unroll
-      for (int jp = 0; jp < kBC / 16; ++jp) {
-        unsigned b[4];
-        ldmatrix_x4(b, &doc[(jp * 16 + (lm >> 1) * 8 + lr) * cs + kk * 16 + (lm & 1) * 8]);
-        mma_bf16(p2[2 * jp], a, b[0], b[1]);
-        mma_bf16(p2[2 * jp + 1], a, b[2], b[3]);
-      }
-    }
-
-    // summed dS of both roles, in f32 (held in s)
-#pragma unroll
-    for (int j = 0; j < kBC / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1), h = e >> 1;
-        float m = 0.f;
-        if (c0 + col < L) {
-          const float s2 = s[j][e] * kLog2e;
-          m = exp2f(s2 - lse_r[h]) * (p1[j][e] - d_r[h]) +
-              exp2f(s2 - lsec[col]) * (p2[j][e] - dcol[col]);
-        }
-        s[j][e] = m;
-      }
-    // dq += dS q_c, dS rounded to bf16 as the A operand
-#pragma unroll
-    for (int kk = 0; kk < kBC / 16; ++kk) {
-      const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b, &qc[(kk * 16 + (lm & 1) * 8 + lr) * QS + np * 16 +
-                                 (lm >> 1) * 8]);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the next tile overwrites qc, vc, doc, lsec and dcol
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + warp * 16 + g + 8 * h;
-    if (row >= L) continue;
-    __nv_bfloat16* orow = dq + ((size_t)n * L + row) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(&orow[j * 8 + 2 * t]) =
-          __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
-  }
-}
-
-template <int D>
-struct DvPlan {
-  static constexpr int kQS = D + 8;
-  static constexpr int kOS = kCC + 8;
-  static constexpr size_t kSmem =
-      sizeof(__nv_bfloat16) * (size_t)(kBR * kQS + 2 * kBC * kQS + 2 * kBC * kOS) +
-      sizeof(float) * 2 * kBC;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse, __nv_bfloat16* __restrict__ dv,
-                        int L, int C) {
-  using P = DvPlan<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBR][kQS]
-  __nv_bfloat16* ks = qs + kBR * P::kQS;                           // [2][kBC][kQS]
-  __nv_bfloat16* os = ks + 2 * kBC * P::kQS;                       // [2][kBC][kOS]
-  float* lsec = reinterpret_cast<float*>(os + 2 * kBC * P::kOS);   // [2][kBC]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lm = lane >> 3, lr = lane & 7;
-  const int r0 = blockIdx.x * kBR;
-  const int ch0 = blockIdx.y * kCC;
-  const int cw = min(kCC, C - ch0);  // a multiple of 8
-  const int n = blockIdx.z;
-  const __nv_bfloat16* qn = q + (size_t)n * L * D;
-  const __nv_bfloat16* don = dout + (size_t)n * L * C;
-  const float* lsen = lse + (size_t)n * L;
-
-  load_rows(qs, qn, r0, L, D, D, P::kQS, tid);
-  auto load_tile = [&](int tile, int buf) {
-    const int c0 = tile * kBC;
-    load_rows(ks + buf * kBC * P::kQS, qn, c0, L, D, D, P::kQS, tid);
-    __nv_bfloat16* ob = os + buf * kBC * P::kOS;
-    for (int i = tid; i < kBC * kCC / 8; i += kMmaThreads) {
-      const int r = i / (kCC / 8), c = (i % (kCC / 8)) * 8, key = c0 + r;
-      const bool ok = key < L && c < cw;  // masked keys and channels read as 0
-      cp_async16(&ob[r * P::kOS + c], don + (size_t)min(key, L - 1) * C + ch0 + (ok ? c : 0),
-                 ok ? 16 : 0);
-    }
-    // the buffer written here was last read before the previous iteration's
-    // closing barrier
-    if (tid < kBC) lsec[buf * kBC + tid] = c0 + tid < L ? lsen[c0 + tid] : 0.f;
   };
+  const int n_tiles = (L + kBR - 1) / kBR;
   load_tile(0, 0);
   cp_async_commit();
+  if (n_tiles > 1) load_tile(1, 1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
 
-  unsigned qf[D / 16][4];
-  float acc[kCC / 8][4];
+  // the block's keys never change: their A fragments stay in registers
+  unsigned qf[D / 16][4];        // q_c, rows kw*16..
+  unsigned vf[CP / 16][4];       // v_c, rows kw*16..
 #pragma unroll
-  for (int j = 0; j < kCC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(qf[kk], &qc[(kw * 16 + (lm & 1) * 8 + li) * QS + kk * 16 + (lm >> 1) * 8]);
+#pragma unroll
+  for (int kk = 0; kk < CP / 16; ++kk)
+    ldmatrix_x4(vf[kk], &vc[(kw * 16 + (lm & 1) * 8 + li) * CS + kk * 16 + (lm >> 1) * 8]);
+  float dva[2][2 * NCW][4];      // dv of keys dk*32.. x channels dc*16*NCW..
+  float dqc[D / 16][4];          // key role of keys qm*16.. x head columns qh*D/2..
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2 * NCW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dva[mt][j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) dqc[j][0] = dqc[j][1] = dqc[j][2] = dqc[j][3] = 0.f;
 
-  const int n_tiles = (L + kBC - 1) / kBC;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < n_tiles) load_tile(tile + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();  // everything but the tile just requested has landed
-    __syncthreads();
-    if (tile == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], &qs[(warp * 16 + (lm & 1) * 8 + lr) * P::kQS + kk * 16 +
-                                (lm >> 1) * 8]);
-    }
-    const __nv_bfloat16* kb = ks + buf * kBC * P::kQS;
-    const __nv_bfloat16* ob = os + buf * kBC * P::kOS;
-    const float* lb = lsec + buf * kBC;
+  // One barrier an iteration: phase A (S, P, dP, dS) reads row tile it and
+  // writes P^T and dS^T buffer it & 1; the barrier publishes them and row
+  // tile it + 1; phase B (dv, both roles of dq) reads them while row tile
+  // it + 2 streams into the ring slot row tile it - 1 left.
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it % NS, r0 = it * kBR;
+    __nv_bfloat16* pt = pts + (it & 1) * kBC * PS;
+    __nv_bfloat16* dst = dsts + (it & 1) * kBC * PS;
+    const __nv_bfloat16* qb = qr + buf * kBR * QS;
+    const __nv_bfloat16* ob = dor + buf * kBR * CS;
+    const float* lb = lr + buf * kBR;
+    const float* db = dr + buf * kBR;
 
-    float s[kBC / 8][4];
+    // S^T = q_c q_r^T (16 keys x 32 rows), then P^T[c, r] = exp2(S2 - lse_r)
+    float s[4][4];
 #pragma unroll
-    for (int j = 0; j < kBC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-      for (int jp = 0; jp < kBC / 16; ++jp) {
+      for (int jp = 0; jp < 2; ++jp) {
         unsigned b[4];
-        ldmatrix_x4(b, &kb[(jp * 16 + (lm >> 1) * 8 + lr) * P::kQS + kk * 16 + (lm & 1) * 8]);
+        ldmatrix_x4(b, &qb[(rh * 32 + jp * 16 + (lm >> 1) * 8 + li) * QS + kk * 16 + (lm & 1) * 8]);
         mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
         mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
       }
-    }
-    const int c0 = tile * kBC;
+    // dP^T = v_c dO_r^T over all channels (placed before the exp2 below,
+    // which waits on the S products)
+    float dp[4][4];
 #pragma unroll
-    for (int j = 0; j < kBC / 8; ++j)
+    for (int j = 0; j < 4; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < CP / 16; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        unsigned b[4];
+        ldmatrix_x4(b, &ob[(rh * 32 + jp * 16 + (lm >> 1) * 8 + li) * CS + kk * 16 + (lm & 1) * 8]);
+        mma_bf16(dp[2 * jp], vf[kk], b[0], b[1]);
+        mma_bf16(dp[2 * jp + 1], vf[kk], b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        s[j][e] = c0 + col < L ? exp2f(fmaf(s[j][e], kLog2e, -lb[col])) : 0.f;
+        const int key = c0 + kw * 16 + g + 8 * (e >> 1);
+        const int col = rh * 32 + j * 8 + 2 * t + (e & 1);
+        s[j][e] = key < L && r0 + col < L ? exp2f(fmaf(s[j][e], kLog2e, -lb[col])) : 0.f;
       }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<unsigned*>(&pt[(kw * 16 + g + 8 * h) * PS + rh * 32 + j * 8 + 2 * t]) =
+            pack_bf16(s[j][2 * h], s[j][2 * h + 1]);
+    // dS^T = P^T (dP^T - D_r) in f32, then rounded to bf16 for both roles
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - db[rh * 32 + j * 8 + 2 * t + (e & 1)];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<unsigned*>(&dst[(kw * 16 + g + 8 * h) * PS + rh * 32 + j * 8 + 2 * t]) =
+            pack_bf16(s[j][2 * h], s[j][2 * h + 1]);
+    cp_async_wait<0>();  // row tile it + 1, the only copies in flight
+    __syncthreads();
+    if (it + 2 < n_tiles) load_tile(it + 2, (it + 2) % NS);
+    cp_async_commit();
+
+    // dv_c += P^T dO_r
+#pragma unroll
+    for (int kk = 0; kk < kBR / 16; ++kk) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4(a[mt], &pt[(dk * 32 + mt * 16 + (lm & 1) * 8 + li) * PS + kk * 16 +
+                               (lm >> 1) * 8]);
+#pragma unroll
+      for (int np = 0; np < NCW; ++np) {
+        unsigned b[4];
+        ldmatrix_x4_trans(b, &ob[(kk * 16 + (lm & 1) * 8 + li) * CS + dc * 16 * NCW + np * 16 +
+                                 (lm >> 1) * 8]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(dva[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16(dva[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+    // key role: dq_c += dS^T q_r
+#pragma unroll
+    for (int kk = 0; kk < kBR / 16; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, &dst[(qm * 16 + (lm & 1) * 8 + li) * PS + kk * 16 + (lm >> 1) * 8]);
+#pragma unroll
+      for (int np = 0; np < D / 32; ++np) {
+        unsigned b[4];
+        ldmatrix_x4_trans(b, &qb[(kk * 16 + (lm & 1) * 8 + li) * QS + qh * (D / 2) + np * 16 +
+                                 (lm >> 1) * 8]);
+        mma_bf16(dqc[2 * np], a, b[0], b[1]);
+        mma_bf16(dqc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    // query role: dq_r += dS q_c, added to the f32 accumulator
+    float dqr[D / 16][4];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) dqr[j][0] = dqr[j][1] = dqr[j][2] = dqr[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kBC / 16; ++kk) {
-      const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      unsigned a[4];
+      ldmatrix_x4_trans(a, &dst[(kk * 16 + (lm >> 1) * 8 + li) * PS + qm * 16 + (lm & 1) * 8]);
 #pragma unroll
-      for (int np = 0; np < kCC / 16; ++np) {
+      for (int np = 0; np < D / 32; ++np) {
         unsigned b[4];
-        ldmatrix_x4_trans(b, &ob[(kk * 16 + (lm & 1) * 8 + lr) * P::kOS + np * 16 +
+        ldmatrix_x4_trans(b, &qc[(kk * 16 + (lm & 1) * 8 + li) * QS + qh * (D / 2) + np * 16 +
                                  (lm >> 1) * 8]);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        mma_bf16(dqr[2 * np], a, b[0], b[1]);
+        mma_bf16(dqr[2 * np + 1], a, b[2], b[3]);
       }
     }
-    __syncthreads();  // the next iteration refills the buffer read here
-  }
-
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + warp * 16 + g + 8 * h;
-    if (row >= L) continue;
-    __nv_bfloat16* orow = dv + ((size_t)n * L + row) * C + ch0;
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + qm * 16 + g + 8 * h;
+      if (row >= L) continue;
+      float* dst_row = dq_acc + ((size_t)n * L + row) * D + qh * (D / 2);
 #pragma unroll
-    for (int j = 0; j < kCC / 8; ++j) {
-      const int ch = j * 8 + 2 * t;
-      if (ch < cw)
-        *reinterpret_cast<__nv_bfloat162*>(&orow[ch]) =
-            __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+      for (int j = 0; j < D / 16; ++j)
+        atomicAdd(reinterpret_cast<float2*>(dst_row + j * 8 + 2 * t),
+                  make_float2(dqr[j][2 * h], dqr[j][2 * h + 1]));
     }
   }
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = c0 + dk * 32 + mt * 16 + g + 8 * h;
+      if (key >= L) continue;
+      __nv_bfloat16* orow = dv + ((size_t)n * L + key) * C;
+#pragma unroll
+      for (int j = 0; j < 2 * NCW; ++j) {
+        const int ch = dc * 16 * NCW + j * 8 + 2 * t;
+        if (ch < C)
+          *reinterpret_cast<__nv_bfloat162*>(&orow[ch]) =
+              __floats2bfloat162_rn(dva[mt][j][2 * h], dva[mt][j][2 * h + 1]);
+      }
+    }
+  // the key role goes to the accumulator as well
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = c0 + qm * 16 + g + 8 * h;
+    if (key >= L) continue;
+    float* dst_row = dq_acc + ((size_t)n * L + key) * D + qh * (D / 2);
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      atomicAdd(reinterpret_cast<float2*>(dst_row + j * 8 + 2 * t),
+                make_float2(dqc[j][2 * h], dqc[j][2 * h + 1]));
+  }
 }
 
-template <int D>
-bool mma_fits(int C) {
-  const int cpad = (C + 15) / 16 * 16;
-  return DqPlan<D>::smem(cpad + 8) <= (size_t)kMaxSmem;
+// dq = the f32 accumulator rounded once to bf16 (pairs; the count is even)
+__global__ void dq_round_kernel(const float2* __restrict__ acc, __nv_bfloat162* __restrict__ dq,
+                                size_t pairs) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < pairs;
+       i += (size_t)gridDim.x * blockDim.x)
+    dq[i] = __floats2bfloat162_rn(acc[i].x, acc[i].y);
 }
 
-template <int D>
-int launch_mma(const void* q, const void* v, const void* dout, const void* lse,
-               const void* dsum, void* dq, void* dv, int N, int L, int C,
+template <int D, int NCW>
+int launch_col(const void* q, const void* v, const void* dout, const void* lse,
+               const void* dsum, void* dq, void* dv, void* work, int N, int L, int C,
                cudaStream_t stream) {
-  const int cpad = (C + 15) / 16 * 16;
-  const size_t smem_dq = DqPlan<D>::smem(cpad + 8);
-  const size_t smem_dv = DvPlan<D>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_dq));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dv_mma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_dv));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (L + kBR - 1) / kBR;
   using B = __nv_bfloat16;
-  flash_bwd_dq_mma_kernel<D><<<dim3(tiles, N), kMmaThreads, smem_dq, stream>>>(
+  const size_t count = (size_t)N * L * D;
+  cudaError_t err = cudaMemsetAsync(work, 0, count * sizeof(float), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr size_t smem = ColPlan<D, NCW>::kSmem;
+  err = cudaFuncSetAttribute(flash_bwd_col_kernel<D, NCW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_col_kernel<D, NCW><<<dim3((L + kBC - 1) / kBC, N), kColThreads, smem, stream>>>(
       static_cast<const B*>(q), static_cast<const B*>(v), static_cast<const B*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<B*>(dq),
-      L, C, cpad);
+      static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      static_cast<float*>(work), static_cast<B*>(dv), L, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dv_mma_kernel<D><<<dim3(tiles, (C + kCC - 1) / kCC, N), kMmaThreads, smem_dv,
-                               stream>>>(
-      static_cast<const B*>(q), static_cast<const B*>(dout), static_cast<const float*>(lse),
-      static_cast<B*>(dv), L, C);
+  const size_t pairs = count / 2;
+  const int blocks = static_cast<int>(std::min<size_t>((pairs + 255) / 256, 4096));
+  dq_round_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float2*>(work),
+                                              static_cast<__nv_bfloat162*>(dq), pairs);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_col_d(const void* q, const void* v, const void* dout, const void* lse,
+                 const void* dsum, void* dq, void* dv, void* work, int N, int L, int C,
+                 cudaStream_t s) {
+  switch ((C + 63) / 64) {
+    case 1: return launch_col<D, 1>(q, v, dout, lse, dsum, dq, dv, work, N, L, C, s);
+    case 2: return launch_col<D, 2>(q, v, dout, lse, dsum, dq, dv, work, N, L, C, s);
+    case 3: return launch_col<D, 3>(q, v, dout, lse, dsum, dq, dv, work, N, L, C, s);
+    default: return launch_col<D, 4>(q, v, dout, lse, dsum, dq, dv, work, N, L, C, s);
+  }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
@@ -740,9 +698,21 @@ bool shape_ok(int N, int L, int d, int C) {
 
 }  // namespace
 
+// Which K5 kernels take a bf16 call: 1 the tensor-core kernel (d in {32, 64},
+// C <= 256 with C % 8 == 0, 16-byte aligned tensors), 0 the CUDA-core
+// kernels. By shape and alignment only; f32 always takes the CUDA cores.
+extern "C" int fmi_flash_attention_bwd_route(int bf16, const void* q, const void* v,
+                                             const void* dout, const void* dq, const void* dv,
+                                             int d, int C) {
+  return bf16 && (d == 32 || d == 64) && C % 8 == 0 && C <= kColCMax && aligned16(q) &&
+                 aligned16(v) && aligned16(dout) && aligned16(dq) && aligned16(dv)
+             ? 1
+             : 0;
+}
+
 // q [N, L, d], v and dout [N, L, C], lse and dsum [N, L] f32, dq [N, L, d]
 // and dv [N, L, C] outputs (contiguous; q, v, dout, dq, dv of one type).
-// Returns a cudaError_t code; 0 means both kernels launched.
+// Returns a cudaError_t code; 0 means the kernels launched.
 extern "C" int fmi_flash_attention_bwd_f32(const void* q, const void* v, const void* dout,
                                            const void* lse, const void* dsum, void* dq,
                                            void* dv, int N, int L, int d, int C,
@@ -752,21 +722,17 @@ extern "C" int fmi_flash_attention_bwd_f32(const void* q, const void* v, const v
                        static_cast<cudaStream_t>(stream));
 }
 
-// bf16 takes the tensor-core path where its shape, alignment and shared
-// memory allow (the flagship always does), and the CUDA-core path otherwise.
+// bf16: the route above decides. The tensor-core route needs `work`, an f32
+// [N, L, d] scratch for dq (zeroed here); the CUDA-core route ignores it.
 extern "C" int fmi_flash_attention_bwd_bf16(const void* q, const void* v, const void* dout,
                                             const void* lse, const void* dsum, void* dq,
-                                            void* dv, int N, int L, int d, int C,
+                                            void* dv, void* work, int N, int L, int d, int C,
                                             void* stream) {
   if (!shape_ok(N, L, d, C)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool mma = C % 8 == 0 && aligned16(q) && aligned16(v) && aligned16(dout) &&
-                   aligned16(dq) && aligned16(dv);
-  if (mma && d == 64 && mma_fits<64>(C))
-    return launch_mma<64>(q, v, dout, lse, dsum, dq, dv, N, L, C, s);
-  if (mma && d == 32 && mma_fits<32>(C))
-    return launch_mma<32>(q, v, dout, lse, dsum, dq, dv, N, L, C, s);
-  if (mma && d == 128 && mma_fits<128>(C))
-    return launch_mma<128>(q, v, dout, lse, dsum, dq, dv, N, L, C, s);
-  return launch<__nv_bfloat16>(q, v, dout, lse, dsum, dq, dv, N, L, d, C, s);
+  if (!fmi_flash_attention_bwd_route(1, q, v, dout, dq, dv, d, C))
+    return launch<__nv_bfloat16>(q, v, dout, lse, dsum, dq, dv, N, L, d, C, s);
+  if (work == nullptr || !aligned16(work)) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 64) return launch_col_d<64>(q, v, dout, lse, dsum, dq, dv, work, N, L, C, s);
+  return launch_col_d<32>(q, v, dout, lse, dsum, dq, dv, work, N, L, C, s);
 }

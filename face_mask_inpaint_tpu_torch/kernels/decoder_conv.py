@@ -19,6 +19,12 @@ value; the optional ``act`` and one rounding to the input dtype follow
 (packed_convt.py:114-130, :214-217, :394-441). Activations: LeakyReLU(0.1)
 and ReLU.
 
+K4b has two CUDA kernels, chosen by the C side by shape and alignment only
+(``conv3x3_route``): bf16 maps with W % 8 == 0 run on the tensor cores, with
+the weights packed once per call as bf16 [9, c_pad, co_pad]; everything else
+(float32, other widths) on the CUDA cores with f32 [C, 9, co_pad] weights, as
+K4a always does.
+
 Weights are the port's own: ``Conv2d`` [Co, Ci, 3, 3] and ``ConvTranspose2d``
 torch's [Ci, Co, 3, 3] (nn/layers.py). Each wrapper launches its kernel for
 CUDA tensors and raises on what it cannot take; for CPU tensors it runs its
@@ -41,8 +47,8 @@ import torch.nn.functional as F
 from face_mask_inpaint_tpu_torch.kernels import build
 from face_mask_inpaint_tpu_torch.kernels.output_head import _no_grad_needed
 
-__all__ = ["conv3x3_stats", "conv3x3_stats_plain", "convt_pair", "convt_pair_plain",
-           "instance_affine_from_stats", "ACTS"]
+__all__ = ["conv3x3_stats", "conv3x3_stats_plain", "conv3x3_route", "convt_pair",
+           "convt_pair_plain", "instance_affine_from_stats", "ACTS"]
 
 ACTS = ("LeakyReLU", "ReLU")
 _SLOPE = 0.1  # the reference registry's LeakyReLU slope
@@ -184,8 +190,11 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _STREAM_ARGS = [_PTR] * 4 + [_INT] * 2  # x, w, A, B, C, pro
 _ARGTYPES = {
     "fmi_conv3x3_stats": [_PTR] * 8 + [_INT] * 8 + [_PTR],
+    "fmi_conv3x3_stats_bf16_mma": [_PTR] * 8 + [_INT] * 8 + [_PTR],
+    "fmi_conv3x3_route": [_INT, _PTR, _PTR, _INT],
     "fmi_convt_pair": _STREAM_ARGS * 2 + [_INT] + [_PTR] * 4 + [_INT] * 6 + [_PTR],
     "fmi_decoder_conv_co_pad": [_INT],
+    "fmi_decoder_conv_c_pad": [_INT],
     "fmi_decoder_conv_tiles": [_INT] * 4,
 }
 
@@ -208,6 +217,17 @@ def _check_device(x: torch.Tensor, tensors, what: str) -> None:
         raise ValueError(f"{what} takes contiguous NCHW maps")
 
 
+def _weights_mma(w: torch.Tensor, c_pad: int, co_pad: int) -> torch.Tensor:
+    """K4b's tensor-core operand: [9, c_pad, co_pad] bf16 (tap ky * 3 + kx,
+    input channel, output channel) from [Co, C, 3, 3], zeros past C and Co;
+    c_pad is fmi_decoder_conv_c_pad(C)."""
+    co, c = w.shape[:2]
+    # without padding F.pad may return the permuted view itself: the kernel
+    # reads the operand by its pointer, so it must be contiguous
+    return F.pad(w.to(torch.bfloat16).permute(2, 3, 1, 0),
+                 (0, co_pad - co, 0, c_pad - c)).reshape(9, c_pad, co_pad).contiguous()
+
+
 def _weights(w: torch.Tensor, dtype: torch.dtype, co_pad: int, transposed: bool):
     """[Ci, 9, co_pad] f32, tap-major, rounded to the stream dtype."""
     w = w.to(dtype).float()
@@ -219,9 +239,8 @@ def _weights(w: torch.Tensor, dtype: torch.dtype, co_pad: int, transposed: bool)
 
 
 def _padded(v: torch.Tensor, co_pad: int) -> torch.Tensor:
-    out = torch.zeros(co_pad, dtype=torch.float32, device=v.device)
-    out[: v.shape[0]] = v
-    return out
+    """[co_pad] f32, contiguous (the kernels read it by its pointer)."""
+    return F.pad(v.float(), (0, co_pad - v.shape[0])).contiguous()
 
 
 def _prologue_args(prologue):
@@ -241,6 +260,19 @@ def _stats_buffers(n: int, co: int, tiles: int, device, with_stats: bool):
         return None, None
     return (torch.empty((n, co, tiles), dtype=torch.float32, device=device),
             torch.empty((n, co, tiles), dtype=torch.float32, device=device))
+
+
+def _route(x: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether K4b runs this call on the tensor cores (bf16, W % 8 == 0,
+    16-byte aligned maps): the C side decides, by shape and alignment."""
+    return bool(_function("fmi_conv3x3_route")(x.dtype == torch.bfloat16, x.data_ptr(),
+                                                out.data_ptr(), x.shape[3]))
+
+
+def conv3x3_route(x: torch.Tensor) -> str:
+    """"tensor_cores" or "cuda_cores": the K4b kernel a call on the CUDA map x
+    launches (its output is allocated as x is, so x's alignment decides)."""
+    return "tensor_cores" if _route(x, x) else "cuda_cores"
 
 
 def conv3x3_stats(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -264,21 +296,30 @@ def conv3x3_stats(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     n, c, h, wd = x.shape
     co = w.shape[0]
     co_pad = _function("fmi_decoder_conv_co_pad")(co)
-    wt = _weights(w, x.dtype, co_pad, transposed=False)
     bias = _padded(_bias32(b, co, x.device), co_pad)
     out = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
-    tiles = _function("fmi_decoder_conv_tiles")(0, h, wd, co)
-    psum, psq = _stats_buffers(n, co, tiles, x.device, with_stats)
+    mma = _route(x, out)
+    if mma:
+        wt = _weights_mma(w, _function("fmi_decoder_conv_c_pad")(c), co_pad)
+        kernel = _function("fmi_conv3x3_stats_bf16_mma")
+    else:
+        wt, kernel = (_weights(w, x.dtype, co_pad, transposed=False),
+                      _function("fmi_conv3x3_stats", x.dtype))
+    tiles = _function("fmi_decoder_conv_tiles")(2 if mma else 0, h, wd, co)
+    # the partial sums of y and y^2 in one buffer, summed by one reduction
+    parts = (torch.empty((2, n, co, tiles), dtype=torch.float32, device=x.device)
+             if with_stats else None)
     with torch.cuda.device(x.device):
-        rc = _function("fmi_conv3x3_stats", x.dtype)(
+        rc = kernel(
             x.data_ptr(), wt.data_ptr(), _ptr(a_), _ptr(b_), bias.data_ptr(), out.data_ptr(),
-            _ptr(psum), _ptr(psq), n, c, h, wd, co, co_pad, pro, _ACT_CODE[act],
-            torch.cuda.current_stream().cuda_stream)
+            _ptr(parts), None if parts is None else parts[1].data_ptr(), n, c, h, wd, co,
+            co_pad, pro, _ACT_CODE[act], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3_stats launch failed: cudaError {rc}")
     conv3x3_stats.launches += 1
     if with_stats:
-        return out, (psum.sum(dim=2), psq.sum(dim=2))
+        sums = parts.sum(dim=3)
+        return out, (sums[0], sums[1])
     return out
 
 

@@ -20,12 +20,17 @@ K5 replaces the backward kernels of the JAX ``custom_vjp`` (``_backward_sym``,
 D = rowsum(dO * O) it returns dq (both roles of the tied q == k summed) and
 dv. ``flash_attention_bwd`` launches it for CUDA tensors and runs
 ``flash_attention_bwd_plain`` for CPU tensors. ``flash_attention_autograd``
-joins K1 and K5 in one ``torch.autograd.Function``.
+joins K1 and K5 in one ``torch.autograd.Function``. K5 has two routes, chosen
+by the C side by shape and alignment only (``flash_attention_bwd_route``):
+bf16 at d in {32, 64} and C <= 256 (C % 8 == 0) runs on the tensor cores,
+where dq's two roles meet in an f32 scratch through atomics (so dq is not
+bit-deterministic); everything else on the CUDA cores.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Sequence
 
@@ -34,7 +39,7 @@ import torch
 from face_mask_inpaint_tpu_torch.kernels import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "flash_attention_autograd"]
+           "flash_attention_bwd_plain", "flash_attention_bwd_route", "flash_attention_autograd"]
 
 _LOG2E = 1.4426950408889634
 _D_MAX = 128  # the kernel's shared-memory plan holds d <= 128
@@ -171,10 +176,36 @@ def flash_attention_bwd_plain(q: torch.Tensor, v_cat: torch.Tensor, lse: torch.T
 
 
 def _bwd_function(dtype: torch.dtype):
+    """The C entry point; bf16's takes an f32 dq scratch after dv."""
     fn = getattr(build.load("flash_attention_bwd"), _BWD_SYMBOLS[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    n_ptrs = 8 if dtype == torch.bfloat16 else 7
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_route_function():
+    fn = build.load("flash_attention_bwd").fmi_flash_attention_bwd_route
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_tensor_cores(q, v_cat, do_cat, dq, dv) -> bool:
+    """Whether K5 runs a call on the tensor cores: the C side decides, by
+    shape and alignment (bf16, d in {32, 64}, C <= 256 with C % 8 == 0)."""
+    return bool(_bwd_route_function()(
+        q.dtype == torch.bfloat16, q.data_ptr(), v_cat.data_ptr(), do_cat.data_ptr(),
+        dq.data_ptr(), dv.data_ptr(), q.shape[-1], v_cat.shape[-1]))
+
+
+def flash_attention_bwd_route(q: torch.Tensor, v_cat: torch.Tensor) -> str:
+    """"tensor_cores" or "cuda_cores": the K5 route of a call on these CUDA
+    tensors (dO and the outputs are allocated as they are, so q's and
+    v_cat's alignment decides)."""
+    return ("tensor_cores" if _bwd_tensor_cores(q, v_cat, v_cat, q, v_cat)
+            else "cuda_cores")
 
 
 def flash_attention_bwd(q: torch.Tensor, v_cat: torch.Tensor, lse: torch.Tensor,
@@ -199,11 +230,16 @@ def flash_attention_bwd(q: torch.Tensor, v_cat: torch.Tensor, lse: torch.Tensor,
             raise ValueError("lse and dsum must be contiguous float32 [N, L] on q's device")
     dq = torch.empty_like(q)
     dv = torch.empty_like(v_cat)
+    ptrs = [q.data_ptr(), v_cat.data_ptr(), do_cat.data_ptr(), lse.data_ptr(),
+            dsum.data_ptr(), dq.data_ptr(), dv.data_ptr()]
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernels sum dq's two roles in f32 here
+        work = (torch.empty((n, l, d), dtype=torch.float32, device=q.device)
+                if _bwd_tensor_cores(q, v_cat, do_cat, dq, dv) else None)
+        ptrs.append(None if work is None else work.data_ptr())
     with torch.cuda.device(q.device):
-        rc = _bwd_function(q.dtype)(
-            q.data_ptr(), v_cat.data_ptr(), do_cat.data_ptr(), lse.data_ptr(),
-            dsum.data_ptr(), dq.data_ptr(), dv.data_ptr(), n, l, d, v_cat.shape[-1],
-            torch.cuda.current_stream().cuda_stream)
+        rc = _bwd_function(q.dtype)(*ptrs, n, l, d, v_cat.shape[-1],
+                                    torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {rc}")
     flash_attention_bwd.launches += 1

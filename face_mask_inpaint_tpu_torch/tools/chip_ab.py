@@ -1,0 +1,57 @@
+"""Time two checkouts of the port on one card, in turns A, B, B, A: chip_smoke.py's
+flagship bf16 batch-16 forward (phase 5: default, packed-convt and plain
+configurations) and its config-5 bf16-mixed training step (phase 7).
+
+    python -m face_mask_inpaint_tpu_torch.tools.chip_ab DIR_A DIR_B
+
+Each turn is a fresh process in that checkout's root, which builds its own
+kernels there and runs that checkout's chip_smoke.phase_timing and
+phase_train; its [time] and [train] lines are printed with the turn's label.
+The order A, B, B, A lets drift over the run hit both checkouts alike.
+Compare the two only within one run of this script (same card, same host).
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+# the settings of chip_smoke.main: TF32 off for f32 matmuls and convolutions
+CHILD = """
+import subprocess, torch, chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                      capture_output=True, text=True).stdout.strip()
+cs.phase_build()
+run = cs.Run()
+cs.phase_timing(run, 0, {}, card)
+cs.phase_train(run, 0, card)
+raise SystemExit(1 if run.failures else 0)
+"""
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("a")
+    ap.add_argument("b")
+    args = ap.parse_args(argv)
+    dirs = {"A": Path(args.a).resolve(), "B": Path(args.b).resolve()}
+    rc = 0
+    for turn, side in enumerate("ABBA"):
+        proc = subprocess.run([sys.executable, "-c", CHILD], cwd=dirs[side],
+                              capture_output=True, text=True)
+        for line in proc.stdout.splitlines():
+            if line.startswith(("[time] flagship", "[time] peak", "[train] config-5",
+                                "[train] profile", "FAIL")):
+                print(f"{side}{turn} {line}", flush=True)
+        if proc.returncode != 0:
+            print(f"{side}{turn} exited {proc.returncode}:\n{proc.stderr[-2000:]}", flush=True)
+            rc = 1
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -375,3 +375,35 @@ def test_instance_affine_from_stats_is_instance_norm():
     want = torch.nn.functional.instance_norm(x, weight=g, bias=be, eps=1e-5)
     np.testing.assert_allclose((x * a[:, :, None, None] + b[:, :, None, None]).numpy(),
                                want.numpy(), rtol=0, atol=1e-5)
+
+
+# (Co, C, co_pad, c_pad): fmi_decoder_conv_co_pad rounds Co up to its channel
+# block (8, 16, 32 or 64), fmi_decoder_conv_c_pad rounds C up to 16
+@pytest.mark.parametrize("co,c,co_pad,c_pad", [(64, 128, 64, 128), (32, 64, 32, 64),
+                                               (3, 13, 8, 16), (80, 21, 128, 32),
+                                               (8, 16, 8, 16)])
+def test_tensor_core_weight_packing(co, c, co_pad, c_pad):
+    """K4b's tensor-core operand [9, c_pad, co_pad] bf16, contiguous with or
+    without padding: unpacked, it equals the weight rounded to bf16
+    (exactly), zeros past C and Co; and the sum
+    over the nine taps of the input shifted by (ky, kx) times the packed
+    weights, the kernel's implicit GEMM, is the plain conv (f32 max-abs
+    1e-5 relative: the same products summed in another order)."""
+    rs = np.random.RandomState(co + c)
+    w = torch.from_numpy(rs.randn(co, c, 3, 3).astype(np.float32))
+    packed = dc._weights_mma(w, c_pad, co_pad)
+    assert packed.dtype == torch.bfloat16 and packed.shape == (9, c_pad, co_pad)
+    assert packed.is_contiguous()  # the kernel reads it by its pointer
+    unpacked = packed[:, :c, :co].reshape(3, 3, c, co).permute(3, 2, 0, 1)
+    assert torch.equal(unpacked, w.to(torch.bfloat16))
+    assert not packed[:, c:].any() and not packed[:, :, co:].any()
+
+    x = torch.from_numpy(rs.randn(2, c, 7, 9).astype(np.float32)).to(torch.bfloat16)
+    xp = torch.nn.functional.pad(x.float(), (1, 1, 1, 1))
+    y = torch.zeros(2, co_pad, 7, 9)
+    for tap in range(9):
+        ky, kx = divmod(tap, 3)
+        shifted = xp[:, :, ky:ky + 7, kx:kx + 9]
+        y += torch.einsum("nchw,co->nohw", shifted, packed[tap, :c].float())
+    want = dc.conv3x3_stats_plain(x.float(), w.to(torch.bfloat16).float(), None)
+    assert float((y[:, :co] - want).abs().max()) <= 1e-5 * float(want.abs().max())

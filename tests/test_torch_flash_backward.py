@@ -124,3 +124,57 @@ def test_plain_backward_matches_jax_grad(monkeypatch, variant):
     for g, w in zip(got, want):
         w = np.asarray(w)
         assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()
+
+
+_LOG2E = 1.4426950408889634
+
+
+def _column_owned(q, v_cat, lse, do_cat, dsum, tile=64):
+    """The tensor-core K5's decomposition on the CPU: each 64-key tile sweeps
+    every 64-row tile; dv and the key role of dq stay with the key tile, the
+    query role of dq is added to an f32 accumulator that also takes the key
+    role; P and each dS rounded to the input dtype before their products.
+    Returns (dq, dv)."""
+    dtype = q.dtype
+    n, l, _ = q.shape
+    qf, vf, dof = q.float(), v_cat.float(), do_cat.float()
+    acc = torch.zeros_like(qf)
+    dv = torch.zeros_like(vf)
+    tiles = -(-l // tile)
+    for ct in range(tiles):
+        keys = slice(ct * tile, (ct + 1) * tile)
+        dq_key = torch.zeros_like(qf[:, keys])
+        for rt in range(tiles):
+            rows = slice(rt * tile, (rt + 1) * tile)
+            s_t = torch.matmul(qf[:, keys], qf[:, rows].transpose(1, 2))   # [N, keys, rows]
+            p_t = torch.exp2(s_t * _LOG2E - lse[:, None, rows].float())
+            dv[:, keys] += torch.matmul(p_t.to(dtype).float(), dof[:, rows])
+            dp_t = torch.matmul(vf[:, keys], dof[:, rows].transpose(1, 2))
+            ds_t = (p_t * (dp_t - dsum[:, None, rows].float())).to(dtype).float()
+            dq_key += torch.matmul(ds_t, qf[:, rows])
+            acc[:, rows] += torch.matmul(ds_t.transpose(1, 2), qf[:, keys])
+        acc[:, keys] += dq_key
+    return acc.to(dtype), dv.to(v_cat.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [40, 300])
+def test_column_owned_decomposition_matches_plain(dtype, l):
+    """The tensor-core K5's decomposition (each dS[r, c] rounded apart, as
+    the JAX `_backward` rounds it, where the plain version rounds the summed
+    dS once) gives the plain version's dq and dv: float32 within 1e-5 and
+    bfloat16 within 1e-2 of each output's largest entry (the card's BWD_TOL;
+    one rounding per term more or less, inside sums of hundreds)."""
+    q, vs, gs = _inputs(4, 2, l, 16, [24, 16], scale=0.7)
+    qt = torch.from_numpy(q).to(dtype)
+    vt = [torch.from_numpy(v).to(dtype) for v in vs]
+    outs, lse = fa.flash_attention_plain(qt, vt, with_lse=True)
+    v_cat, do_cat = torch.cat(vt, -1), torch.from_numpy(np.concatenate(gs, -1)).to(dtype)
+    dsum = (do_cat.float() * torch.cat(outs, -1).float()).sum(-1)
+    dq, dv = _column_owned(qt, v_cat, lse, do_cat, dsum)
+    want = fa.flash_attention_bwd_plain(qt, v_cat, lse, do_cat, dsum)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, ref in zip((dq, dv), want):
+        assert got.dtype == ref.dtype
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= tol * float(ref.float().abs().max()), err

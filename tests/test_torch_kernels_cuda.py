@@ -20,10 +20,12 @@ Tolerance: |kernel - plain| <= atol + rtol |plain| with (1e-4, 1e-4) in
 float32 (TF32 off; only the order of f32 sums differs) and (1e-3, 2^-7) in
 bfloat16 (each side rounds an f32 result once: one bf16 ulp apart at most).
 K5's dq and dv are held to max |kernel - plain| <= tol * max |plain| with tol
-1e-4 in float32 and 1e-2 in bfloat16: in bfloat16 both sides round P and the
-summed dS once before their products, from f32 values summed in another
-order, so single rounded terms may differ by one bf16 ulp (2^-8 relative)
-inside sums of thousands.
+1e-4 in float32 and 1e-2 in bfloat16: in bfloat16 both sides round P and dS
+before their products, from f32 values summed in another order (the
+tensor-core route rounds each dS[r, c] apart where the plain version rounds
+the summed dS[r, c] + dS[c, r], and adds dq's terms with atomics in a
+run-dependent order), so single rounded terms may differ by one bf16 ulp
+(2^-8 relative) inside sums of thousands.
 The f32 sums of y and y^2 that K4a and K4b return are held to rtol 1e-4
 (f32) and 1e-3 (bf16), with an atol of rtol times the largest sum: the two
 sides add the same f32 values in another order.
@@ -107,8 +109,10 @@ def _bwd_inputs(gen, n, l, d, widths, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,l,d,widths", [
-    (2, 320, 8, [24, 16]), (2, 257, 128, [130]), (1, 300, 48, [64]),   # CUDA-core path
-    (1, 4100, 64, [256]), (2, 300, 128, [264]), (2, 257, 32, [128, 8]),  # bf16: tensor cores
+    (2, 320, 8, [24, 16]), (2, 257, 128, [130]), (1, 300, 48, [64]),   # CUDA cores
+    (2, 300, 128, [264]), (1, 130, 64, [264]), (1, 90, 64, [36]),      # CUDA cores (C)
+    (1, 4100, 64, [256]), (2, 257, 32, [128, 8]),   # bf16: tensor cores
+    (2, 40, 64, [256]), (2, 4100, 64, [200, 56]), (1, 333, 32, [64]),  # L < one tile, ragged
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, n, l, d, widths):
     q, v_cat, lse, do_cat, dsum = _bwd_inputs(cuda, n, l, d, widths, dtype)
@@ -121,6 +125,21 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, n, l, d, widths):
     _assert_bwd_close(dq, dq_ref, dtype)
     for got, want in zip(torch.split(dv, widths, -1), torch.split(dv_ref, widths, -1)):
         _assert_bwd_close(got, want, dtype)
+
+
+def test_flash_attention_bwd_routes(cuda):
+    """bf16 at d in {32, 64} and C <= 256 (C % 8 == 0) takes the tensor
+    cores, config 5 (d = 64, C = 256) among them; other shapes, misaligned
+    tensors and float32 take the CUDA cores."""
+    def route(d, c, dtype=torch.bfloat16, offset=0):
+        q = torch.zeros(2, 8, d, device="cuda", dtype=dtype)
+        v = torch.zeros(2 * 8 * c + offset, device="cuda", dtype=dtype)[offset:].view(2, 8, c)
+        return fa.flash_attention_bwd_route(q, v)
+    assert route(64, 256) == "tensor_cores"  # config 5
+    assert route(64, 200 + 56) == route(32, 136) == route(64, 8) == "tensor_cores"
+    assert route(48, 256) == route(128, 256) == route(64, 264) == route(64, 60) == "cuda_cores"
+    assert route(64, 256, offset=1) == "cuda_cores"
+    assert route(64, 256, torch.float32) == "cuda_cores"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -260,12 +279,18 @@ def _map(gen, shape, dtype):
 
 # (N, C, H, W, Co, prologue act, output act): the flagship's decoder 3 and 4
 # widths on smaller maps; odd sizes, C not a multiple of the staged chunk
-# (8), Co of 3, 32, 64 and 80 (two channel blocks)
+# (8 on the CUDA cores, 16 on the tensor cores), Co of 3, 8, 32, 64 and 80
+# (two channel blocks). bf16 with W % 8 == 0 takes the tensor cores, with H
+# and W not multiples of its 64-column tile (4 or 8 rows) among them; W of
+# 41, 70 and 33 the CUDA cores.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,c,h,w,co,pro,act", [
     (2, 128, 64, 64, 64, "LeakyReLU", None), (2, 64, 96, 80, 32, "LeakyReLU", None),
     (3, 13, 37, 41, 3, "ReLU", "LeakyReLU"), (1, 21, 17, 70, 64, None, "ReLU"),
     (2, 5, 9, 33, 80, "LeakyReLU", None),
+    (3, 13, 37, 72, 3, "ReLU", "LeakyReLU"), (2, 21, 19, 136, 8, None, "ReLU"),
+    (2, 40, 13, 24, 80, "LeakyReLU", None), (1, 70, 30, 200, 32, "ReLU", None),
+    (2, 16, 5, 8, 64, "LeakyReLU", "ReLU"), (1, 33, 66, 64, 16, "none", None),
 ])
 def test_conv3x3_stats_kernel_matches_plain(cuda, dtype, n, c, h, w, co, pro, act):
     x = _map(cuda, (n, c, h, w), dtype)
@@ -282,6 +307,48 @@ def test_conv3x3_stats_kernel_matches_plain(cuda, dtype, n, c, h, w, co, pro, ac
     _assert_stats(stats, want_stats, dtype)
     _assert_close(dc.conv3x3_stats(x, wt, None, prologue, act),
                   dc.conv3x3_stats_plain(x, wt, None, prologue, act), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,co", [(64, 32), (21, 80)])
+def test_conv3x3_stats_takes_strided_weight_and_bias(cuda, dtype, c, co):
+    """A weight and bias that are strided views (no padding needed at
+    C = 64, Co = 32; padding at C = 21, Co = 80) give the plain version's
+    output: the wrapper hands the kernels contiguous copies."""
+    x = _map(cuda, (2, c, 16, 24), dtype)
+    wt = (torch.randn(3, 3, c, co, device="cuda", generator=cuda) / (3 * c ** 0.5)
+          ).permute(3, 2, 0, 1)
+    b = torch.randn(2 * co, device="cuda", generator=cuda)[::2]
+    prologue = _prologue(cuda, 2, c, "LeakyReLU")
+    assert not wt.is_contiguous() and not b.is_contiguous()
+    got = dc.conv3x3_stats(x, wt, b, prologue, "ReLU")
+    torch.cuda.synchronize()
+    _assert_close(got, dc.conv3x3_stats_plain(x, wt, b, prologue, "ReLU"), dtype)
+
+
+def test_conv3x3_routes(cuda):
+    """bf16 maps with W % 8 == 0 take the tensor cores, the flagship's
+    decoders 3 and 4 among them; other widths, misaligned maps and float32
+    the CUDA cores."""
+    def route(c, h, w, dtype=torch.bfloat16, offset=0):
+        flat = torch.zeros(c * h * w + offset, device="cuda", dtype=dtype)
+        return dc.conv3x3_route(flat[offset:].view(1, c, h, w))
+    assert route(128, 256, 256) == route(64, 512, 512) == "tensor_cores"  # decoders 3, 4
+    assert route(5, 9, 72) == "tensor_cores"
+    assert route(5, 9, 70) == route(5, 9, 33) == "cuda_cores"
+    assert route(5, 9, 72, offset=1) == "cuda_cores"
+    assert route(5, 9, 72, torch.float32) == "cuda_cores"
+
+
+def test_decoder_conv_pads(cuda):
+    """The pads the wrapper sizes K4b's operands with come from the C side:
+    Co rounded up to its channel block (8, 16, 32 or 64), C up to the
+    tensor-core kernel's 16-channel chunk (the values the CPU packing test
+    takes)."""
+    co_pad = dc._function("fmi_decoder_conv_co_pad")
+    c_pad = dc._function("fmi_decoder_conv_c_pad")
+    assert [co_pad(co) for co in (3, 8, 32, 64, 80)] == [8, 8, 32, 64, 128]
+    assert [c_pad(c) for c in (13, 16, 21, 64, 128)] == [16, 16, 32, 64, 128]
 
 
 # (N, C_h, C_x, H, W, Co, act, with_stats): two streams with the prologue on
