@@ -22,10 +22,15 @@ it and read just after. Phases:
    the memory rate and its operations over the peak rate) and, for K1, K5,
    K4b and K4a, beside the PyTorch call that computes the same function;
    K5, the flash-attention backward, at the config-5 shape (batch 16) and
-   ragged ones, for dq and each dv; check that K4b takes its tensor-core
-   route in bfloat16 where W % 8 == 0 (the flagship's decoders 3 and 4
-   among them) and its CUDA-core one elsewhere, and K5 its tensor-core
-   route at config 5, and print each one's route and achieved TFLOP/s;
+   ragged ones, for dq and each dv; K1 also at L under and just over one
+   128-row block and at C = 64, K4a also on one stream without a prologue,
+   at odd H and Co of 3 and 80; check that K1 takes its warpgroup (wgmma)
+   route in bfloat16 at d = 64 (the flagship, config 5 and the ragged
+   [200, 56] values), that K4b and K4a take their tensor-core routes in
+   bfloat16 where W % 8 == 0 (the flagship's decoders 3 and 4 and W = 72
+   among them) and their CUDA-core ones elsewhere, and K5 its tensor-core
+   route at config 5, and print each one's route and K1's, K4a's, K4b's
+   and K5's achieved TFLOP/s;
 3. the flagship models at batch 4, float32, random weights from --seed:
    output shape, range and finiteness; the kernel path against the plain
    versions on the card; the launch counts of one forward (K1 once, K2 ten
@@ -39,7 +44,9 @@ it and read just after. Phases:
    timed with CUDA events, in the default configuration with the kernels
    and with the plain versions and in the packed-convt one with the
    kernels, in alternating order, and the peak device memory of each
-   configuration's forward;
+   configuration's forward; the routes of the forward's own K1 calls
+   (wgmma) and, in the packed-convt configuration, K4a calls (tensor
+   cores);
 6. a profile of that forward: the time of each stage (CUDA events around
    each stage's module) with the kernels, with the dense Output head
    (K1 and K2 on, no K3) and in the packed-convt configuration; the spread
@@ -47,15 +54,17 @@ it and read just after. Phases:
    alternating order (kernels, dense head, plain versions) with the host's
    enqueue time, and a ``torch.profiler`` window of three forwards in each
    configuration (device-busy share, kernels by device time); that window
-   must show K4b's tensor-core kernel, and not its CUDA-core one, in the
-   packed-convt forward;
+   must show K1's warpgroup kernel, and neither of its others, in every
+   configuration, and K4b's and K4a's tensor-core kernels, and not their
+   CUDA-core ones, in the packed-convt forward;
 7. the config-5 GAN training step (G, D and VGG built by the trainer CLI's
    ``get_args`` and ``Trainer`` with ``--device cuda --decoder_img_f 256``)
    at batch 16 in bfloat16 on seeded batches: finite losses, the launches
    of one step (K1 once, K5 once, K2 ten times, K3 and K4 never), the step
    time (CUDA events, median and quartiles of STEP_ROUNDS steps after two
    warm-up steps), its peak device memory and a ``torch.profiler`` top
-   list, which must show K5's tensor-core kernel and neither CUDA-core one;
+   list, which must show K5's tensor-core kernel and neither CUDA-core one,
+   and K1's warpgroup kernel;
    and at batch 2 in float32 with a seeded non-zero attention gamma,
    the kernel path's G and D gradients against the plain path's;
 8. Stack B, pSp -> StyleGAN2 inference at BASELINE config 4 (the path of
@@ -293,6 +302,34 @@ def plain_versions():
          dc.conv3x3_stats, dc.convt_pair, fir.upfirdn2d, act.fused_leaky_relu) = saved
 
 
+@contextlib.contextmanager
+def recorded_routes(routes: dict):
+    """Record the route of every K1 and K4a call of the model into
+    routes["K1"] and routes["K4a"] (sets); the calls launch as before. A
+    wrapper counts its launches on the module attribute of its own name, so
+    the recorders carry the counts while they stand in for it."""
+    from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
+    from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
+
+    saved = (fa.flash_attention, dc.convt_pair)
+
+    def k1(q, values, with_lse=False):
+        routes.setdefault("K1", set()).add(fa.flash_attention_route(q, values))
+        return saved[0](q, values, with_lse=with_lse)
+
+    def k4a(streams, act=None, with_stats=False):
+        routes.setdefault("K4a", set()).update(dc.convt_pair_route(st[0]) for st in streams)
+        return saved[1](streams, act, with_stats)
+
+    k1.launches, k4a.launches = saved[0].launches, saved[1].launches
+    fa.flash_attention, dc.convt_pair = k1, k4a
+    try:
+        yield
+    finally:
+        saved[0].launches, saved[1].launches = k1.launches, k4a.launches
+        fa.flash_attention, dc.convt_pair = saved
+
+
 def phase_build():
     from face_mask_inpaint_tpu_torch.kernels import build
 
@@ -360,6 +397,10 @@ def _phase_flash_backward(run: Run, gen, timings: dict):
             q = (torch.randn(n, l, d, device="cuda", generator=gen) / d ** 0.5 * 2).to(dtype)
             vs = [torch.randn(n, l, c, device="cuda", generator=gen).to(dtype) for c in widths]
             outs, lse = fa.flash_attention(q, vs, with_lse=True)
+            if label == "config 5" and dtype == torch.bfloat16:
+                route = fa.flash_attention_route(q, vs)
+                run.check(route == "wgmma", f"K1 {label} N={n} L={l} bfloat16 takes the wgmma "
+                                            f"route (route {route}), its lse feeds K5")
             v_cat, o_cat = torch.cat(vs, -1), torch.cat(outs, -1)
             do_cat = torch.randn(v_cat.shape, device="cuda", generator=gen).to(dtype)
             dsum = (do_cat.float() * o_cat.float()).sum(-1)
@@ -421,9 +462,11 @@ def phase_kernels(run: Run, seed: int, timings: dict):
     gen = torch.Generator(device=dev).manual_seed(seed)
     # q scaled so the maps are spread (the diagonal holds well under 1% of a
     # row at L = 16384), which exercises the whole online softmax; d = 48
-    # takes the CUDA-core path, d = 64 in bf16 the tensor-core path
+    # takes the CUDA-core path, d = 64 in bf16 the warpgroup (wgmma) path,
+    # here at L under and just over one 128-row block and at C = 64 too
     k1_cases = [("flagship", 16, 16384, 64, [256]), ("ragged", 2, 4100, 64, [200, 56]),
-                ("ragged", 2, 4100, 48, [200, 56])]
+                ("ragged", 2, 4100, 48, [200, 56]), ("ragged", 2, 100, 64, [256]),
+                ("ragged", 2, 130, 64, [256]), ("C=64", 2, 4100, 64, [64])]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for label, n, l, d, widths in k1_cases:
@@ -442,6 +485,10 @@ def phase_kernels(run: Run, seed: int, timings: dict):
                       f"K1 {label} N={n} L={l} d={d} C={widths} {dname}: max_abs_err "
                       f"{err:.3e} lse_err {lse_err:.3e} (tol atol {TOL[dname][0]} + rtol "
                       f"{TOL[dname][1]:.3e}*|ref|, lse {LSE_ATOL})")
+            route = fa.flash_attention_route(q, vs)
+            want_route = ("wgmma" if dtype == torch.bfloat16 and d == 64 else "cuda_cores")
+            run.check(route == want_route, f"K1 {label} N={n} L={l} d={d} C={widths} {dname} "
+                                           f"takes the {want_route} route (route {route})")
             if label == "flagship":
                 ms = _time_ms(lambda: fa.flash_attention(q, vs), 5)
                 plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, vs), 5)
@@ -452,9 +499,10 @@ def phase_kernels(run: Run, seed: int, timings: dict):
                 lib_ms = (_library_attention_ms(q, vs[0])
                           if dtype == torch.bfloat16 and len(vs) == 1 else None)
                 timings[("flash_attention_fwd", dname)] = (ms, plain_ms, *bound, lib_ms)
-                print(f"[time] K1 flagship {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-                      f"ms, bound {bound[0]:.3f} ms ({bound[1]}), library "
-                      f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
+                print(f"[time] K1 flagship {dname} ({route}): kernel {ms:.3f} ms "
+                      f"({2.0 * n * l * l * (d + c_all) / ms / 1e9:.1f} TFLOP/s), plain "
+                      f"{plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), library "
+                      f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}", flush=True)
             del q, vs, outs, refs
     torch.cuda.empty_cache()
     _phase_flash_backward(run, gen, timings)
@@ -560,11 +608,13 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
 
     from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
 
-    # W = 41 and 70 take K4b's CUDA-core kernel in bf16; W = 72 its tensor
-    # cores, with H, W, C and Co off its tiles
+    # W = 41 and 70 take K4b's and K4a's CUDA-core kernels in bf16; W = 72 and
+    # 48 their tensor cores, with odd H, C and Co off their tiles (Co = 3 and
+    # 80); each K4a also runs on the x stream alone, which has no prologue
     ragged = [dict(name="ragged", n=3, c=13, co=3, h=37, w=41, pro="ReLU", act="LeakyReLU"),
               dict(name="ragged", n=2, c=21, co=80, h=17, w=70, pro=None, act=None),
-              dict(name="ragged", n=2, c=40, co=80, h=19, w=72, pro="LeakyReLU", act="ReLU")]
+              dict(name="ragged", n=2, c=40, co=80, h=19, w=72, pro="LeakyReLU", act="ReLU"),
+              dict(name="ragged", n=2, c=24, co=3, h=21, w=48, pro=None, act="LeakyReLU")]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         rate = BF16_RATE if dtype == torch.bfloat16 else F32_RATE
@@ -610,11 +660,27 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
                                    f"{TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|), "
                                    f"{s_note}")
             del want
+            if not flagship:  # one stream, no prologue
+                one = [(t["x"], t["wb"], t["bb"])]
+                got1 = dc.convt_pair(one, act, with_stats)
+                torch.cuda.synchronize()
+                want1 = dc.convt_pair_plain(one, act, with_stats)
+                s_ok = True
+                if with_stats:
+                    (got1, st1), (want1, want_st1) = got1, want1
+                    s_ok, _ = _stats_close(st1, want_st1, dname)
+                ok, err = _close(got1, want1, dname)
+                run.err["convt_pair"] = max(run.err["convt_pair"], err)
+                run.check(ok and s_ok, f"K4a one stream without prologue N={n} C_x={c} Co={co} "
+                                       f"H={h} W={w} act={act} {dname}: max_abs_err {err:.3e}"
+                                       f"{', stats within rtol' if with_stats else ''}")
+                del got1, want1
             if dtype == torch.bfloat16:
-                route, want_route = (dc.conv3x3_route(t["x"]),
-                                     "tensor_cores" if w % 8 == 0 else "cuda_cores")
-                run.check(route == want_route, f"K4b {case['name']} W={w} {dname} takes the "
-                                               f"{want_route} (route {route})")
+                want_route = "tensor_cores" if w % 8 == 0 else "cuda_cores"
+                for kname, route in (("K4b", dc.conv3x3_route(t["x"])),
+                                     ("K4a", dc.convt_pair_route(y))):
+                    run.check(route == want_route, f"{kname} {case['name']} W={w} {dname} takes "
+                                                   f"the {want_route} (route {route})")
             if flagship:
                 es = t["x"].element_size()
                 w1, b1 = t["w1"].to(dtype), t["b1"].to(dtype)
@@ -645,7 +711,7 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
                     a["flops"] += flops
                     a["bounds"].append(bound)
                     route = (dc.conv3x3_route(t["x"]) if name == "conv3x3_stats"
-                             else "cuda_cores")
+                             else dc.convt_pair_route(y))
                     print(f"[time] {'K4b' if name == 'conv3x3_stats' else 'K4a'} "
                           f"{case['name']} {dname} ({route}): kernel {ms:.3f} ms "
                           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library "
@@ -833,6 +899,14 @@ def phase_timing(run: Run, seed: int, timings: dict, card: str):
                   f"bf16 batch-16 forward, {name} configuration: {out.dtype}, launches "
                   f"{launches}")
         del out
+        # the routes of the forward's own K1 and K4a calls, in one more forward
+        routes: dict = {}
+        with config(), recorded_routes(routes):
+            forward()
+        want_routes = ({"K1": {"wgmma"}} if name == "default"
+                       else {"K1": {"wgmma"}, "K4a": {"tensor_cores"}})
+        run.check(routes == want_routes, f"bf16 batch-16 forward, {name} configuration: "
+                                         f"routes {routes} (want {want_routes})")
     sides = {"kernels": contextlib.nullcontext, "packed-convt": lambda: packed_convt(model),
              "plain": plain_versions}
     times = {side: [] for side in sides}
@@ -975,9 +1049,14 @@ def phase_profile(run: Run, seed: int, rounds: int, card: str):
         busy = sum(e.self_device_time_total for e in rows) / 1e3
         print(f"[profile] {side}, three forwards: wall {wall:.2f} ms, summed device time "
               f"{busy:.2f} ms, device busy {100 * busy / wall:.1f}% on {card}")
+        _check_launched(run, rows, "flash_fwd_wgmma_kernel",
+                        ("flash_fwd_mma_kernel", "flash_fwd_kernel"),
+                        f"K1 in the bf16 {side} forward")
         if side == "packed-convt":
             _check_launched(run, rows, "conv3x3_mma_kernel", ("conv3x3_kernel",),
                             "K4b in the bf16 packed-convt forward")
+            _check_launched(run, rows, "convt_pair_mma_kernel", ("convt_pair_kernel",),
+                            "K4a in the bf16 packed-convt forward")
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
             print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
                   f"{e.key[:100]}")
@@ -1088,6 +1167,8 @@ def phase_train(run: Run, seed: int, card: str) -> dict:
           f"device busy {100 * busy / wall:.1f}% on {card}")
     _check_launched(run, rows, "flash_bwd_col_kernel",
                     ("flash_bwd_dq_kernel", "flash_bwd_dv_kernel"), "K5 in the config-5 step")
+    _check_launched(run, rows, "flash_fwd_wgmma_kernel",
+                    ("flash_fwd_mma_kernel", "flash_fwd_kernel"), "K1 in the config-5 step")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[train]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:100]}")
     del trainer, batches, metrics, prof

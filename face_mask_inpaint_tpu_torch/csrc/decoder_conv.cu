@@ -58,8 +58,20 @@
 // applies the activation, rounds once and stores through shared memory so
 // that each channel row leaves in 16-byte pieces, 128 bytes a tile row.
 //
-// K4b in f32 (and bf16 maps the route rejects) and K4a run on the CUDA
-// cores, unchanged:
+// K4a in bf16 (W % 8 == 0, 16-byte aligned maps; fmi_convt_pair_route) is
+// the same machinery as four implicit GEMMs, one per output parity, over
+// one staged tile of input pixels (see its section): each of the nine taps
+// is one shifted ldmatrix address into the tile and feeds one parity. A
+// warp keeps all four parities of its pixels, 128 f32 accumulators a thread
+// at 32 and 64 output channels, so one block of 8 warps fills an SM and the
+// staging pass, the copies and the epilogue are not overlapped by a second
+// block. At the flagship it took 1.7 + 1.9 ms for decoders 3 + 4 (about 130
+// TFLOP/s; cuDNN's two transposed convs and their sum 4.6 + 9.5 ms, on an
+// H100 SXM at 700 W): it is bound neither by bytes nor by the tensor cores
+// but by that unoverlapped work (tools/tensor_core_variants.py).
+//
+// K4b and K4a in f32 (and bf16 maps their routes reject) run on the CUDA
+// cores:
 //   - a block of 256 threads owns a tile of output pixels for up to 64
 //     output channels, so each input byte is read from device memory about
 //     once per 64 output channels (more than 64 split into channel blocks);
@@ -72,8 +84,6 @@
 //     broadcast and input reads hit 32 banks;
 //   - per-block partial sums of y and y^2 go to a [N, Co, tiles] buffer that
 //     the caller sums: no atomics, so the stats are deterministic.
-// At the flagship K4a reaches 15-17 TFLOP/s, 2x the time of cuDNN's
-// tensor-core transposed convs (PERF.md, from chip_smoke.py); it is next.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -668,6 +678,313 @@ conv3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4a, bf16 on the tensor cores: an implicit GEMM per output parity over one
+// staged tile of TH x 64 input pixels plus the row and column below and to
+// the right (the zero of output_padding at row H and column W). With the
+// taps of ConvT per axis (even o = 2m reads k = 1 at m; odd o = 2m + 1 reads
+// k = 2 at m and k = 0 at m + 1), each of the nine taps feeds one parity:
+//   (2m, 2n)         <- w[1,1] x[m,n]
+//   (2m, 2n + 1)     <- w[1,2] x[m,n] + w[1,0] x[m,n+1]
+//   (2m + 1, 2n)     <- w[2,1] x[m,n] + w[0,1] x[m+1,n]
+//   (2m + 1, 2n + 1) <- w[2,2] x[m,n] + w[2,0] x[m,n+1] + w[0,2] x[m+1,n]
+//                       + w[0,0] x[m+1,n+1]
+// M = the tile's input pixels, N = the block's COP output channels, K =
+// (taps of the parity) x 16-channel chunks of both streams, summed into one
+// set of accumulators per parity. A warp keeps MT m16 tiles of one input row
+// for all four parities and all COP channels (128 f32 registers for COP >=
+// 16), so one block of 8 warps fills an SM. (Splitting the parities between
+// the two warps of a pair, so that a weight fragment serves more pixels,
+// and a ring of four chunks in place of two measured no faster on the
+// H100.) The chunk's raw rows, weights
+// and prologue affine are copied by cp.async into the other half of a
+// double buffer while the current chunk computes; one pass applies the
+// stream's prologue (a template argument, chosen per chunk) and lays the
+// chunk out channel-innermost in 48-byte pixel rows, as K4b does; a tap is a
+// shifted ldmatrix row address into it. The epilogue interleaves the
+// parities in shared memory, so that each output row leaves in 16-byte
+// pieces.
+// ---------------------------------------------------------------------------
+
+template <int COP>
+struct ConvTMmaCfg {
+  static constexpr int NT = COP / 8;                        // n8 tiles a warp keeps
+  static constexpr int MT = COP == 64 ? 1 : COP == 32 ? 2 : 4;  // m16 tiles a warp keeps
+  static constexpr int TW = 64;                             // tile columns (input)
+  static constexpr int WPR = TW / (16 * MT);                // warps a tile row
+  static constexpr int TH = kWarps / WPR;                   // tile rows (input): 2, 4 or 8
+  static constexpr int SH = TH + 1, SW = TW + 1;            // plus the row and column after
+  static constexpr int CK = kMmaCK;
+  static constexpr int SP = CK + 8;                         // staged pixel stride: 48 bytes
+  static constexpr int RW = TW + 8;                         // raw row: columns n0 .. n0 + TW + 7
+  static constexpr int WS = COP + 8;                        // weight row stride
+  static constexpr int kRaw = CK * SH * RW;                 // bf16 a raw buffer
+  static constexpr int kStage = SH * SW * SP;               // bf16
+  static constexpr int kW = 9 * CK * WS;                    // bf16 a weight buffer
+  static constexpr int OW = 2 * TW;                         // output row in the epilogue
+  static constexpr int OP = 2 * TH * OW + 8;                // output channel stride: the
+                                                            // four lanes t land 8 banks apart
+  static constexpr size_t kMain =
+      sizeof(__nv_bfloat16) * (2 * kRaw + kStage + 2 * kW) + sizeof(float) * 4 * CK;
+  static constexpr size_t kEpi =
+      sizeof(__nv_bfloat16) * COP * OP + sizeof(float) * 2 * kWarps * COP;
+  static constexpr size_t kSmem = kMain > kEpi ? kMain : kEpi;
+};
+
+// One stream of the tensor-core K4a: x [N, C, H, W] bf16, packed weights w
+// bf16 [9][c_pad][co_pad] (tap ky * 3 + kx, input channel, output channel),
+// the prologue's A, B [N, C] f32 and its activation pro (< 0: none).
+struct MmaStream {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* w;
+  const float* A;
+  const float* B;
+  int C, c_pad, pro;
+};
+
+struct MmaStreams {
+  MmaStream s[2];
+  int count;
+};
+
+// stream 0 or 1, field by field: an indexed kernel parameter would be
+// copied to local memory
+__device__ __forceinline__ MmaStream pick_stream(const MmaStreams& ss, bool second) {
+  const MmaStream& a = ss.s[0];
+  const MmaStream& b = ss.s[1];
+  return MmaStream{second ? b.x : a.x, second ? b.w : a.w, second ? b.A : a.A,
+                   second ? b.B : a.B, second ? b.C : a.C, second ? b.c_pad : a.c_pad,
+                   second ? b.pro : a.pro};
+}
+
+// raw chunk -> staged tile, channel-innermost, with the prologue PRO: two
+// roundings and no FMA, then one rounding to bf16 (in pack_bf16); zeros
+// past row H and column W, written after the prologue
+template <typename Cfg, int PRO>
+__device__ __forceinline__ void convt_stage(const __nv_bfloat16* rb, const float* abb,
+                                            __nv_bfloat16* stage, int m0, int n0, int H,
+                                            int W) {
+  using namespace fmi_mma;
+  constexpr int CK = Cfg::CK, SH = Cfg::SH, SW = Cfg::SW, RW = Cfg::RW, SP = Cfg::SP;
+  const int cg = threadIdx.x / (kThreads / 2);
+  for (int p = threadIdx.x % (kThreads / 2); p < SH * SW; p += kThreads / 2) {
+    const int r = p / SW, s = p - r * SW;
+    const bool inside = m0 + r < H && n0 + s < W;
+    unsigned packed[4];
+#pragma unroll
+    for (int k = 0; k < 8; k += 2) {
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ch = cg * 8 + k + e;
+        float f = __bfloat162float(rb[(ch * SH + r) * RW + s]);
+        if constexpr (PRO >= 0)
+          f = apply_act(__fadd_rn(__fmul_rn(f, abb[ch]), abb[CK + ch]), PRO);
+        v[e] = inside ? f : 0.f;
+      }
+      packed[k / 2] = pack_bf16(v[0], v[1]);
+    }
+    *reinterpret_cast<uint4*>(stage + p * SP + cg * 8) =
+        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  }
+}
+
+// out [N, Co, 2H, 2W] bf16; bias [co_pad] f32 (the streams' biases summed);
+// psum, psq [N, Co, tiles] or null. W % 8 == 0 and 16-byte aligned maps.
+template <int COP>
+__global__ void __launch_bounds__(kThreads, 1)
+convt_pair_mma_kernel(MmaStreams ss, const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ psum,
+                      float* __restrict__ psq, int H, int W, int Co, int co_blocks, int co_pad,
+                      int act) {
+  using namespace fmi_mma;
+  using Cfg = ConvTMmaCfg<COP>;
+  constexpr int MT = Cfg::MT, NT = Cfg::NT, TW = Cfg::TW, TH = Cfg::TH, SH = Cfg::SH,
+                SW = Cfg::SW, CK = Cfg::CK, SP = Cfg::SP, RW = Cfg::RW, WS = Cfg::WS,
+                OW = Cfg::OW, OP = Cfg::OP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][CK][SH][RW]
+  __nv_bfloat16* stage = raw + 2 * Cfg::kRaw;                        // [SH * SW][SP]
+  __nv_bfloat16* ws = stage + Cfg::kStage;                           // [2][9][CK][WS]
+  float* ab = reinterpret_cast<float*>(ws + 2 * Cfg::kW);            // [2][A, B][CK]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, lm = lane >> 3, li = lane & 7;
+  const int n = blockIdx.z / co_blocks;
+  const int co0 = (blockIdx.z - n * co_blocks) * COP;
+  const int m0 = blockIdx.y * TH, n0 = blockIdx.x * TW;
+  const int wrow = warp / Cfg::WPR, wcol = (warp % Cfg::WPR) * 16 * MT;
+  const int chunks0 = ss.s[0].c_pad / CK;
+  const int n_chunks = chunks0 + (ss.count > 1 ? ss.s[1].c_pad / CK : 0);
+
+  // chunk ck (of stream 0, then stream 1) into buffer buf: the raw rows
+  // m0 .. m0 + TH as they lie in memory (16-byte pieces, zeros past the
+  // image and past C), the chunk's weights and its prologue affine
+  auto prefetch = [&](int ck, int buf) {
+    const MmaStream st = pick_stream(ss, ck >= chunks0);
+    const int c0 = (ck < chunks0 ? ck : ck - chunks0) * CK;
+    const __nv_bfloat16* xn = st.x + static_cast<size_t>(n) * st.C * H * W;
+    constexpr int kPieces = RW / 8;
+    __nv_bfloat16* rb = raw + buf * Cfg::kRaw;
+    for (int i = tid; i < CK * SH * kPieces; i += kThreads) {
+      const int j = i % kPieces, rest = i / kPieces;  // rest = ch * SH + r
+      const int r = rest % SH, c = c0 + rest / SH;
+      const int y = m0 + r, xx = n0 + 8 * j;
+      const bool ok = c < st.C && y < H && xx < W;
+      cp_async16(rb + rest * RW + 8 * j, ok ? xn + (static_cast<size_t>(c) * H + y) * W + xx : xn,
+                 ok ? 16 : 0);
+    }
+    __nv_bfloat16* wb = ws + buf * Cfg::kW;
+    for (int i = tid; i < 9 * CK * NT; i += kThreads) {
+      const int p = i % NT, rest = i / NT;  // rest = tap * CK + ch
+      const int ch = rest % CK, tap = rest / CK;
+      cp_async16(wb + rest * WS + 8 * p,
+                 st.w + (static_cast<size_t>(tap) * st.c_pad + c0 + ch) * co_pad + co0 + 8 * p,
+                 16);
+    }
+    if (st.pro >= 0 && tid < 2 * CK) {
+      const int c = c0 + tid % CK;
+      const bool ok = c < st.C;
+      cp_async4(ab + buf * 2 * CK + tid,
+                (tid < CK ? st.A : st.B) + static_cast<size_t>(n) * st.C + (ok ? c : 0),
+                ok ? 4 : 0);
+    }
+  };
+
+  // acc[py * 2 + px][mt][j]: output parity (py, px) of the warp's m16 tile mt
+  float acc[4][MT][NT][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][mt][j][e] = 0.f;
+
+  prefetch(0, 0);
+  cp_async_commit();
+  for (int ck = 0; ck < n_chunks; ++ck) {
+    const int buf = ck & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ck landed; every warp is done with chunk ck - 1
+    if (ck + 1 < n_chunks) prefetch(ck + 1, buf ^ 1);
+    cp_async_commit();
+    const __nv_bfloat16* rb = raw + buf * Cfg::kRaw;
+    const float* abb = ab + buf * 2 * CK;
+    switch (pick_stream(ss, ck >= chunks0).pro) {  // the stream's prologue, block-uniform
+      case 0: convt_stage<Cfg, 0>(rb, abb, stage, m0, n0, H, W); break;
+      case 1: convt_stage<Cfg, 1>(rb, abb, stage, m0, n0, H, W); break;
+      case 2: convt_stage<Cfg, 2>(rb, abb, stage, m0, n0, H, W); break;
+      default: convt_stage<Cfg, -1>(rb, abb, stage, m0, n0, H, W); break;
+    }
+    __syncthreads();
+    const __nv_bfloat16* wb = ws + buf * Cfg::kW;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {  // each tap feeds one parity
+      const int ky = tap / 3, kx = tap % 3;
+      // ky = 1: even rows from row m; 2: odd rows from m; 0: odd rows from
+      // m + 1 (and the same for kx and the columns)
+      const int q = (ky == 1 ? 0 : 2) + (kx == 1 ? 0 : 1);
+      const int dr = ky == 0 ? 1 : 0, dc = kx == 0 ? 1 : 0;
+      unsigned bf[NT][2];
+      if constexpr (NT == 1) {
+        ldmatrix_x2_trans(bf[0], wb + (tap * CK + (lane & 15)) * WS);
+      } else {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, wb + (tap * CK + (lm & 1) * 8 + li) * WS + np * 16 + (lm >> 1) * 8);
+          bf[2 * np][0] = b[0];
+          bf[2 * np][1] = b[1];
+          bf[2 * np + 1][0] = b[2];
+          bf[2 * np + 1][1] = b[3];
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        unsigned a[4];
+        ldmatrix_x4(a, stage + ((wrow + dr) * SW + wcol + mt * 16 + (lane & 15) + dc) * SP +
+                           (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16(acc[q][mt][j], a, bf[j][0], bf[j][1]);
+      }
+    }
+  }
+  __syncthreads();  // the epilogue reuses the staging memory
+
+  // bias, stats from the f32 value, act, one rounding; the two column
+  // parities of a pixel are neighbours in the output row, one 4-byte store
+  __nv_bfloat16* ot = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [COP][2 TH][OW]
+  float* red = reinterpret_cast<float*>(ot + COP * OP);            // [2][kWarps][COP]
+  const bool row_in = m0 + wrow < H;
+  float s1[NT][2], s2[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s1[j][0] = s1[j][1] = s2[j][0] = s2[j][1] = 0.f;
+#pragma unroll
+  for (int py = 0; py < 2; ++py)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = wcol + mt * 16 + g + 8 * (e >> 1);
+          const int co = j * 8 + 2 * t + (e & 1);
+          const float b = bias[co0 + co];  // bias is padded to co_pad
+          const float y0 = acc[2 * py][mt][j][e] + b, y1 = acc[2 * py + 1][mt][j][e] + b;
+          if (row_in && n0 + col < W && co0 + co < Co) {
+            s1[j][e & 1] += y0 + y1;
+            s2[j][e & 1] += y0 * y0 + y1 * y1;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(ot + co * OP + (2 * wrow + py) * OW + 2 * col) =
+              __floats2bfloat162_rn(apply_act(y0, act), apply_act(y1, act));
+        }
+  if (psum != nullptr) {
+    // over the 8 pixel rows g of the fragments, then the warps in order
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float a = s1[j][h], b = s2[j][h];
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          a += __shfl_xor_sync(0xffffffffu, a, m);
+          b += __shfl_xor_sync(0xffffffffu, b, m);
+        }
+        if (lane < 4) {
+          red[warp * COP + j * 8 + 2 * lane + h] = a;
+          red[(kWarps + warp) * COP + j * 8 + 2 * lane + h] = b;
+        }
+      }
+  }
+  __syncthreads();
+  if (psum != nullptr && tid < COP && co0 + tid < Co) {
+    float a = 0.f, b = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      a += red[w * COP + tid];
+      b += red[(kWarps + w) * COP + tid];
+    }
+    const int tiles = gridDim.x * gridDim.y;
+    const size_t k = (static_cast<size_t>(n) * Co + co0 + tid) * tiles +
+                     blockIdx.y * gridDim.x + blockIdx.x;
+    psum[k] = a;
+    psq[k] = b;
+  }
+  constexpr int kPieces = OW / 8;
+  const int H2 = 2 * H, W2 = 2 * W;
+  for (int i = tid; i < COP * 2 * TH * kPieces; i += kThreads) {
+    const int kc = i % kPieces, rest = i / kPieces;  // rest = co * 2 TH + r
+    const int r = rest % (2 * TH), co = rest / (2 * TH);
+    const int y = 2 * m0 + r, xx = 2 * n0 + 8 * kc;
+    if (co0 + co < Co && y < H2 && xx < W2) {
+      const size_t dst = ((static_cast<size_t>(n) * Co + co0 + co) * H2 + y) * W2 + xx;
+      *reinterpret_cast<uint4*>(out + dst) =
+          *reinterpret_cast<const uint4*>(ot + co * OP + r * OW + 8 * kc);
+    }
+  }
+}
+
 int pick_cop(int Co) {
   int cop = kCPT;
   while (cop < Co && cop < kCoMax) cop *= 2;
@@ -739,6 +1056,23 @@ int launch_convt(const Streams& ss, const float* bias, void* out, float* psum, f
   if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   convt_pair_kernel<T, COP><<<grid, kThreads, 0, stream>>>(
       ss, bias, static_cast<T*>(out), psum, psq, H, W, Co, co_blocks, co_pad, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int COP>
+int launch_convt_mma(const MmaStreams& ss, const float* bias, __nv_bfloat16* out, float* psum,
+                     float* psq, int N, int H, int W, int Co, int co_pad, int act,
+                     cudaStream_t stream) {
+  using Cfg = ConvTMmaCfg<COP>;
+  const int co_blocks = co_pad / COP;
+  const dim3 grid((W + Cfg::TW - 1) / Cfg::TW, (H + Cfg::TH - 1) / Cfg::TH, N * co_blocks);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaError_t err =
+      cudaFuncSetAttribute(convt_pair_mma_kernel<COP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(Cfg::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  convt_pair_mma_kernel<COP><<<grid, kThreads, Cfg::kSmem, stream>>>(
+      ss, bias, out, psum, psq, H, W, Co, co_blocks, co_pad, act);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -888,6 +1222,53 @@ extern "C" int fmi_convt_pair_bf16(const void* x0, const void* w0, const void* A
                               out, psum, psq, N, H, W, Co, co_pad, act, stream);
 }
 
+// Which K4a kernel takes a call: 1 the tensor-core kernel (bf16, W % 8 == 0,
+// every map 16-byte aligned; x1 null for one stream), 0 the CUDA-core
+// kernel. By type, shape and alignment only.
+extern "C" int fmi_convt_pair_route(int bf16, const void* x0, const void* x1, const void* out,
+                                    int W) {
+  return bf16 && W % 8 == 0 && aligned16(x0) && aligned16(x1) && aligned16(out) ? 1 : 0;
+}
+
+// K4a on the tensor cores, for the calls fmi_convt_pair_route sends there:
+// as fmi_convt_pair_bf16, but each w_s is bf16 [9][c_pad_s][co_pad] (tap
+// ky * 3 + kx of torch's [C_s, Co, 3, 3], input channel, output channel;
+// c_pad_s = fmi_decoder_conv_c_pad(C_s); zeros past C_s and Co) and tiles is
+// fmi_decoder_conv_tiles(3, H, W, Co).
+extern "C" int fmi_convt_pair_bf16_mma(const void* x0, const void* w0, const void* A0,
+                                       const void* B0, int C0, int pro0, const void* x1,
+                                       const void* w1, const void* A1, const void* B1, int C1,
+                                       int pro1, int count, const void* bias, void* out,
+                                       void* psum, void* psq, int N, int H, int W, int Co,
+                                       int co_pad, int act, void* stream) {
+  if (bad_shape(N, H, W, Co) || count < 1 || count > 2 || C0 < 1 ||
+      (count == 2 && C1 < 1) || pro0 > 2 || pro1 > 2 || bad_act(act) ||
+      co_pad != (Co + pick_cop(Co) - 1) / pick_cop(Co) * pick_cop(Co) ||
+      !fmi_convt_pair_route(1, x0, count == 2 ? x1 : nullptr, out, W) || !aligned16(w0) ||
+      (count == 2 && !aligned16(w1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using B16 = __nv_bfloat16;
+  MmaStreams ss;
+  ss.s[0] = MmaStream{static_cast<const B16*>(x0), static_cast<const B16*>(w0),
+                      static_cast<const float*>(A0), static_cast<const float*>(B0), C0,
+                      mma_c_pad(C0), pro0 < 0 ? -1 : pro0};
+  ss.s[1] = MmaStream{static_cast<const B16*>(x1), static_cast<const B16*>(w1),
+                      static_cast<const float*>(A1), static_cast<const float*>(B1), C1,
+                      count == 2 ? mma_c_pad(C1) : 0, pro1 < 0 ? -1 : pro1};
+  ss.count = count;
+  const float* b = static_cast<const float*>(bias);
+  B16* o = static_cast<B16*>(out);
+  float* s1 = static_cast<float*>(psum);
+  float* s2 = static_cast<float*>(psq);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (pick_cop(Co)) {
+    case 8: return launch_convt_mma<8>(ss, b, o, s1, s2, N, H, W, Co, co_pad, act, cs);
+    case 16: return launch_convt_mma<16>(ss, b, o, s1, s2, N, H, W, Co, co_pad, act, cs);
+    case 32: return launch_convt_mma<32>(ss, b, o, s1, s2, N, H, W, Co, co_pad, act, cs);
+    default: return launch_convt_mma<64>(ss, b, o, s1, s2, N, H, W, Co, co_pad, act, cs);
+  }
+}
+
 // co_pad for Co output channels: Co rounded up to the kernels' channel
 // block (8, 16, 32 or 64). The wrapper sizes the weights and bias with it.
 extern "C" int fmi_decoder_conv_co_pad(int Co) {
@@ -900,9 +1281,20 @@ extern "C" int fmi_decoder_conv_co_pad(int Co) {
 extern "C" int fmi_decoder_conv_c_pad(int C) { return mma_c_pad(C); }
 
 // The number of tiles, i.e. the last dimension of psum and psq, of K4b on
-// the CUDA cores (kind 0), K4a (kind 1) or K4b on the tensor cores (kind 2)
-// at H x W input and Co outputs.
+// the CUDA cores (kind 0), K4a on the CUDA cores (kind 1), K4b on the tensor
+// cores (kind 2) or K4a on the tensor cores (kind 3) at H x W input and Co
+// outputs.
 extern "C" int fmi_decoder_conv_tiles(int kind, int H, int W, int Co) {
+  if (kind == 3) {
+    int th = 0;
+    switch (pick_cop(Co)) {
+      case 8: th = ConvTMmaCfg<8>::TH; break;
+      case 16: th = ConvTMmaCfg<16>::TH; break;
+      case 32: th = ConvTMmaCfg<32>::TH; break;
+      default: th = ConvTMmaCfg<64>::TH; break;
+    }
+    return ((W + ConvTMmaCfg<64>::TW - 1) / ConvTMmaCfg<64>::TW) * ((H + th - 1) / th);
+  }
   if (kind == 2) {
     int th = 0;
     switch (pick_cop(Co)) {

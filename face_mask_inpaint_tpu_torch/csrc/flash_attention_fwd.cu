@@ -8,32 +8,44 @@
 // concatenated on channels, all sharing one map):
 //     out[n, i, :] = sum_j softmax_j(q_i . q_j) v[n, j, :]
 // query == key, no 1/sqrt(d) scale. The softmax runs in base 2 with log2(e)
-// folded into q, in f32, with an online max and sum. Optionally writes the
+// folded in, in f32, with an online max and sum; P is rounded to bf16 before
+// P V on the tensor-core paths, as the TPU kernel rounds it to the value
+// type. Optionally writes the
 // per-row lse = m + log2(l) (base 2) for a later backward.
 //
 // What bounds it on an H100: at the flagship (L = 16384, d = 64, C = 256) the
 // forward is 2 L^2 (d + C) ~ 172 GFLOP per sample against 2 L (d + C) bf16
-// values read, so it is compute-bound: the products have to run on the
-// tensor cores, and the [L, L] map must never reach device memory.
+// values read, so it is compute-bound (2.78 ms at the dense bf16 peak for
+// the batch of 16): the products have to run on the tensor cores, and the
+// [L, L] map must never reach device memory. Ragged L is masked: padded
+// keys score -inf, padded query rows are neither stored nor given an lse.
 //
-// Design, shared by both paths: one block per (64-row query tile,
-// 128-channel chunk, sample) loops over 64-row key tiles held in shared
-// memory, with an online max and sum. The channel chunk is a grid axis:
-// each chunk recomputes its scores (about 20% more FLOPs at d = 64,
-// C = 256) and keeps shared memory small enough for two or more blocks per
-// SM. Ragged L is masked: padded keys score -inf, padded query rows are not
-// stored.
-//
-// - bf16 with d in {32, 64, 128} and C % 8 == 0 (the flagship): the
-//   tensor-core path below (mma.sync, cp.async double buffering).
-// - Everything else (f32, other d, other C): 256 threads on the CUDA cores
-//   in f32. Each thread owns a 4x4 score tile and a 4x8 accumulator tile;
-//   the rows of both coincide, so the online rescale needs no exchange
-//   beyond 16-lane shuffles for the row max and row sum. This path sits far
-//   below the tensor-core rate; wgmma/TMA for both is later work.
+// Three kernels; fmi_flash_attention_fwd_route picks one by type, shape and
+// alignment only:
+// - bf16, d = 64, C <= 256 with C % 8 == 0 and 16-byte aligned rows (the
+//   flagship, config 5, Stack A's two values of 200 + 56 channels): the
+//   warp-specialised kernel on the warpgroup tensor cores (wgmma, TMA; see
+//   its section). One block takes 128 query rows and all channels, so no
+//   score is computed twice. At the flagship it ran at 545 TFLOP/s (5.04 ms
+//   on an H100 SXM at 700 W, where scaled_dot_product_attention took 5.85
+//   ms). What holds it back is the softmax between its two products: the
+//   products wait for it, and without the P V products the kernel still
+//   took 3.3-3.6 ms (tools/tensor_core_variants.py).
+// - other bf16 with d in {32, 64, 128} and C % 8 == 0: the mma.sync kernel,
+//   one block per (64-row query tile, 128-channel chunk, sample); each
+//   chunk recomputes its scores (about 20% more FLOPs at d = 64, C = 256)
+//   and keeps shared memory small enough for several blocks per SM.
+// - everything else (f32, other d, other C): the same tiling on the CUDA
+//   cores in f32, 256 threads. Each thread owns a 4x4 score tile and a 4x8
+//   accumulator tile; the rows of both coincide, so the online rescale
+//   needs no exchange beyond 16-lane shuffles for the row max and row sum.
+//   This path sits far below the tensor-core rate.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -205,8 +217,8 @@ int launch(const void* q, const void* v, void* o, void* lse, int N, int L,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path for bf16 (d in {32, 64, 128}, C % 8 == 0, 16-byte aligned
-// rows): the flagship's configuration. Four warps per (64-row query tile,
+// mma.sync path for bf16 (d in {32, 64, 128}, C % 8 == 0, 16-byte aligned
+// rows) that the warpgroup path does not take. Four warps per (64-row query tile,
 // 128-channel chunk, sample); each warp owns 16 query rows. S = Q K^T and
 // O += P V run as mma.sync m16n8k16 (bf16 in, f32 accumulate); P is rounded
 // to bf16 for the second product, as the TPU kernel rounds it to the value
@@ -431,7 +443,279 @@ int launch_mma(const void* q, const void* v, void* o, void* lse, int N, int L, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Warp-specialised path on Hopper's warpgroup tensor cores, for bf16 with
+// d = 64 and C <= 256 (C % 8 == 0, 16-byte aligned rows): the flagship's and
+// config 5's configuration. One block of three warpgroups takes 128 query
+// rows x all C channels x one sample:
+//   - warpgroup 2 (producer) gives up registers and one thread keeps TMA
+//     loads in flight: Q once (two 64-row boxes), then per 64-key tile the
+//     K box [64 keys][64] and four V boxes [64 keys][64 channels], into a
+//     ring of kWgStages stages, each with a full and an empty mbarrier.
+//     Boxes past L or C arrive as zeros.
+//   - warpgroups 0 and 1 (consumers) take 64 query rows each and raise their
+//     registers: S = Q K^T is wgmma m64n64k16 (both K-major), the online
+//     softmax runs on its f32 fragment in registers, P is rounded to bf16 in
+//     registers and is the A operand of O += P V, wgmma m64n256k16 with V
+//     MN-major (the transpose bit). O stays in 128 f32 registers a thread.
+// No score is computed twice: the executed work is the function's.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBQ = 128;        // query rows a block (64 per consumer warpgroup)
+constexpr int kWgBK = 64;         // keys a tile
+constexpr int kWgD = 64;          // head dim of this path
+constexpr int kWgCMax = 256;      // value channels: four 64-channel boxes
+constexpr int kWgStages = 3;
+constexpr int kWgThreads = 384;
+constexpr int kWgTileBytes = kWgBK * kWgD * 2;            // one 64 x 64 bf16 box: 8 KB
+constexpr int kWgStageBytes = kWgTileBytes * (1 + kWgCMax / 64);  // K + 4 V boxes
+constexpr size_t kWgSmem = 1024 /* alignment slack */ + 2 * kWgTileBytes /* Q */ +
+                           static_cast<size_t>(kWgStages) * kWgStageBytes +
+                           sizeof(uint64_t) * (1 + 2 * kWgStages);
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int L, int C) {
+  using namespace fmi_wgmma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(sm);            // [128][64]
+  unsigned char* ring = sm + 2 * kWgTileBytes;                          // [stage][K, V0..V3]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kWgStages * kWgStageBytes);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kWgStages;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kWgBQ, n = blockIdx.y;
+  const int n_tiles = (L + kWgBK - 1) / kWgBK;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);  // every consumer thread releases the stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // producer: the paths of the two roles never meet again
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      mbar_expect_tx(q_full, 2 * kWgTileBytes);
+      tma_load_3d(qs, &qmap, q_full, 0, q0, n);
+      tma_load_3d(qs + kWgBK * kWgD, &qmap, q_full, 0, q0 + kWgBK, n);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kWgStages;
+        mbar_wait(&empty[s], ((t / kWgStages) & 1) ^ 1);
+        unsigned char* st = ring + s * kWgStageBytes;
+        mbar_expect_tx(&full[s], kWgStageBytes);
+        tma_load_3d(st, &qmap, &full[s], 0, t * kWgBK, n);
+#pragma unroll
+        for (int cb = 0; cb < kWgCMax / 64; ++cb)
+          tma_load_3d(st + (1 + cb) * kWgTileBytes, &vmap, &full[s], cb * 64, t * kWgBK, n);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint64_t qdesc = desc_sw128(qs + wg * kWgBK * kWgD, 16, 1024);
+
+    float oacc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) oacc[i] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};  // rows g, g + 8
+
+    float sacc[32], alpha[2];
+    unsigned pa[4][4];
+
+    // S = Q K^T of tile t into sacc: one committed group, in flight on return
+    auto issue_qk = [&](int t) {
+      const int s = t % kWgStages;
+      mbar_wait(&full[s], (t / kWgStages) & 1);
+      const uint64_t kdesc = desc_sw128(ring + s * kWgStageBytes, 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < kWgD / 16; ++kk)  // 16 columns = 32 bytes a step
+        wgmma_m64n64k16_ss(sacc, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+      wgmma_commit();
+    };
+    // the online softmax of tile t's scores, in place: sacc becomes P (f32),
+    // m and l move on, alpha[h] is the factor that O's row h still owes
+    auto softmax = [&](int t) {
+      const int k0 = t * kWgBK;
+      if (k0 + kWgBK > L) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + j * 8 + 2 * t4 + (e & 1) >= L) sacc[4 * j + e] = -INFINITY;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sacc[4 * j + 2 * h], sacc[4 * j + 2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // every tile holds at least one real key, so m_new is finite
+        const float m_new = fmaxf(m_r[h], mx * kLog2e);  // running max, base-2 scale
+        alpha[h] = exp2f(m_r[h] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            sacc[4 * j + e] = exp2f(fmaf(sacc[4 * j + e], kLog2e, -m_new));
+            rs += sacc[4 * j + e];
+          }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l_r[h] = l_r[h] * alpha[h] + rs;
+        m_r[h] = m_new;
+      }
+    };
+    // P in bf16 as the A fragments of four k16 steps (keys 16 kk ..)
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+      }
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          oacc[4 * j + 2 * h] *= alpha[h];
+          oacc[4 * j + 2 * h + 1] *= alpha[h];
+        }
+    };
+    auto issue_pv = [&](int t) {
+      const uint64_t vdesc =
+          desc_sw128(ring + (t % kWgStages) * kWgStageBytes + kWgTileBytes, kWgTileBytes, 1024);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_m64n256k16_rs(oacc, pa[kk], vdesc + 128 * kk);
+      wgmma_commit();
+    };
+    // Per tile: S, the softmax, then O += P V, each product waited for at
+    // once. The two consumer warpgroups overlap one's softmax with the
+    // other's products only as the warp schedulers interleave them:
+    // schedules that issue the next tile's S ahead or take turns through
+    // named barriers measured slower on the H100 (ptxas serialised their
+    // wgmma, C7514 / C7520).
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+      wgmma_fence();
+      issue_qk(t);
+      wgmma_wait<0>();
+      pin(sacc);
+      softmax(t);
+      rescale();
+      pack();
+      wgmma_fence();
+      issue_pv(t);
+      wgmma_wait<0>();
+      pin(oacc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pin(pa[kk]);
+      mbar_arrive(&empty[t % kWgStages]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + wg * 64 + warp * 16 + g + 8 * h;
+      if (row >= L) continue;
+      const float inv = 1.f / l_r[h];
+      __nv_bfloat16* orow = o + ((size_t)n * L + row) * C;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int ch = j * 8 + 2 * t4;
+        if (ch < C)
+          *reinterpret_cast<__nv_bfloat162*>(&orow[ch]) =
+              __floats2bfloat162_rn(oacc[4 * j + 2 * h] * inv, oacc[4 * j + 2 * h + 1] * inv);
+      }
+      if (lse != nullptr && t4 == 0) lse[(size_t)n * L + row] = m_r[h] + log2f(l_r[h]);
+    }
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
+
+// cuTensorMapEncodeTiled, a driver-API function, reached through the
+// runtime so that the library links no libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [N][L][width] bf16 as a 3-d map of [64 x 64] boxes with the 128-byte
+// swizzle; out-of-range elements read as zeros
+bool rows_map(CUtensorMap* map, const void* base, int N, int L, int width) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
+                                 static_cast<cuuint64_t>(width) * 2 * L};
+  const cuuint32_t box[3] = {64, kWgBK, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const void* q, const void* v, void* o, void* lse, int N, int L, int C,
+                 void* stream) {
+  CUtensorMap qmap, vmap;
+  if (!rows_map(&qmap, q, N, L, kWgD) || !rows_map(&vmap, v, N, L, C))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kWgSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + kWgBQ - 1) / kWgBQ, N);
+  flash_fwd_wgmma_kernel<<<grid, kWgThreads, kWgSmem, static_cast<cudaStream_t>(stream)>>>(
+      qmap, vmap, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), L, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 2: the warpgroup kernel; 1: the mma.sync kernel; 0: the CUDA cores
+int route(int bf16, const void* q, const void* v, const void* o, int N, int L, int d, int C) {
+  const bool ok = bf16 && N >= 1 && N <= 65535 && L >= 1 && C >= 8 && C % 8 == 0 &&
+                  aligned16(q) && aligned16(v) && aligned16(o);
+  if (ok && d == kWgD && C <= kWgCMax) return 2;
+  if (ok && (d == 32 || d == 64 || d == 128)) return 1;
+  return 0;
+}
 
 }  // namespace
 
@@ -443,15 +727,26 @@ extern "C" int fmi_flash_attention_fwd_f32(const void* q, const void* v, void* o
   return launch<float>(q, v, o, lse, N, L, d, C, stream);
 }
 
-// bf16 takes the tensor-core path where its shape and alignment allow (the
-// flagship always does), and the CUDA-core path otherwise.
+// bf16 takes the route fmi_flash_attention_fwd_route gives its shape and
+// alignment: the warpgroup kernel (the flagship and config 5), the mma.sync
+// kernel, or the CUDA cores.
 extern "C" int fmi_flash_attention_fwd_bf16(const void* q, const void* v, void* o,
                                             void* lse, int N, int L, int d, int C,
                                             void* stream) {
-  const bool mma = N >= 1 && N <= 65535 && L >= 1 && C >= 8 && C % 8 == 0 &&
-                   aligned16(q) && aligned16(v) && aligned16(o);
-  if (mma && d == 64) return launch_mma<64>(q, v, o, lse, N, L, C, stream);
-  if (mma && d == 32) return launch_mma<32>(q, v, o, lse, N, L, C, stream);
-  if (mma && d == 128) return launch_mma<128>(q, v, o, lse, N, L, C, stream);
-  return launch<__nv_bfloat16>(q, v, o, lse, N, L, d, C, stream);
+  switch (route(1, q, v, o, N, L, d, C)) {
+    case 2: return launch_wgmma(q, v, o, lse, N, L, C, stream);
+    case 1:
+      if (d == 64) return launch_mma<64>(q, v, o, lse, N, L, C, stream);
+      if (d == 32) return launch_mma<32>(q, v, o, lse, N, L, C, stream);
+      return launch_mma<128>(q, v, o, lse, N, L, C, stream);
+    default: return launch<__nv_bfloat16>(q, v, o, lse, N, L, d, C, stream);
+  }
+}
+
+// Which K1 kernel takes a call with these pointers and shape: 2 the
+// warpgroup (wgmma) kernel, 1 the mma.sync kernel, 0 the CUDA-core kernel.
+// By type, shape and alignment only.
+extern "C" int fmi_flash_attention_fwd_route(int bf16, const void* q, const void* v,
+                                             const void* o, int N, int L, int d, int C) {
+  return route(bf16, q, v, o, N, L, d, C);
 }

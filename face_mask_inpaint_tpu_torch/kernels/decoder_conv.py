@@ -19,11 +19,12 @@ value; the optional ``act`` and one rounding to the input dtype follow
 (packed_convt.py:114-130, :214-217, :394-441). Activations: LeakyReLU(0.1)
 and ReLU.
 
-K4b has two CUDA kernels, chosen by the C side by shape and alignment only
-(``conv3x3_route``): bf16 maps with W % 8 == 0 run on the tensor cores, with
-the weights packed once per call as bf16 [9, c_pad, co_pad]; everything else
-(float32, other widths) on the CUDA cores with f32 [C, 9, co_pad] weights, as
-K4a always does.
+K4b and K4a each have two CUDA kernels, chosen by the C side by shape and
+alignment only (``conv3x3_route``, ``convt_pair_route``): bf16 maps with
+W % 8 == 0 run on the tensor cores, with the weights packed once per call as
+bf16 [9, c_pad, co_pad] (K4a: one such operand a stream, its four output
+parities computed as four GEMMs over one staged tile); everything else
+(float32, other widths) on the CUDA cores with f32 [C, 9, co_pad] weights.
 
 Weights are the port's own: ``Conv2d`` [Co, Ci, 3, 3] and ``ConvTranspose2d``
 torch's [Ci, Co, 3, 3] (nn/layers.py). Each wrapper launches its kernel for
@@ -48,7 +49,7 @@ from face_mask_inpaint_tpu_torch.kernels import build
 from face_mask_inpaint_tpu_torch.kernels.output_head import _no_grad_needed
 
 __all__ = ["conv3x3_stats", "conv3x3_stats_plain", "conv3x3_route", "convt_pair",
-           "convt_pair_plain", "instance_affine_from_stats", "ACTS"]
+           "convt_pair_plain", "convt_pair_route", "instance_affine_from_stats", "ACTS"]
 
 ACTS = ("LeakyReLU", "ReLU")
 _SLOPE = 0.1  # the reference registry's LeakyReLU slope
@@ -193,6 +194,8 @@ _ARGTYPES = {
     "fmi_conv3x3_stats_bf16_mma": [_PTR] * 8 + [_INT] * 8 + [_PTR],
     "fmi_conv3x3_route": [_INT, _PTR, _PTR, _INT],
     "fmi_convt_pair": _STREAM_ARGS * 2 + [_INT] + [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    "fmi_convt_pair_bf16_mma": _STREAM_ARGS * 2 + [_INT] + [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    "fmi_convt_pair_route": [_INT, _PTR, _PTR, _PTR, _INT],
     "fmi_decoder_conv_co_pad": [_INT],
     "fmi_decoder_conv_c_pad": [_INT],
     "fmi_decoder_conv_tiles": [_INT] * 4,
@@ -226,6 +229,14 @@ def _weights_mma(w: torch.Tensor, c_pad: int, co_pad: int) -> torch.Tensor:
     # reads the operand by its pointer, so it must be contiguous
     return F.pad(w.to(torch.bfloat16).permute(2, 3, 1, 0),
                  (0, co_pad - co, 0, c_pad - c)).reshape(9, c_pad, co_pad).contiguous()
+
+
+def _convt_weights_mma(w: torch.Tensor, c_pad: int, co_pad: int) -> torch.Tensor:
+    """The tensor-core K4a's operand of one stream: [9, c_pad, co_pad] bf16
+    (tap ky * 3 + kx, input channel, output channel) from torch's
+    ConvTranspose2d weight [C, Co, 3, 3], zeros past C and Co; c_pad is
+    fmi_decoder_conv_c_pad(C)."""
+    return _weights_mma(w.transpose(0, 1), c_pad, co_pad)
 
 
 def _weights(w: torch.Tensor, dtype: torch.dtype, co_pad: int, transposed: bool):
@@ -273,6 +284,22 @@ def conv3x3_route(x: torch.Tensor) -> str:
     """"tensor_cores" or "cuda_cores": the K4b kernel a call on the CUDA map x
     launches (its output is allocated as x is, so x's alignment decides)."""
     return "tensor_cores" if _route(x, x) else "cuda_cores"
+
+
+def _convt_route(streams, out: torch.Tensor) -> bool:
+    """Whether K4a runs this call on the tensor cores (bf16, W % 8 == 0,
+    16-byte aligned maps): the C side decides, by shape and alignment."""
+    x0 = streams[0][0]
+    x1 = streams[1][0].data_ptr() if len(streams) == 2 else None
+    return bool(_function("fmi_convt_pair_route")(x0.dtype == torch.bfloat16, x0.data_ptr(),
+                                                   x1, out.data_ptr(), x0.shape[3]))
+
+
+def convt_pair_route(x: torch.Tensor) -> str:
+    """"tensor_cores" or "cuda_cores": the K4a kernel a call launches whose
+    streams lie as the CUDA map x does (its output is allocated, so x's
+    alignment decides)."""
+    return "tensor_cores" if _convt_route([(x,)], x) else "cuda_cores"
 
 
 def conv3x3_stats(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -349,6 +376,8 @@ def convt_pair(streams: Sequence, act: Optional[str] = None, with_stats: bool = 
     n, _, h, wd = x0.shape
     co = streams[0][1].shape[1]
     co_pad = _function("fmi_decoder_conv_co_pad")(co)
+    out = torch.empty((n, co, 2 * h, 2 * wd), dtype=x0.dtype, device=x0.device)
+    mma = _convt_route(streams, out)
     args, keep = [], []  # the C arguments, and the tensors behind their pointers
     for x, w, b, prologue in streams + [(None, None, None, None)] * (2 - len(streams)):
         if x is None:
@@ -356,15 +385,17 @@ def convt_pair(streams: Sequence, act: Optional[str] = None, with_stats: bool = 
             continue
         a_, b_, pro = _prologue_args(prologue)
         _check_device(x, [x0, w, b, a_, b_], "convt_pair")
-        wt = _weights(w, x.dtype, co_pad, transposed=True)
+        wt = (_convt_weights_mma(w, _function("fmi_decoder_conv_c_pad")(x.shape[1]), co_pad)
+              if mma else _weights(w, x.dtype, co_pad, transposed=True))
         keep += [wt, a_, b_]  # alive until the launch: the kernel reads them
         args += [x.data_ptr(), wt.data_ptr(), _ptr(a_), _ptr(b_), x.shape[1], pro]
     bias = _padded(_pair_bias(streams, co, x0.device), co_pad)
-    out = torch.empty((n, co, 2 * h, 2 * wd), dtype=x0.dtype, device=x0.device)
-    tiles = _function("fmi_decoder_conv_tiles")(1, h, wd, co)
+    kernel = (_function("fmi_convt_pair_bf16_mma") if mma
+              else _function("fmi_convt_pair", x0.dtype))
+    tiles = _function("fmi_decoder_conv_tiles")(3 if mma else 1, h, wd, co)
     psum, psq = _stats_buffers(n, co, tiles, x0.device, with_stats)
     with torch.cuda.device(x0.device):
-        rc = _function("fmi_convt_pair", x0.dtype)(
+        rc = kernel(
             *args, len(streams), bias.data_ptr(), out.data_ptr(), _ptr(psum), _ptr(psq),
             n, h, wd, co, co_pad, _ACT_CODE[act], torch.cuda.current_stream().cuda_stream)
     if rc != 0:

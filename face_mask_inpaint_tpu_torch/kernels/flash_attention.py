@@ -38,8 +38,9 @@ import torch
 
 from face_mask_inpaint_tpu_torch.kernels import build
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "flash_attention_bwd_route", "flash_attention_autograd"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_route",
+           "flash_attention_bwd", "flash_attention_bwd_plain", "flash_attention_bwd_route",
+           "flash_attention_autograd"]
 
 _LOG2E = 1.4426950408889634
 _D_MAX = 128  # the kernel's shared-memory plan holds d <= 128
@@ -107,6 +108,32 @@ def _function(dtype: torch.dtype):
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _route_function():
+    fn = build.load("flash_attention_fwd").fmi_flash_attention_fwd_route
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_ROUTES = {2: "wgmma", 1: "mma_sync", 0: "cuda_cores"}
+
+
+def flash_attention_route(q: torch.Tensor, values: Sequence[torch.Tensor]) -> str:
+    """"wgmma", "mma_sync" or "cuda_cores": the K1 kernel that a call on these
+    CUDA tensors launches. The C side decides, by type, shape and alignment
+    only: bf16 at d = 64 and C <= 256 (C % 8 == 0, 16-byte aligned rows)
+    takes the warpgroup kernel, other bf16 at d in {32, 64, 128} with
+    C % 8 == 0 the mma.sync kernel, the rest the CUDA cores. The values are
+    concatenated and the output allocated as the call does it, so v_cat's
+    alignment stands for both."""
+    _check(q, values)
+    n, l, d = q.shape
+    v_cat = values[0] if len(values) == 1 else torch.cat(list(values), dim=-1)
+    return _ROUTES[_route_function()(q.dtype == torch.bfloat16, q.data_ptr(), v_cat.data_ptr(),
+                                     v_cat.data_ptr(), n, l, d, v_cat.shape[-1])]
 
 
 def flash_attention(q: torch.Tensor, values: Sequence[torch.Tensor],

@@ -1,12 +1,16 @@
 """Time two checkouts of the port on one card, in turns A, B, B, A: chip_smoke.py's
 flagship bf16 batch-16 forward (phase 5: default, packed-convt and plain
-configurations) and its config-5 bf16-mixed training step (phase 7).
+configurations), its profile (phase 6: per-stage times and the summed
+device time of three forwards of each configuration) and its config-5
+bf16-mixed training step (phase 7).
 
     python -m face_mask_inpaint_tpu_torch.tools.chip_ab DIR_A DIR_B
 
 Each turn is a fresh process in that checkout's root, which builds its own
-kernels there and runs that checkout's chip_smoke.phase_timing and
-phase_train; its [time] and [train] lines are printed with the turn's label.
+kernels there and runs that checkout's chip_smoke.phase_timing,
+phase_profile and phase_train; its [time] and [train] lines and the
+[profile] lines of stages and device time are printed with the turn's
+label.
 The order A, B, B, A lets drift over the run hit both checkouts alike.
 Compare the two only within one run of this script (same card, same host).
 """
@@ -28,6 +32,7 @@ card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=c
 cs.phase_build()
 run = cs.Run()
 cs.phase_timing(run, 0, {}, card)
+cs.phase_profile(run, 0, cs.PROFILE_ROUNDS, card)
 cs.phase_train(run, 0, card)
 raise SystemExit(1 if run.failures else 0)
 """
@@ -44,8 +49,10 @@ def main(argv=None) -> int:
         proc = subprocess.run([sys.executable, "-c", CHILD], cwd=dirs[side],
                               capture_output=True, text=True)
         for line in proc.stdout.splitlines():
-            if line.startswith(("[time] flagship", "[time] peak", "[train] config-5",
-                                "[train] profile", "FAIL")):
+            if (line.startswith(("[time] flagship", "[time] peak", "[train] config-5",
+                                 "[train] profile", "FAIL"))
+                    or line.startswith("[profile]") and ("per stage" in line
+                                                         or "device time" in line)):
                 print(f"{side}{turn} {line}", flush=True)
         if proc.returncode != 0:
             print(f"{side}{turn} exited {proc.returncode}:\n{proc.stderr[-2000:]}", flush=True)

@@ -407,3 +407,71 @@ def test_tensor_core_weight_packing(co, c, co_pad, c_pad):
         y += torch.einsum("nchw,co->nohw", shifted, packed[tap, :c].float())
     want = dc.conv3x3_stats_plain(x.float(), w.to(torch.bfloat16).float(), None)
     assert float((y[:, :co] - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# The taps of ConvTranspose2d(k=3, s=2, p=1, output_padding=1) as four
+# GEMMs, one per output parity, as the tensor-core K4a computes them: output
+# pixel (2m + py, 2n + px) sums w[:, :, ky, kx] applied to input pixel
+# (m + dy, n + dx) over the (ky, kx, dy, dx) of its parity (py, px), the
+# input zero past row H - 1 and column W - 1
+CONVT_PARITY_TAPS = {
+    (0, 0): ((1, 1, 0, 0),),
+    (0, 1): ((1, 2, 0, 0), (1, 0, 0, 1)),
+    (1, 0): ((2, 1, 0, 0), (0, 1, 1, 0)),
+    (1, 1): ((2, 2, 0, 0), (2, 0, 0, 1), (0, 2, 1, 0), (0, 0, 1, 1)),
+}
+
+
+# (C per stream, Co, co_pad, c_pads, H, W, prologue activations): both
+# streams, one stream without a prologue, ragged H and W, Co off the 8-wide
+# channel tiles; fmi_decoder_conv_co_pad and fmi_decoder_conv_c_pad as in
+# the test above
+@pytest.mark.parametrize("cs,co,co_pad,c_pads,h,w,pros", [
+    ((13, 21), 3, 8, (16, 32), 5, 7, ("LeakyReLU", None)),
+    ((16,), 80, 128, (16,), 4, 6, ("ReLU",)),
+    ((8, 40), 10, 16, (16, 48), 3, 9, (None, "LeakyReLU")),
+])
+def test_convt_parity_gemms_from_packed_weights(cs, co, co_pad, c_pads, h, w, pros):
+    """K4a's tensor-core operand of each stream, [9, c_pad, co_pad] bf16
+    (contiguous, unpacked exactly to the weight rounded to bf16, zeros past
+    C and Co), and the kernel's four parity GEMMs emulated in f32 from it
+    through CONVT_PARITY_TAPS: the sum over streams and taps, plus the
+    biases, equals convt_pair_plain's output on the f32 streams with those
+    bf16-rounded weights, and its sums of y and y^2 (f32 max-abs 1e-5
+    relative: the same products summed in another order)."""
+    rs = np.random.RandomState(sum(cs) + co)
+    assert sorted(t for taps in CONVT_PARITY_TAPS.values() for t in
+                  [(ky, kx) for ky, kx, _, _ in taps]) == [(ky, kx) for ky in range(3)
+                                                           for kx in range(3)]
+    streams, y = [], torch.zeros(2, co_pad, 2 * h, 2 * w)
+    for c, c_pad, pro in zip(cs, c_pads, pros):
+        x = torch.from_numpy(rs.randn(2, c, h, w).astype(np.float32))
+        wt = torch.from_numpy((rs.randn(c, co, 3, 3) / 3).astype(np.float32))
+        wt = wt.to(torch.bfloat16).float()  # the kernel's operand is bf16
+        b = torch.from_numpy(rs.randn(co).astype(np.float32))
+        prologue = None
+        if pro is not None:
+            a, b_, _ = _prologue(rs, 2, c, pro)
+            prologue = (torch.from_numpy(a), torch.from_numpy(b_), pro)
+        streams.append((x, wt, b, prologue))
+
+        packed = dc._convt_weights_mma(wt, c_pad, co_pad)
+        assert packed.dtype == torch.bfloat16 and packed.shape == (9, c_pad, co_pad)
+        assert packed.is_contiguous()  # the kernel reads it by its pointer
+        unpacked = packed[:, :c, :co].reshape(3, 3, c, co).permute(2, 3, 0, 1)
+        assert torch.equal(unpacked, wt.to(torch.bfloat16))
+        assert not packed[:, c:].any() and not packed[:, :, co:].any()
+
+        w32 = packed.float()
+        xp = torch.nn.functional.pad(dc._prologued(x, prologue), (0, 1, 0, 1))
+        for (py, px), taps in CONVT_PARITY_TAPS.items():
+            for ky, kx, dy, dx in taps:
+                shifted = xp[:, :, dy:dy + h, dx:dx + w]
+                y[:, :, py::2, px::2] += torch.einsum("nchw,co->nohw", shifted,
+                                                      w32[ky * 3 + kx, :c])
+    y = y[:, :co] + sum(b for _, _, b, _ in streams)[None, :, None, None]
+    want, (s, sq) = dc.convt_pair_plain(streams, None, with_stats=True)
+    scale = float(want.abs().max())
+    assert float((y - want).abs().max()) <= 1e-5 * scale
+    assert float((y.sum(dim=(2, 3)) - s).abs().max()) <= 1e-5 * float(s.abs().max() + 1)
+    assert float((y.square().sum(dim=(2, 3)) - sq).abs().max()) <= 1e-5 * float(sq.abs().max())

@@ -1,5 +1,7 @@
 """K1, K5, K2, K3, K4a, K4b, K6 (forward and backward), K7a and K7b against
-their plain versions on an NVIDIA GPU.
+their plain versions on an NVIDIA GPU, on each of their routes (K1: the
+warpgroup, mma.sync and CUDA-core kernels; K4a, K4b and K5: tensor cores and
+CUDA cores), with each route's choice by shape and alignment.
 Marked ``cuda``: they skip where torch.cuda.is_available() is False (the
 decision is taken in a fixture, at run time). Run on the card, where JAX need
 not be installed, with
@@ -63,7 +65,8 @@ def _assert_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,l,d,widths", [
     (2, 320, 8, [24, 16]), (2, 257, 128, [130]),                        # CUDA-core path
-    (1, 4100, 64, [256]), (2, 300, 128, [264]), (2, 257, 32, [128, 8]),  # bf16: tensor cores
+    (1, 4100, 64, [256]),                                     # bf16: warpgroup (wgmma) path
+    (2, 300, 128, [264]), (2, 257, 32, [128, 8]),             # bf16: mma.sync path
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, n, l, d, widths):
     q = (torch.randn(n, l, d, device="cuda", generator=cuda) * 0.5).to(dtype)
@@ -77,6 +80,44 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, n, l, d, widths):
         assert o.dtype == dtype
         _assert_close(o, r, dtype)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
+# d = 64 in bf16 with C <= 256: the warpgroup kernel, at L of one key, under,
+# at and just over one 128-row query block, and ragged over many; C of the
+# flagship (256), of Stack A's two values (200 + 56) and of one 64-wide box
+@pytest.mark.parametrize("l", [1, 100, 128, 130, 4100])
+@pytest.mark.parametrize("widths", [[256], [200, 56], [64]])
+def test_flash_attention_wgmma_route_matches_plain(cuda, l, widths):
+    q = (torch.randn(2, l, 64, device="cuda", generator=cuda) / 4).to(torch.bfloat16)
+    vs = [torch.randn(2, l, c, device="cuda", generator=cuda).to(torch.bfloat16) for c in widths]
+    assert fa.flash_attention_route(q, vs) == "wgmma"
+    before = fa.flash_attention.launches
+    outs, lse = fa.flash_attention(q, vs, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    refs, lse_ref = fa.flash_attention_plain(q, vs, with_lse=True)
+    for o, r in zip(outs, refs):
+        assert o.dtype == torch.bfloat16 and o.shape == r.shape
+        _assert_close(o, r, torch.bfloat16)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
+def test_flash_attention_routes(cuda):
+    """bf16 at d = 64 and C <= 256 (C % 8 == 0) takes the warpgroup kernel,
+    the flagship and config 5 (C = 256) among them; bf16 at d in {32, 128}
+    or C > 256 the mma.sync kernel; other shapes, misaligned tensors and
+    float32 the CUDA cores."""
+    def route(d, widths, dtype=torch.bfloat16, offset=0):
+        q = torch.zeros(2, 8, d, device="cuda", dtype=dtype)
+        return fa.flash_attention_route(q, [
+            torch.zeros(2 * 8 * c + offset, device="cuda", dtype=dtype)[offset:].view(2, 8, c)
+            for c in widths])
+    assert route(64, [256]) == route(64, [200, 56]) == route(64, [8]) == "wgmma"
+    assert route(64, [264]) == route(32, [256]) == route(128, [64]) == "mma_sync"
+    assert route(48, [256]) == route(64, [60]) == "cuda_cores"
+    assert route(64, [256], offset=1) == "cuda_cores"
+    assert route(64, [200, 56], offset=1) == "wgmma"  # concatenated into a new tensor
+    assert route(64, [256], torch.float32) == "cuda_cores"
 
 
 def test_flash_attention_kernel_rejects_bad_input(cuda):
@@ -379,6 +420,69 @@ def test_convt_pair_kernel_matches_plain(cuda, dtype, n, ch, cx, h, w, co, act, 
         _assert_stats(stats, want_stats, dtype)
     assert got.dtype == dtype and got.shape == (n, co, 2 * h, 2 * w)
     _assert_close(got, want, dtype)
+
+
+# (N, (C_s), (prologue act_s), H, W, Co, act, with_stats) on the tensor
+# cores (bf16, W % 8 == 0): one or two streams, each prologue activation and
+# none, with and without stats, odd H, Co of 3, 8, 16, 32, 64 and 80 (two
+# channel blocks), H and W off the 64-column tile
+@pytest.mark.parametrize("n,cs,pros,h,w,co,act,with_stats", [
+    (2, (64, 128), ("LeakyReLU", None), 20, 64, 64, None, True),
+    (2, (32, 64), ("LeakyReLU", None), 24, 72, 32, "LeakyReLU", False),
+    (3, (5, 13), ("ReLU", "none"), 37, 48, 3, "ReLU", True),
+    (1, (21,), (None,), 17, 80, 64, None, True),
+    (2, (40,), ("LeakyReLU",), 9, 16, 80, "LeakyReLU", True),
+    (2, (16, 8), ("none", "ReLU"), 11, 136, 8, None, False),
+    (1, (33,), ("ReLU",), 7, 8, 16, "ReLU", True),
+])
+def test_convt_pair_tensor_cores_match_plain(cuda, n, cs, pros, h, w, co, act, with_stats):
+    dtype = torch.bfloat16
+    streams = [(_map(cuda, (n, c, h, w), dtype),
+                torch.randn(c, co, 3, 3, device="cuda", generator=cuda) / (3 * c ** 0.5),
+                0.5 * torch.randn(co, device="cuda", generator=cuda),
+                _prologue(cuda, n, c, pro) if pro else None) for c, pro in zip(cs, pros)]
+    assert dc.convt_pair_route(streams[0][0]) == "tensor_cores"
+    before = dc.convt_pair.launches
+    got = dc.convt_pair(streams, act, with_stats)
+    torch.cuda.synchronize()
+    assert dc.convt_pair.launches == before + 1
+    want = dc.convt_pair_plain(streams, act, with_stats)
+    if with_stats:
+        (got, stats), (want, want_stats) = got, want
+        _assert_stats(stats, want_stats, dtype)
+    assert got.dtype == dtype and got.shape == (n, co, 2 * h, 2 * w)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,co", [(64, 32), (21, 80)])
+def test_convt_pair_takes_strided_weight_and_bias(cuda, dtype, c, co):
+    """A weight and bias that are strided views give the plain version's
+    output on both routes (bf16 at W = 24 takes the tensor cores): the
+    wrapper hands the kernels contiguous copies."""
+    x = _map(cuda, (2, c, 16, 24), dtype)
+    wt = (torch.randn(3, 3, c, co, device="cuda", generator=cuda) / (3 * c ** 0.5)
+          ).permute(2, 3, 0, 1)
+    b = torch.randn(2 * co, device="cuda", generator=cuda)[::2]
+    streams = [(x, wt, b, _prologue(cuda, 2, c, "LeakyReLU"))]
+    assert not wt.is_contiguous() and not b.is_contiguous()
+    got = dc.convt_pair(streams, "ReLU")
+    torch.cuda.synchronize()
+    _assert_close(got, dc.convt_pair_plain(streams, "ReLU"), dtype)
+
+
+def test_convt_pair_routes(cuda):
+    """bf16 maps with W % 8 == 0 take the tensor cores, the flagship's
+    decoders 3 and 4 among them; other widths, misaligned maps and float32
+    the CUDA cores."""
+    def route(c, h, w, dtype=torch.bfloat16, offset=0):
+        flat = torch.zeros(c * h * w + offset, device="cuda", dtype=dtype)
+        return dc.convt_pair_route(flat[offset:].view(1, c, h, w))
+    assert route(128, 256, 256) == route(64, 512, 512) == "tensor_cores"  # decoders 3, 4
+    assert route(5, 9, 72) == route(5, 9, 8) == "tensor_cores"
+    assert route(5, 9, 70) == route(5, 9, 41) == "cuda_cores"
+    assert route(5, 9, 72, offset=1) == "cuda_cores"
+    assert route(5, 9, 72, torch.float32) == "cuda_cores"
 
 
 def test_decoder_conv_kernels_reject_bad_input(cuda):
