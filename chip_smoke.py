@@ -25,8 +25,9 @@ it and read just after. Phases:
    ragged ones, for dq and each dv; K1 also at L under and just over one
    128-row block and at C = 64, K4a also on one stream without a prologue,
    at odd H and Co of 3 and 80; check that K1 takes its warpgroup (wgmma)
-   route in bfloat16 at d = 64 (the flagship, config 5 and the ragged
-   [200, 56] values), that K4b and K4a take their tensor-core routes in
+   route in bfloat16 at d = 64 and C <= 256 (the flagship, config 5 and
+   the ragged [200, 56] values), its mma.sync route in bfloat16 at d = 128
+   or C > 256, and its CUDA-core one elsewhere, that K4b and K4a take their tensor-core routes in
    bfloat16 where W % 8 == 0 (the flagship's decoders 3 and 4 and W = 72
    among them) and their CUDA-core ones elsewhere, and K5 its tensor-core
    route at config 5, and print each one's route and K1's, K4a's, K4b's
@@ -44,9 +45,7 @@ it and read just after. Phases:
    timed with CUDA events, in the default configuration with the kernels
    and with the plain versions and in the packed-convt one with the
    kernels, in alternating order, and the peak device memory of each
-   configuration's forward; the routes of the forward's own K1 calls
-   (wgmma) and, in the packed-convt configuration, K4a calls (tensor
-   cores);
+   configuration's forward;
 6. a profile of that forward: the time of each stage (CUDA events around
    each stage's module) with the kernels, with the dense Output head
    (K1 and K2 on, no K3) and in the packed-convt configuration; the spread
@@ -302,34 +301,6 @@ def plain_versions():
          dc.conv3x3_stats, dc.convt_pair, fir.upfirdn2d, act.fused_leaky_relu) = saved
 
 
-@contextlib.contextmanager
-def recorded_routes(routes: dict):
-    """Record the route of every K1 and K4a call of the model into
-    routes["K1"] and routes["K4a"] (sets); the calls launch as before. A
-    wrapper counts its launches on the module attribute of its own name, so
-    the recorders carry the counts while they stand in for it."""
-    from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
-    from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
-
-    saved = (fa.flash_attention, dc.convt_pair)
-
-    def k1(q, values, with_lse=False):
-        routes.setdefault("K1", set()).add(fa.flash_attention_route(q, values))
-        return saved[0](q, values, with_lse=with_lse)
-
-    def k4a(streams, act=None, with_stats=False):
-        routes.setdefault("K4a", set()).update(dc.convt_pair_route(st[0]) for st in streams)
-        return saved[1](streams, act, with_stats)
-
-    k1.launches, k4a.launches = saved[0].launches, saved[1].launches
-    fa.flash_attention, dc.convt_pair = k1, k4a
-    try:
-        yield
-    finally:
-        saved[0].launches, saved[1].launches = k1.launches, k4a.launches
-        fa.flash_attention, dc.convt_pair = saved
-
-
 def phase_build():
     from face_mask_inpaint_tpu_torch.kernels import build
 
@@ -462,11 +433,13 @@ def phase_kernels(run: Run, seed: int, timings: dict):
     gen = torch.Generator(device=dev).manual_seed(seed)
     # q scaled so the maps are spread (the diagonal holds well under 1% of a
     # row at L = 16384), which exercises the whole online softmax; d = 48
-    # takes the CUDA-core path, d = 64 in bf16 the warpgroup (wgmma) path,
-    # here at L under and just over one 128-row block and at C = 64 too
+    # takes the CUDA-core path, d = 64 with C <= 256 in bf16 the warpgroup
+    # (wgmma) path, here at L under and just over one 128-row block and at
+    # C = 64 too, and d = 128 or C > 256 in bf16 the mma.sync path
     k1_cases = [("flagship", 16, 16384, 64, [256]), ("ragged", 2, 4100, 64, [200, 56]),
                 ("ragged", 2, 4100, 48, [200, 56]), ("ragged", 2, 100, 64, [256]),
-                ("ragged", 2, 130, 64, [256]), ("C=64", 2, 4100, 64, [64])]
+                ("ragged", 2, 130, 64, [256]), ("C=64", 2, 4100, 64, [64]),
+                ("mma.sync", 2, 4100, 128, [264]), ("mma.sync", 2, 257, 64, [200, 72])]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for label, n, l, d, widths in k1_cases:
@@ -486,7 +459,8 @@ def phase_kernels(run: Run, seed: int, timings: dict):
                       f"{err:.3e} lse_err {lse_err:.3e} (tol atol {TOL[dname][0]} + rtol "
                       f"{TOL[dname][1]:.3e}*|ref|, lse {LSE_ATOL})")
             route = fa.flash_attention_route(q, vs)
-            want_route = ("wgmma" if dtype == torch.bfloat16 and d == 64 else "cuda_cores")
+            want_route = ("cuda_cores" if dtype != torch.bfloat16 or d not in (32, 64, 128)
+                          else "wgmma" if d == 64 and sum(widths) <= 256 else "mma_sync")
             run.check(route == want_route, f"K1 {label} N={n} L={l} d={d} C={widths} {dname} "
                                            f"takes the {want_route} route (route {route})")
             if label == "flagship":
@@ -899,14 +873,6 @@ def phase_timing(run: Run, seed: int, timings: dict, card: str):
                   f"bf16 batch-16 forward, {name} configuration: {out.dtype}, launches "
                   f"{launches}")
         del out
-        # the routes of the forward's own K1 and K4a calls, in one more forward
-        routes: dict = {}
-        with config(), recorded_routes(routes):
-            forward()
-        want_routes = ({"K1": {"wgmma"}} if name == "default"
-                       else {"K1": {"wgmma"}, "K4a": {"tensor_cores"}})
-        run.check(routes == want_routes, f"bf16 batch-16 forward, {name} configuration: "
-                                         f"routes {routes} (want {want_routes})")
     sides = {"kernels": contextlib.nullcontext, "packed-convt": lambda: packed_convt(model),
              "plain": plain_versions}
     times = {side: [] for side in sides}

@@ -9,9 +9,8 @@ A variant is ``csrc/decoder_conv.cu``, ``csrc/flash_attention_bwd.cu`` or
 out channel-innermost, the tensor-core products, the cp.async copies of the
 next chunk; K5: the f32 atomics of dq's query role; K1: the P V products,
 the exp2 of the softmax, the rescale of O) or moved (K5: v_c's A fragments
-read from shared memory instead of kept in registers; K1: two other
-schedules of its loop), built with the port's
-nvcc flags into ``build/kernels/variants/``. A variant that takes work out
+read from shared memory instead of kept in registers), built with the
+port's nvcc flags into ``build/kernels/variants/``. A variant that takes work out
 computes a wrong result: its time says what that work costs, not what a
 kernel could do. The committed source is checked against its plain version.
 Every variant is timed with CUDA events through its C entry point (so
@@ -58,63 +57,6 @@ _K1_PV = "      for (int kk = 0; kk < 4; ++kk) wgmma_m64n256k16_rs(oacc, pa[kk],
 _K1_EXP2 = "            sacc[4 * j + e] = exp2f(fmaf(sacc[4 * j + e], kLog2e, -m_new));"
 _K1_RESCALE = """          oacc[4 * j + 2 * h] *= alpha[h];
           oacc[4 * j + 2 * h + 1] *= alpha[h];"""
-# K1's loop, and two other schedules of the same work: the next tile's S
-# issued ahead of this tile's P V, its softmax run while P V is in flight
-# and O rescaled before the products; and that schedule with the two
-# consumer warpgroups taking turns to issue their products (named barriers
-# 1 and 2), as FlashAttention-3 does
-_K1_LOOP = """      wgmma_fence();
-      issue_qk(t);
-      wgmma_wait<0>();
-      pin(sacc);
-      softmax(t);
-      rescale();
-      pack();
-      wgmma_fence();
-      issue_pv(t);
-      wgmma_wait<0>();
-      pin(oacc);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) pin(pa[kk]);
-      mbar_arrive(&empty[t % kWgStages]);
-    }"""
-
-
-def _k1_ahead(turns: bool) -> dict:
-    sync = '      asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");\n' if turns else ""
-    arrive = '      asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");\n' if turns else ""
-    first = '    if (wg == 1) asm volatile("bar.arrive 1, 256;" ::: "memory");\n' if turns else ""
-    return {"    mbar_wait(q_full, 0);\n    for (int t = 0; t < n_tiles; ++t) {\n": f"""\
-    mbar_wait(q_full, 0);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
-    wgmma_fence();
-    issue_qk(0);
-    wgmma_wait<0>();
-    pin(sacc);
-    softmax(0);
-    pack();
-{first}    for (int t = 0; t < n_tiles; ++t) {{
-      const bool more = t + 1 < n_tiles;
-      rescale();
-{sync}      wgmma_fence();
-      if (more) issue_qk(t + 1);
-      issue_pv(t);
-{arrive}      if (more) {{
-        wgmma_wait<1>();
-        pin(sacc);
-        softmax(t + 1);
-      }}
-""", "#pragma unroll\n      for (int i = 0; i < 32; ++i) sacc[i] = 0.f;\n" + _K1_LOOP: """\
-      wgmma_wait<0>();
-      pin(oacc);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) pin(pa[kk]);
-      mbar_arrive(&empty[t % kWgStages]);
-      if (more) pack();
-    }"""}
-
-
 # each variant's name starts with the kernel it is timed for
 VARIANTS = {
     "decoder_conv": {
@@ -135,8 +77,6 @@ VARIANTS = {
         "K1 no P V products": {_K1_PV: _K1_PV.replace("kk < 4;", "kk < 4 * (n_tiles < 0);")},
         "K1 no exp2": {_K1_EXP2: _K1_EXP2.replace("exp2f(", "(")},
         "K1 no rescale of O": {_K1_RESCALE: ""},
-        "K1 next S issued ahead": _k1_ahead(turns=False),
-        "K1 next S issued ahead, warpgroups in turns": _k1_ahead(turns=True),
     },
     "flash_attention_bwd": {
         "as committed": {},

@@ -84,9 +84,11 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, n, l, d, widths):
 
 # d = 64 in bf16 with C <= 256: the warpgroup kernel, at L of one key, under,
 # at and just over one 128-row query block, and ragged over many; C of the
-# flagship (256), of Stack A's two values (200 + 56) and of one 64-wide box
+# flagship (256), of Stack A's two values (200 + 56), of one 64-wide box,
+# and C that ends inside a box or before the second, third or fourth one
+# (TMA zero-fills the channels past C)
 @pytest.mark.parametrize("l", [1, 100, 128, 130, 4100])
-@pytest.mark.parametrize("widths", [[256], [200, 56], [64]])
+@pytest.mark.parametrize("widths", [[256], [200, 56], [64], [8], [72], [200]])
 def test_flash_attention_wgmma_route_matches_plain(cuda, l, widths):
     q = (torch.randn(2, l, 64, device="cuda", generator=cuda) / 4).to(torch.bfloat16)
     vs = [torch.randn(2, l, c, device="cuda", generator=cuda).to(torch.bfloat16) for c in widths]
