@@ -19,28 +19,34 @@ it and read just after. Phases:
 2. hold each kernel against its plain PyTorch version on the card, at the
    flagship shapes and ragged ones, in float32 (TF32 off) and bfloat16; time
    each at the flagship shape beside its bound (the larger of its bytes over
-   the memory rate and its operations over the peak rate) and, for K1, K5,
-   K4b and K4a, beside the PyTorch call that computes the same function;
+   the memory rate and its operations over the peak rate of the route that
+   ran it: K1's and K5's f32 split-precision route as three TF32 products)
+   and, for K1, K5, K4b and K4a, beside the PyTorch call that computes the
+   same function (K1's and K5's in both types, with that call's error
+   against the plain version, not gated);
    K5, the flash-attention backward, at the config-5 shape (batch 16) and
    ragged ones, for dq and each dv; K1 also at L under and just over one
    128-row block and at C = 64, K4a also on one stream without a prologue,
-   at odd H and Co of 3 and 80; check that K1 takes its warpgroup (wgmma)
-   route in bfloat16 at d = 64 and C <= 256 (the flagship, config 5 and
-   the ragged [200, 56] values), its mma.sync route in bfloat16 at d = 128
-   or C > 256, and its CUDA-core one elsewhere, that K4b and K4a take their tensor-core routes in
+   at odd H and Co of 3 and 80; check that K1 and K5 take their tensor-core
+   routes at d = 64 and C <= 256 (the flagship, config 5, the ragged
+   [200, 56] values, L = 100 and 130): in bfloat16 K1's warpgroup (wgmma)
+   kernel and K5's tensor-core one, in float32 the split-precision (tf32x3)
+   kernels; and their CUDA-core ones elsewhere (d = 48, d = 128, C > 256),
+   that K4b and K4a take their tensor-core routes in
    bfloat16 where W % 8 == 0 (the flagship's decoders 3 and 4 and W = 72
-   among them) and their CUDA-core ones elsewhere, and K5 its tensor-core
-   route at config 5, and print each one's route and K1's, K4a's, K4b's
-   and K5's achieved TFLOP/s;
+   among them) and their CUDA-core ones elsewhere, and print each one's
+   route and K1's, K4a's, K4b's and K5's achieved TFLOP/s;
 3. the flagship models at batch 4, float32, random weights from --seed:
    output shape, range and finiteness; the kernel path against the plain
    versions on the card; the launch counts of one forward (K1 once, K2 ten
-   times, K3 once);
+   times, K3 once); a ``torch.profiler`` window of one forward, which must
+   show K1's split-precision kernel and neither of its others;
 3b. the packed-convt configuration on the same models and inputs: the
    launch counts of one forward (K1 once, K2 six times, K4b and K4a twice,
    K3 never), the kernel path against the plain versions and against the
    default configuration's output (both compute the same function);
-4. the CLI's ``infer_batch`` over three seeded batches, with SSIM/MS-SSIM;
+4. the CLI's ``infer_batch`` (float32, as the CLI runs) over three seeded
+   batches, with SSIM/MS-SSIM and the median wall time of the calls;
 5. the flagship forward at batch 16 in bfloat16 (bench.py's configuration),
    timed with CUDA events, in the default configuration with the kernels
    and with the plain versions and in the packed-convt one with the
@@ -65,7 +71,9 @@ it and read just after. Phases:
    list, which must show K5's tensor-core kernel and neither CUDA-core one,
    and K1's warpgroup kernel;
    and at batch 2 in float32 with a seeded non-zero attention gamma,
-   the kernel path's G and D gradients against the plain path's;
+   the kernel path's G and D gradients against the plain path's, and a
+   ``torch.profiler`` window of that step, which must show K1's and K5's
+   split-precision kernels and none of their others;
 8. Stack B, pSp -> StyleGAN2 inference at BASELINE config 4 (the path of
    ``psp_inference.py --use_ref --use_attention 1``): K6 (upfirdn2d) and
    K7a (fused_leaky_relu) against their plain versions in float32 and
@@ -112,6 +120,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -142,6 +151,9 @@ DECODER_TAIL = [dict(name="decoder 3", c=128, co=64, h=256),
 STATS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # one H100 SXM: HBM bytes/s; dense bf16 tensor-core and f32 CUDA-core FLOP/s
 MEM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
+# dense TF32 tensor-core FLOP/s: K1's and K5's f32 split-precision route runs
+# three TF32 products for each f32 multiply-add
+TF32_RATE = 495e12
 
 # rounds of the phase-6 spread: enough for quartiles of a host-bound forward
 PROFILE_ROUNDS = 10
@@ -254,6 +266,17 @@ def _bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def _flash_bound(nbytes: float, ops: float, dtype_name: str, route: str) -> tuple[float, str]:
+    """K1's and K5's bound for the route that ran them: bf16 at the dense
+    bf16 rate; f32 on the split-precision route as three TF32 products at the
+    dense TF32 rate, on the CUDA cores at the f32 rate."""
+    if dtype_name == "bfloat16":
+        return _bound(nbytes, ops, BF16_RATE)
+    if route == "tf32x3":
+        return _bound(nbytes, 3 * ops, TF32_RATE)
+    return _bound(nbytes, ops, F32_RATE)
+
+
 def _time_ms(fn, reps: int):
     import torch
 
@@ -301,6 +324,23 @@ def plain_versions():
          dc.conv3x3_stats, dc.convt_pair, fir.upfirdn2d, act.fused_leaky_relu) = saved
 
 
+def _kernel_name(ptxas_line: str) -> str:
+    """The kernel in a ptxas "Compiling entry function" line with its integer
+    template arguments, e.g. flash_bwd_tf32x3_kernel<64, 4>: the last
+    <length><identifier> of the mangled name's nested name."""
+    name = ptxas_line.split("'")[1] if "'" in ptxas_line else ""
+    i, ident = (3 if name.startswith("_ZN") else 2), "?"
+    while i < len(name) and name[i].isdigit():
+        j = i
+        while name[j].isdigit():
+            j += 1
+        ident, i = name[j:j + int(name[i:j])], j + int(name[i:j])
+    args = re.match(r"I((?:Li\d+E)+)E", name[i:])
+    if args is None:
+        return ident
+    return ident + "<" + ", ".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+
+
 def phase_build():
     from face_mask_inpaint_tpu_torch.kernels import build
 
@@ -310,31 +350,41 @@ def phase_build():
     for name, path in libs.items():
         log = path.with_suffix(".log")
         if log.is_file():
+            kernel = ""
             for line in log.read_text().splitlines():
+                if "Compiling entry function" in line:
+                    kernel = _kernel_name(line)
                 if "registers" in line or "spill" in line:
-                    print(f"[build] {name}: {line.strip()}")
+                    print(f"[build] {name}: {kernel}: {line.strip()}")
 
 
-def _library_attention_ms(q, v):
+def _library_attention(q, v, ref):
     """K1's yardstick: torch's scaled_dot_product_attention on the same
-    inputs (q == k, scale 1). Timed here only; the port never calls it."""
+    inputs (q == k, scale 1), in their dtype. Timed here only; the port never
+    calls it. Returns (ms, max |library - plain|), or (None, None) where no
+    backend takes the shapes; the error says at what precision it ran and is
+    not gated."""
     import torch
     import torch.nn.functional as F
 
     q4, v4 = q[:, None], v[:, None]
     try:
+        err = float((F.scaled_dot_product_attention(q4, q4, v4, scale=1.0)[:, 0].float()
+                     - ref.float()).abs().max())
         ms = _time_ms(lambda: F.scaled_dot_product_attention(q4, q4, v4, scale=1.0), 5)
     except RuntimeError as e:  # no backend for these shapes: no yardstick
         print(f"[time] K1 library call unavailable: {str(e).splitlines()[0]}")
-        return None
+        return None, None
     torch.cuda.empty_cache()
-    return ms
+    return ms, err
 
 
-def _library_attention_bwd_ms(q, v, dout):
+def _library_attention_bwd(q, v, dout, dq_ref, dv_ref):
     """K5's yardstick: the backward of torch's scaled_dot_product_attention
     on the same inputs (q == k, scale 1), timed without its forward. Timed
-    here only; the port never calls it."""
+    here only; the port never calls it. Returns (ms, max |library - plain|
+    over dq and dv, each over its largest plain entry), or (None, None); the
+    error is not gated."""
     import torch
     import torch.nn.functional as F
 
@@ -342,20 +392,43 @@ def _library_attention_bwd_ms(q, v, dout):
     v4 = v[:, None].detach().requires_grad_()
     try:
         out = F.scaled_dot_product_attention(q4, q4, v4, scale=1.0)
+        grads = torch.autograd.grad(out, (q4, v4), dout[:, None], retain_graph=True)
+        err = max(float((g[:, 0].float() - w.float()).abs().max()) / float(w.float().abs().max())
+                  for g, w in zip(grads, (dq_ref, dv_ref)))
+        del grads
         ms = _time_ms(lambda: torch.autograd.grad(out, (q4, v4), dout[:, None],
                                                   retain_graph=True), 5)
     except RuntimeError as e:  # no backend for these shapes: no yardstick
         print(f"[time] K5 library call unavailable: {str(e).splitlines()[0]}")
-        return None
+        return None, None
     del out
     torch.cuda.empty_cache()
-    return ms
+    return ms, err
+
+
+def _route_k1(dtype_name: str, d: int, c_all: int) -> str:
+    """The K1 route a shape should take: d = 64 (bf16) or d in {32, 64}
+    (f32) with C <= 256 and C % 8 == 0 on the tensor cores, the rest on the
+    CUDA cores (the tensors here are 16-byte aligned)."""
+    tc = c_all <= 256 and c_all % 8 == 0
+    if dtype_name == "bfloat16":
+        return "wgmma" if tc and d == 64 else "cuda_cores"
+    return "tf32x3" if tc and d in (32, 64) else "cuda_cores"
+
+
+def _route_k5(dtype_name: str, d: int, c_all: int) -> str:
+    """The K5 route a shape should take: d in {32, 64}, C <= 256, C % 8 == 0
+    on the tensor cores (bf16) or in split precision (f32)."""
+    if d in (32, 64) and c_all <= 256 and c_all % 8 == 0:
+        return "tensor_cores" if dtype_name == "bfloat16" else "tf32x3"
+    return "cuda_cores"
 
 
 def _phase_flash_backward(run: Run, gen, timings: dict):
     """K5 against flash_attention_bwd_plain: dq and each dv, from K1's lse,
     at the config-5 shape (N = 16, L = 16384, d = 64, C = 256) and ragged
-    ones; d = 48 takes the CUDA-core path, d = 64 in bf16 the tensor cores."""
+    ones; d = 48 takes the CUDA-core path, d = 64 the tensor cores (bf16)
+    and the split-precision route (f32)."""
     import torch
 
     from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
@@ -368,10 +441,10 @@ def _phase_flash_backward(run: Run, gen, timings: dict):
             q = (torch.randn(n, l, d, device="cuda", generator=gen) / d ** 0.5 * 2).to(dtype)
             vs = [torch.randn(n, l, c, device="cuda", generator=gen).to(dtype) for c in widths]
             outs, lse = fa.flash_attention(q, vs, with_lse=True)
-            if label == "config 5" and dtype == torch.bfloat16:
-                route = fa.flash_attention_route(q, vs)
-                run.check(route == "wgmma", f"K1 {label} N={n} L={l} bfloat16 takes the wgmma "
-                                            f"route (route {route}), its lse feeds K5")
+            if label == "config 5":
+                route, want = fa.flash_attention_route(q, vs), _route_k1(dname, d, sum(widths))
+                run.check(route == want, f"K1 {label} N={n} L={l} {dname} takes the {want} "
+                                         f"route (route {route}), its lse feeds K5")
             v_cat, o_cat = torch.cat(vs, -1), torch.cat(outs, -1)
             do_cat = torch.randn(v_cat.shape, device="cuda", generator=gen).to(dtype)
             dsum = (do_cat.float() * o_cat.float()).sum(-1)
@@ -390,12 +463,10 @@ def _phase_flash_backward(run: Run, gen, timings: dict):
                 rel = max(rel, err / scale)
             run.check(ok, f"K5 {label} N={n} L={l} d={d} C={widths} {dname}: dq and each dv "
                           f"max_abs_err / max|ref| {rel:.3e} (tol {BWD_TOL[dname]})")
-            del dq_ref, dv_ref
+            route, want = fa.flash_attention_bwd_route(q, v_cat), _route_k5(dname, d, sum(widths))
+            run.check(route == want, f"K5 {label} N={n} L={l} d={d} C={widths} {dname} takes "
+                                     f"the {want} route (route {route})")
             if label == "config 5":
-                route = fa.flash_attention_bwd_route(q, v_cat)
-                if dtype == torch.bfloat16:
-                    run.check(route == "tensor_cores",
-                              f"K5 config 5 {dname} takes the tensor cores (route {route})")
                 reps = 5 if dtype == torch.bfloat16 else 2
                 ms = _time_ms(lambda: fa.flash_attention_bwd(q, v_cat, lse, do_cat, dsum), reps)
                 plain_ms = _time_ms(
@@ -403,22 +474,22 @@ def _phase_flash_backward(run: Run, gen, timings: dict):
                 c_all, es = sum(widths), q.element_size()
                 # q, v, dO, lse, D read once; dq, dv written once. Operations:
                 # the bound formula 2 N L^2 (1.5 d + 2 C)
-                bound = _bound(es * n * l * (2 * d + 3 * c_all) + 8 * n * l,
-                               2.0 * n * l * l * (1.5 * d + 2 * c_all),
-                               BF16_RATE if dtype == torch.bfloat16 else F32_RATE)
-                lib_ms = (_library_attention_bwd_ms(q, v_cat, do_cat)
-                          if dtype == torch.bfloat16 else None)
+                ops = 2.0 * n * l * l * (1.5 * d + 2 * c_all)
+                bound = _flash_bound(es * n * l * (2 * d + 3 * c_all) + 8 * n * l, ops, dname,
+                                     route)
+                lib_ms, lib_err = _library_attention_bwd(q, v_cat, do_cat, dq_ref, dv_ref)
                 timings[("flash_attention_bwd", dname)] = (ms, plain_ms, *bound, lib_ms)
                 # the function's operations (the bound's count) and the
-                # tensor-core kernel's own (704 MACs an ordered pair)
-                rate = 2.0 * n * l * l * (1.5 * d + 2 * c_all) / ms / 1e9
+                # tensor-core kernels' own (704 MACs an ordered pair)
                 own = 2.0 * n * l * l * (3 * d + 2 * c_all) / ms / 1e9
                 print(f"[time] K5 config 5 {dname} ({route}): kernel {ms:.3f} ms "
-                      f"({rate:.1f} TFLOP/s of the function's work, {own:.1f} of the "
+                      f"({ops / ms / 1e9:.1f} TFLOP/s of the function's work, {own:.1f} of the "
                       f"kernel's), plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms "
                       f"({bound[1]}), library "
-                      f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}", flush=True)
-            del q, vs, v_cat, lse, do_cat, dsum, dq, dv
+                      f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'} (its max_abs_err / "
+                      f"max|plain| {'none' if lib_err is None else f'{lib_err:.3e}'}, not gated)",
+                      flush=True)
+            del q, vs, v_cat, lse, do_cat, dsum, dq, dv, dq_ref, dv_ref
             torch.cuda.empty_cache()
 
 
@@ -432,14 +503,15 @@ def phase_kernels(run: Run, seed: int, timings: dict):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     # q scaled so the maps are spread (the diagonal holds well under 1% of a
-    # row at L = 16384), which exercises the whole online softmax; d = 48
-    # takes the CUDA-core path, d = 64 with C <= 256 in bf16 the warpgroup
-    # (wgmma) path, here at L under and just over one 128-row block and at
-    # C = 64 too, and d = 128 or C > 256 in bf16 the mma.sync path
+    # row at L = 16384), which exercises the whole online softmax. d = 64
+    # with C <= 256 takes the warpgroup (wgmma) path in bf16 and the
+    # split-precision (tf32x3) one in f32, here at L under and just over one
+    # 128-row block and at C = 64 too; d = 48, d = 128 and C > 256 take the
+    # CUDA-core path
     k1_cases = [("flagship", 16, 16384, 64, [256]), ("ragged", 2, 4100, 64, [200, 56]),
                 ("ragged", 2, 4100, 48, [200, 56]), ("ragged", 2, 100, 64, [256]),
                 ("ragged", 2, 130, 64, [256]), ("C=64", 2, 4100, 64, [64]),
-                ("mma.sync", 2, 4100, 128, [264]), ("mma.sync", 2, 257, 64, [200, 72])]
+                ("d=128", 2, 4100, 128, [264]), ("C=272", 2, 257, 64, [200, 72])]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for label, n, l, d, widths in k1_cases:
@@ -458,25 +530,24 @@ def phase_kernels(run: Run, seed: int, timings: dict):
                       f"K1 {label} N={n} L={l} d={d} C={widths} {dname}: max_abs_err "
                       f"{err:.3e} lse_err {lse_err:.3e} (tol atol {TOL[dname][0]} + rtol "
                       f"{TOL[dname][1]:.3e}*|ref|, lse {LSE_ATOL})")
-            route = fa.flash_attention_route(q, vs)
-            want_route = ("cuda_cores" if dtype != torch.bfloat16 or d not in (32, 64, 128)
-                          else "wgmma" if d == 64 and sum(widths) <= 256 else "mma_sync")
+            route, want_route = fa.flash_attention_route(q, vs), _route_k1(dname, d, sum(widths))
             run.check(route == want_route, f"K1 {label} N={n} L={l} d={d} C={widths} {dname} "
                                            f"takes the {want_route} route (route {route})")
             if label == "flagship":
                 ms = _time_ms(lambda: fa.flash_attention(q, vs), 5)
                 plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, vs), 5)
                 c_all = sum(widths)
-                bound = _bound(q.element_size() * n * l * (d + 2 * c_all),
-                               2.0 * n * l * l * (d + c_all),
-                               BF16_RATE if dtype == torch.bfloat16 else F32_RATE)
-                lib_ms = (_library_attention_ms(q, vs[0])
-                          if dtype == torch.bfloat16 and len(vs) == 1 else None)
+                ops = 2.0 * n * l * l * (d + c_all)
+                bound = _flash_bound(q.element_size() * n * l * (d + 2 * c_all), ops, dname,
+                                     route)
+                lib_ms, lib_err = _library_attention(q, vs[0], refs[0])
                 timings[("flash_attention_fwd", dname)] = (ms, plain_ms, *bound, lib_ms)
                 print(f"[time] K1 flagship {dname} ({route}): kernel {ms:.3f} ms "
-                      f"({2.0 * n * l * l * (d + c_all) / ms / 1e9:.1f} TFLOP/s), plain "
-                      f"{plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), library "
-                      f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}", flush=True)
+                      f"({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, bound "
+                      f"{bound[0]:.3f} ms ({bound[1]}), library "
+                      f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'} (its max_abs_err "
+                      f"{'none' if lib_err is None else f'{lib_err:.3e}'}, not gated)",
+                      flush=True)
             del q, vs, outs, refs
     torch.cuda.empty_cache()
     _phase_flash_backward(run, gen, timings)
@@ -751,6 +822,8 @@ def packed_convt(model):
 
 def phase_flagship(run: Run, seed: int) -> tuple[dict, dict]:
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
 
@@ -772,6 +845,17 @@ def phase_flagship(run: Run, seed: int) -> tuple[dict, dict]:
     print(f"[flagship] launches in one forward: {launches}", flush=True)
     run.check(launches == PER_FORWARD,
               f"flagship forward launches K1 once, K2 ten times and K3 once: {launches}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    _check_launched(run, rows, "flash_fwd_tf32x3_kernel",
+                    ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"), "K1 in the f32 flagship forward")
+    k1_ms = sum(e.self_device_time_total for e in rows if "flash_fwd" in e.key) / 1e3
+    print(f"[flagship] f32 forward, batch 4: K1 {k1_ms:.3f} ms of "
+          f"{sum(e.self_device_time_total for e in rows) / 1e3:.3f} ms device time", flush=True)
+    del prof
     run.check(tuple(out.shape) == (4, HW, HW, 3), f"output shape {tuple(out.shape)}")
     run.check(bool(torch.isfinite(out).all()), "output finite")
     run.check(float(out.abs().max()) <= 1.0, f"output within [-1, 1]: max |y| {float(out.abs().max()):.4f}")
@@ -810,7 +894,7 @@ def phase_flagship(run: Run, seed: int) -> tuple[dict, dict]:
     return launches, packed_launches
 
 
-def phase_cli(run: Run, seed: int):
+def phase_cli(run: Run, seed: int, card: str):
     import torch
 
     from face_mask_inpaint_tpu_torch.cli import picnet_inference as cli
@@ -825,10 +909,15 @@ def phase_cli(run: Run, seed: int):
     data = torch.Generator(device="cuda").manual_seed(seed + 2)
     noise = torch.Generator(device="cuda").manual_seed(seed)
     reset_launch_counts()
+    walls = []
     for step in range(3):
         src = torch.rand(4, HW, HW, 3, device="cuda", generator=data)
         ref = torch.rand(4, HW, HW, 3, device="cuda", generator=data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         gen, mask = infer_batch(src, ref, noise)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
         s, ms = float(ssim(ref, gen)), float(ms_ssim(ref, gen))
         run.check(tuple(gen.shape) == (4, HW, HW, 3) and tuple(mask.shape) == (4, HW, HW)
                   and bool(torch.isfinite(gen).all()) and s == s and ms == ms,
@@ -836,6 +925,9 @@ def phase_cli(run: Run, seed: int):
     launches = _counts()
     run.check(launches == {k: 3 * v for k, v in PER_FORWARD.items()},
               f"infer_batch x3 launches: {launches}")
+    print(f"[cli] infer_batch, f32 batch 4 (the CLI's path): wall median "
+          f"{statistics.median(walls):.2f} ms of {', '.join(f'{w:.2f}' for w in walls)} ms "
+          f"(the first call warms up), on {card}", flush=True)
     del detector, generator
     torch.cuda.empty_cache()
 
@@ -1016,7 +1108,7 @@ def phase_profile(run: Run, seed: int, rounds: int, card: str):
         print(f"[profile] {side}, three forwards: wall {wall:.2f} ms, summed device time "
               f"{busy:.2f} ms, device busy {100 * busy / wall:.1f}% on {card}")
         _check_launched(run, rows, "flash_fwd_wgmma_kernel",
-                        ("flash_fwd_mma_kernel", "flash_fwd_kernel"),
+                        ("flash_fwd_tf32x3_kernel", "flash_fwd_kernel"),
                         f"K1 in the bf16 {side} forward")
         if side == "packed-convt":
             _check_launched(run, rows, "conv3x3_mma_kernel", ("conv3x3_kernel",),
@@ -1132,9 +1224,10 @@ def phase_train(run: Run, seed: int, card: str) -> dict:
     print(f"[train] profile, two steps: wall {wall:.2f} ms, summed device time {busy:.2f} ms, "
           f"device busy {100 * busy / wall:.1f}% on {card}")
     _check_launched(run, rows, "flash_bwd_col_kernel",
-                    ("flash_bwd_dq_kernel", "flash_bwd_dv_kernel"), "K5 in the config-5 step")
+                    ("flash_bwd_dq_kernel", "flash_bwd_dv_kernel", "flash_bwd_tf32x3_kernel"),
+                    "K5 in the config-5 step")
     _check_launched(run, rows, "flash_fwd_wgmma_kernel",
-                    ("flash_fwd_mma_kernel", "flash_fwd_kernel"), "K1 in the config-5 step")
+                    ("flash_fwd_tf32x3_kernel", "flash_fwd_kernel"), "K1 in the config-5 step")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[train]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:100]}")
     del trainer, batches, metrics, prof
@@ -1146,7 +1239,17 @@ def phase_train(run: Run, seed: int, card: str) -> dict:
     eps = [torch.randn(2, HW // 8, HW // 8, 128, device="cuda", generator=data)
            for _ in range(2)]
     start = copy.deepcopy((trainer.generator.state_dict(), trainer.discriminator.state_dict()))
-    got = trainer.train_step(b, eps_q=eps[0], eps_p=eps[1], return_grads=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = trainer.train_step(b, eps_q=eps[0], eps_p=eps[1], return_grads=True)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    _check_launched(run, rows, "flash_bwd_tf32x3_kernel",
+                    ("flash_bwd_dq_kernel", "flash_bwd_dv_kernel", "flash_bwd_col_kernel"),
+                    "K5 in the f32 config-5 step")
+    _check_launched(run, rows, "flash_fwd_tf32x3_kernel",
+                    ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"), "K1 in the f32 config-5 step")
+    del prof
     trainer.generator.load_state_dict(start[0])
     trainer.discriminator.load_state_dict(start[1])
     with plain_versions():
@@ -1794,7 +1897,7 @@ def main(argv=None) -> int:
     phase_build()
     phase_kernels(run, args.seed, timings)
     launches, packed_launches = phase_flagship(run, args.seed)
-    phase_cli(run, args.seed)
+    phase_cli(run, args.seed, smi)
     phase_timing(run, args.seed, timings, smi)
     phase_profile(run, args.seed, PROFILE_ROUNDS, smi)
     train_launches = phase_train(run, args.seed, smi)

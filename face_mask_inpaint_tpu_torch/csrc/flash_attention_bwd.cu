@@ -19,7 +19,14 @@
 // C = 256, bf16) the function needs 2 N L^2 (1.5 d + 2 C) ~ 5.2 TFLOP (one
 // score tile per unordered pair) against ~0.65 GB of inputs and outputs, so
 // it is compute-bound: the products must run on the tensor cores and the
-// [L, L] maps must stay on chip.
+// [L, L] maps must stay on chip (5.3 ms at the dense bf16 peak; 31.6 ms in
+// f32 as three TF32 products at the dense TF32 peak).
+//
+// Three routes, chosen by type, shape and alignment only
+// (fmi_flash_attention_bwd_route): bf16 and f32 at d in {32, 64} and C <=
+// 256 (C % 8 == 0, 16-byte aligned) take the tensor cores, bf16 directly
+// and f32 in split precision (3xTF32, see its section below and
+// csrc/mma.cuh), both column-owned; everything else the CUDA cores.
 //
 // Tensor-core route (bf16, d in {32, 64}, C <= 256 with C % 8 == 0, 16-byte
 // aligned tensors; mma.sync m16n8k16, bf16 in, f32 accumulate), column-owned
@@ -43,15 +50,15 @@
 // `_backward_sym` and the plain version round the summed dS[r, c] +
 // dS[c, r] once instead (within the tolerance the checks hold it to).
 //
-// CUDA-core route (f32, other d or C), unchanged: two kernels, each a
-// variant of K1's loop. dq: one block per (64-row tile, sample) sweeps the
+// CUDA-core route (other d or C; d = 48 in the repo's paths): two kernels,
+// each a variant of K1's loop. dq: one block per (64-row tile, sample) sweeps the
 // column tiles computing S, both dP tiles (dO_r v_c^T and v_r dO_c^T over
 // all C), the summed dS (rounded once to the input type) and dq += dS q_c,
 // both roles in registers, deterministic. dv: one block per (64-row tile,
 // 128-channel chunk, sample) computes P[c, r] per column tile and
 // dv += P^T dO_c.
 //
-// Ragged L is masked on both routes: keys or rows past L have P = 0, and
+// Ragged L is masked on every route: keys or rows past L have P = 0, and
 // rows past L are not stored.
 
 #include <cuda_bf16.h>
@@ -690,6 +697,326 @@ int launch_col_d(const void* q, const void* v, const void* dout, const void* lse
   }
 }
 
+// ---------------------------------------------------------------------------
+// Split-precision path for f32 (d in {32, 64}, C <= 256 with C % 8 == 0,
+// 16-byte aligned tensors): the bf16 route's column-owned schedule, 704
+// multiply-adds an ordered pair, with every product on the tensor cores as
+// three TF32 products (mma.sync m16n8k8, csrc/mma.cuh): S^T, dP^T, dv, and
+// both roles of dq. P and dS stay f32 and are split as the other operands
+// are; no operand is rounded to a narrower type.
+//
+// Design: one block of 8 warps per (64-key tile c, sample) holds q_c and v_c
+// in shared memory and sweeps 32-row tiles r (q_r, dO_r and their lse and D)
+// through a 3-stage cp.async ring. In f32 the bf16 plan (64-row tiles, v_c's
+// fragments in registers, double-buffered P^T and dS^T) needs about 420 KB
+// of shared memory and 128 more registers a thread; here v_c's fragments
+// are read from shared memory at each use, the row tiles are half as tall
+// and P^T and dS^T are single-buffered, which costs a second barrier a tile
+// pair (229 KB at d = 64, C = 256). Per tile pair:
+//   phase A, warp (16 keys, 16 rows): S^T = q_c q_r^T, dP^T = v_c dO_r^T,
+//     P^T = exp2(S2 - lse_r), dS^T = P^T (dP^T - D_r), into shared memory;
+//   phase B: dv_c += P^T dO_r (warp: 32 keys x C/4 channels), the key role
+//     dq_c += dS^T q_r (16 keys x d/2), the query role dq_r += dS q_c (16
+//     rows x d/4), added to dq with f32 atomics. dv and the key role sum
+//     L rows: a tile's products go to zeroed fragments (dv's in two halves
+//     of its channels) that one rounded add each takes into the sum, since
+//     the tensor cores' accumulate drifts over long sums (csrc/mma.cuh;
+//     with dv added in place, K5 used 1.3 of its gate at config 5 on an
+//     H100, 0.07 this way: tools/tensor_core_variants.py).
+// Operands stored K-contiguous take their fragments by ldmatrix; those
+// stored [K][N] (dO_r for dv, q_r for the key role, q_c for the query role)
+// by scalar loads of the k pair (2t, 2t + 1), and P^T and dS^T are stored
+// with the rows of each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 so
+// that ldmatrix gives A fragments in that k order too (csrc/mma.cuh). All
+// row strides are 4 mod 32 words: ldmatrix, the k pairs and the transposed
+// reads of dS^T are free of bank conflicts.
+// What holds it back: phase A's warp tiles are 16 x 16, so each of its
+// fragments is split for two products; dP^T (36% of the work) spends about
+// four splits a three-product step on the ALUs.
+// dq: the f32 output itself is the accumulator (zeroed first): the query
+// role of a row gathers over all key tiles and meets the key role there
+// through atomics, so f32 dq is not bit-deterministic, as the bf16 route's
+// is not; the CUDA-core route and the JAX kernels are. dv is. Error: the
+// split keeps about 21 bits of each operand (csrc/mma.cuh), against the
+// gate's 1e-4 of the largest plain entry.
+// ---------------------------------------------------------------------------
+
+constexpr int kTfBR = 32;       // rows a swept tile
+constexpr int kTfStages = 3;
+
+template <int D, int NCW>
+struct TfPlan {
+  static constexpr int kCpad = 64 * NCW;  // value channels, padded
+  static constexpr int kQS = D + 4;       // row strides in f32, 4 mod 32
+  static constexpr int kCS = kCpad + 4;
+  static constexpr int kPS = kTfBR + 4;
+  // q_c, v_c, q_r[3], dO_r[3], P^T, dS^T, lse_r[3], D_r[3]
+  static constexpr size_t kSmem =
+      sizeof(float) * ((size_t)kBC * (kQS + kCS) + (size_t)kTfStages * kTfBR * (kQS + kCS) +
+                       2 * kBC * kPS + 2 * kTfStages * kTfBR);
+};
+
+// the shared column of logical row r (within the tile) of P^T and dS^T
+__device__ __forceinline__ int perm8(int r) { return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2); }
+
+template <int D, int NCW>
+__global__ void __launch_bounds__(kColThreads, 1)
+flash_bwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ v,
+                        const float* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ dsum, float* __restrict__ dq,
+                        float* __restrict__ dv, int L, int C) {
+  using namespace fmi_mma;
+  using P = TfPlan<D, NCW>;
+  constexpr int QS = P::kQS, CS = P::kCS, PS = P::kPS, CP = P::kCpad, NS = kTfStages;
+  extern __shared__ __align__(16) float smem[];
+  float* qc = smem;                   // [kBC][QS] the block's keys
+  float* vc = qc + kBC * QS;          // [kBC][CS]
+  float* qr = vc + kBC * CS;          // [NS][kTfBR][QS] swept rows
+  float* dor = qr + NS * kTfBR * QS;  // [NS][kTfBR][CS]
+  float* pt = dor + NS * kTfBR * CS;  // [kBC][PS] P^T, rows permuted within 8
+  float* dst = pt + kBC * PS;         // [kBC][PS] dS^T, the same
+  float* lr = dst + kBC * PS;         // [NS][kTfBR] lse of the rows
+  float* dr = lr + NS * kTfBR;        // [NS][kTfBR] D of the rows
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, lm = lane >> 3, li = lane & 7;
+  const int c0 = blockIdx.x * kBC, n = blockIdx.y;
+  // warp roles: phase A on keys kw*16.. x rows rh*16..; dv on keys dk*32.. x
+  // channels dc*CP/4..; the key role on keys qm*16.. x head columns
+  // qh*D/2..; the query role on rows rm*16.. x head columns rq*D/4..
+  const int kw = warp & 3, rh = warp >> 2;
+  const int dk = warp & 1, dc = warp >> 1;
+  const int qm = warp & 3, qh = warp >> 2;
+  const int rm = warp & 1, rq = warp >> 1;
+  const float* qn = q + (size_t)n * L * D;
+  const float* vn = v + (size_t)n * L * C;
+  const float* don = dout + (size_t)n * L * C;
+  const float* lsen = lse + (size_t)n * L;
+  const float* dn = dsum + (size_t)n * L;
+
+  load_rows_f32(qc, qn, c0, kBC, L, D, D, QS, tid, kColThreads);
+  load_rows_f32(vc, vn, c0, kBC, L, C, CP, CS, tid, kColThreads);
+  auto load_tile = [&](int it, int slot) {
+    const int r0 = it * kTfBR;
+    load_rows_f32(qr + slot * kTfBR * QS, qn, r0, kTfBR, L, D, D, QS, tid, kColThreads);
+    load_rows_f32(dor + slot * kTfBR * CS, don, r0, kTfBR, L, C, CP, CS, tid,
+                  kColThreads);
+    if (tid < 2 * kTfBR) {
+      const int i = tid % kTfBR, row = r0 + i;
+      const bool ok = row < L;
+      cp_async4((tid < kTfBR ? lr : dr) + slot * kTfBR + i,
+                (tid < kTfBR ? lsen : dn) + (ok ? row : 0), ok ? 4 : 0);
+    }
+  };
+  const int n_tiles = (L + kTfBR - 1) / kTfBR;
+  load_tile(0, 0);
+  cp_async_commit();
+  if (n_tiles > 1) load_tile(1, 1);
+  cp_async_commit();
+
+  float dva[2][CP / 32][4];  // dv of keys dk*32.. x channels dc*CP/4..
+  float dqc[D / 16][4];      // key role of keys qm*16.. x head columns qh*D/2..
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < CP / 32; ++j)
+      dva[mt][j][0] = dva[mt][j][1] = dva[mt][j][2] = dva[mt][j][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) dqc[j][0] = dqc[j][1] = dqc[j][2] = dqc[j][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int slot = it % NS, r0 = it * kTfBR;
+    cp_async_wait<1>();  // everything but the newest tile has landed
+    __syncthreads();     // ... for every thread; phase B of it - 1 is done everywhere
+    if (it + 2 < n_tiles) load_tile(it + 2, (it + 2) % NS);
+    cp_async_commit();
+    const float* qb = qr + slot * kTfBR * QS;
+    const float* ob = dor + slot * kTfBR * CS;
+    const float* lb = lr + slot * kTfBR;
+    const float* db = dr + slot * kTfBR;
+
+    // phase A: S^T = q_c q_r^T and dP^T = v_c dO_r^T (16 keys x 16 rows)
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      unsigned a[4], ah[4], al[4], b[4];
+      ldmatrix_x4(a, &qc[(kw * 16 + (lm & 1) * 8 + li) * QS + kk * 8 + (lm >> 1) * 4]);
+      split_a(a, ah, al);
+      ldmatrix_x4(b, &qb[(rh * 16 + (lm >> 1) * 8 + li) * QS + kk * 8 + (lm & 1) * 4]);
+      mma_tf32x3(s[0], ah, al, __uint_as_float(b[0]), __uint_as_float(b[1]));
+      mma_tf32x3(s[1], ah, al, __uint_as_float(b[2]), __uint_as_float(b[3]));
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < CP / 8; ++kk) {
+      unsigned a[4], ah[4], al[4], b[4];
+      ldmatrix_x4(a, &vc[(kw * 16 + (lm & 1) * 8 + li) * CS + kk * 8 + (lm >> 1) * 4]);
+      split_a(a, ah, al);
+      ldmatrix_x4(b, &ob[(rh * 16 + (lm >> 1) * 8 + li) * CS + kk * 8 + (lm & 1) * 4]);
+      mma_tf32x3(dp[0], ah, al, __uint_as_float(b[0]), __uint_as_float(b[1]));
+      mma_tf32x3(dp[1], ah, al, __uint_as_float(b[2]), __uint_as_float(b[3]));
+    }
+    // P^T[c, r] = exp2(S2 - lse_r), dS^T = P^T (dP^T - D_r), stored with the
+    // rows of each 8 permuted (perm8)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key_i = kw * 16 + g + 8 * (e >> 1);
+        const int col = rh * 16 + j * 8 + 2 * t + (e & 1);
+        const float p = c0 + key_i < L && r0 + col < L ? exp2f(fmaf(s[j][e], kLog2e, -lb[col]))
+                                                       : 0.f;
+        const int at = key_i * PS + rh * 16 + j * 8 + t + 4 * (e & 1);  // perm8(col)
+        pt[at] = p;
+        dst[at] = p * (dp[j][e] - db[col]);
+      }
+    __syncthreads();  // P^T and dS^T are complete
+
+    // dv_c += P^T dO_r, 8 rows a step in the order of perm8; half the
+    // n-tiles at a time, the tile's 32 rows in zeroed fragments, then one
+    // rounded add each: dv sums L rows (csrc/mma.cuh on the tensor cores'
+    // accumulate)
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh) {
+      float part[2][CP / 64][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int jj = 0; jj < CP / 64; ++jj)
+          part[mt][jj][0] = part[mt][jj][1] = part[mt][jj][2] = part[mt][jj][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kTfBR / 8; ++kk) {
+        unsigned ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          unsigned a[4];
+          ldmatrix_x4(a, &pt[(dk * 32 + mt * 16 + (lm & 1) * 8 + li) * PS + kk * 8 +
+                             (lm >> 1) * 4]);
+          split_a(a, ah[mt], al[mt]);
+        }
+        // rows 2t, 2t + 1
+        const float* orow = ob + (kk * 8 + 2 * t) * CS + dc * (CP / 4) + jh * (CP / 8) + g;
+#pragma unroll
+        for (int jj = 0; jj < CP / 64; ++jj) {
+          unsigned bh0, bl0, bh1, bl1;
+          split_tf32(orow[jj * 8], bh0, bl0);
+          split_tf32(orow[CS + jj * 8], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma_tf32x3(part[mt][jj], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int jj = 0; jj < CP / 64; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dva[mt][jh * (CP / 64) + jj][e] += part[mt][jj][e];
+    }
+    // key role: dq_c += dS^T q_r, the tile's 32 rows summed apart first
+    float dqt[D / 16][4];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) dqt[j][0] = dqt[j][1] = dqt[j][2] = dqt[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kTfBR / 8; ++kk) {
+      unsigned a[4], ah[4], al[4];
+      ldmatrix_x4(a, &dst[(qm * 16 + (lm & 1) * 8 + li) * PS + kk * 8 + (lm >> 1) * 4]);
+      split_a(a, ah, al);
+      const float* qrow = qb + (kk * 8 + 2 * t) * QS + qh * (D / 2) + g;
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) mma_tf32x3(dqt[j], ah, al, qrow[j * 8], qrow[QS + j * 8]);
+    }
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqc[j][e] += dqt[j][e];
+    // query role: dq_r += dS q_c over the block's 64 keys, k pairs (2t, 2t + 1);
+    // dS[r, c] is dS^T[c][perm8(r)]
+    float dqr[D / 32][4];
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) dqr[j][0] = dqr[j][1] = dqr[j][2] = dqr[j][3] = 0.f;
+    const int pr = perm8(rm * 16 + g);
+#pragma unroll
+    for (int kk = 0; kk < kBC / 8; ++kk) {
+      const float* d0 = dst + (kk * 8 + 2 * t) * PS + pr;  // keys 2t, 2t + 1
+      const float a[4] = {d0[0], d0[8], d0[PS], d0[PS + 8]};
+      unsigned ah[4], al[4];
+      split_a(a, ah, al);
+      const float* crow = qc + (kk * 8 + 2 * t) * QS + rq * (D / 4) + g;
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) mma_tf32x3(dqr[j], ah, al, crow[j * 8], crow[QS + j * 8]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + rm * 16 + g + 8 * h;
+      if (row >= L) continue;
+      float* drow = dq + ((size_t)n * L + row) * D + rq * (D / 4);
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j)
+        atomicAdd(reinterpret_cast<float2*>(drow + j * 8 + 2 * t),
+                  make_float2(dqr[j][2 * h], dqr[j][2 * h + 1]));
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = c0 + dk * 32 + mt * 16 + g + 8 * h;
+      if (key >= L) continue;
+      float* orow = dv + ((size_t)n * L + key) * C;
+#pragma unroll
+      for (int j = 0; j < CP / 32; ++j) {
+        const int ch = dc * (CP / 4) + j * 8 + 2 * t;
+        if (ch < C)
+          *reinterpret_cast<float2*>(&orow[ch]) =
+              make_float2(dva[mt][j][2 * h], dva[mt][j][2 * h + 1]);
+      }
+    }
+  // the key role goes to dq as well
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = c0 + qm * 16 + g + 8 * h;
+    if (key >= L) continue;
+    float* drow = dq + ((size_t)n * L + key) * D + qh * (D / 2);
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      atomicAdd(reinterpret_cast<float2*>(drow + j * 8 + 2 * t),
+                make_float2(dqc[j][2 * h], dqc[j][2 * h + 1]));
+  }
+}
+
+template <int D, int NCW>
+int launch_tf32x3(const void* q, const void* v, const void* dout, const void* lse,
+                  const void* dsum, void* dq, void* dv, int N, int L, int C,
+                  cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(dq, 0, (size_t)N * L * D * sizeof(float), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr size_t smem = TfPlan<D, NCW>::kSmem;
+  err = cudaFuncSetAttribute(flash_bwd_tf32x3_kernel<D, NCW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_tf32x3_kernel<D, NCW><<<dim3((L + kBC - 1) / kBC, N), kColThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<float*>(dq), static_cast<float*>(dv), L, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_tf32x3_d(const void* q, const void* v, const void* dout, const void* lse,
+                    const void* dsum, void* dq, void* dv, int N, int L, int C, cudaStream_t s) {
+  switch ((C + 63) / 64) {
+    case 1: return launch_tf32x3<D, 1>(q, v, dout, lse, dsum, dq, dv, N, L, C, s);
+    case 2: return launch_tf32x3<D, 2>(q, v, dout, lse, dsum, dq, dv, N, L, C, s);
+    case 3: return launch_tf32x3<D, 3>(q, v, dout, lse, dsum, dq, dv, N, L, C, s);
+    default: return launch_tf32x3<D, 4>(q, v, dout, lse, dsum, dq, dv, N, L, C, s);
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
 bool shape_ok(int N, int L, int d, int C) {
@@ -698,28 +1025,32 @@ bool shape_ok(int N, int L, int d, int C) {
 
 }  // namespace
 
-// Which K5 kernels take a bf16 call: 1 the tensor-core kernel (d in {32, 64},
-// C <= 256 with C % 8 == 0, 16-byte aligned tensors), 0 the CUDA-core
-// kernels. By shape and alignment only; f32 always takes the CUDA cores.
+// Which K5 kernels take a call: for bf16, 1 the tensor-core kernel; for
+// f32, 2 the split-precision (3xTF32) kernel; 0 the CUDA-core kernels. Both
+// tensor-core routes take d in {32, 64}, C <= 256 with C % 8 == 0 and
+// 16-byte aligned tensors. By type, shape and alignment only.
 extern "C" int fmi_flash_attention_bwd_route(int bf16, const void* q, const void* v,
                                              const void* dout, const void* dq, const void* dv,
                                              int d, int C) {
-  return bf16 && (d == 32 || d == 64) && C % 8 == 0 && C <= kColCMax && aligned16(q) &&
-                 aligned16(v) && aligned16(dout) && aligned16(dq) && aligned16(dv)
-             ? 1
-             : 0;
+  const bool ok = (d == 32 || d == 64) && C % 8 == 0 && C <= kColCMax && aligned16(q) &&
+                  aligned16(v) && aligned16(dout) && aligned16(dq) && aligned16(dv);
+  return !ok ? 0 : bf16 ? 1 : 2;
 }
 
 // q [N, L, d], v and dout [N, L, C], lse and dsum [N, L] f32, dq [N, L, d]
 // and dv [N, L, C] outputs (contiguous; q, v, dout, dq, dv of one type).
-// Returns a cudaError_t code; 0 means the kernels launched.
+// Returns a cudaError_t code; 0 means the kernels launched. f32 takes the
+// route above: the split-precision kernel or the CUDA-core kernels.
 extern "C" int fmi_flash_attention_bwd_f32(const void* q, const void* v, const void* dout,
                                            const void* lse, const void* dsum, void* dq,
                                            void* dv, int N, int L, int d, int C,
                                            void* stream) {
   if (!shape_ok(N, L, d, C)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<float>(q, v, dout, lse, dsum, dq, dv, N, L, d, C,
-                       static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!fmi_flash_attention_bwd_route(0, q, v, dout, dq, dv, d, C))
+    return launch<float>(q, v, dout, lse, dsum, dq, dv, N, L, d, C, s);
+  if (d == 64) return launch_tf32x3_d<64>(q, v, dout, lse, dsum, dq, dv, N, L, C, s);
+  return launch_tf32x3_d<32>(q, v, dout, lse, dsum, dq, dv, N, L, C, s);
 }
 
 // bf16: the route above decides. The tensor-core route needs `work`, an f32

@@ -9,42 +9,46 @@
 //     out[n, i, :] = sum_j softmax_j(q_i . q_j) v[n, j, :]
 // query == key, no 1/sqrt(d) scale. The softmax runs in base 2 with log2(e)
 // folded in, in f32, with an online max and sum; P is rounded to bf16 before
-// P V on the tensor-core paths, as the TPU kernel rounds it to the value
-// type. Optionally writes the
-// per-row lse = m + log2(l) (base 2) for a later backward.
+// P V on the bf16 tensor-core path, as the TPU kernel rounds it to the value
+// type (in f32, P stays f32). Optionally writes the per-row
+// lse = m + log2(l) (base 2) for a later backward.
 //
 // What bounds it on an H100: at the flagship (L = 16384, d = 64, C = 256) the
-// forward is 2 L^2 (d + C) ~ 172 GFLOP per sample against 2 L (d + C) bf16
-// values read, so it is compute-bound (2.78 ms at the dense bf16 peak for
-// the batch of 16): the products have to run on the tensor cores, and the
-// [L, L] map must never reach device memory. Ragged L is masked: padded
-// keys score -inf, padded query rows are neither stored nor given an lse.
+// forward is 2 L^2 (d + C) ~ 172 GFLOP per sample against 2 L (d + C) values
+// read, so it is compute-bound (2.78 ms at the dense bf16 peak for the
+// batch of 16, 16.7 ms for three TF32 products at the dense TF32 peak): the
+// products have to run on the tensor cores, and the [L, L] map must never
+// reach device memory. Ragged L is masked: padded keys score -inf, padded
+// query rows are neither stored nor given an lse.
 //
 // Three kernels; fmi_flash_attention_fwd_route picks one by type, shape and
-// alignment only:
-// - bf16, d = 64, C <= 256 with C % 8 == 0 and 16-byte aligned rows (the
-//   flagship, config 5, Stack A's two values of 200 + 56 channels): the
-//   warp-specialised kernel on the warpgroup tensor cores (wgmma, TMA; see
-//   its section). One block takes 128 query rows and all channels, so no
-//   score is computed twice. At the flagship it ran at 545 TFLOP/s (5.04 ms
-//   on an H100 SXM at 700 W, where scaled_dot_product_attention took 5.85
-//   ms). What holds it back is the softmax between its two products: the
-//   products wait for it, and without the P V products the kernel still
-//   took 3.3-3.6 ms (tools/tensor_core_variants.py).
-// - other bf16 with d in {32, 64, 128} and C % 8 == 0: the mma.sync kernel,
-//   one block per (64-row query tile, 128-channel chunk, sample); each
-//   chunk recomputes its scores (about 20% more FLOPs at d = 64, C = 256)
-//   and keeps shared memory small enough for several blocks per SM.
-// - everything else (f32, other d, other C): the same tiling on the CUDA
-//   cores in f32, 256 threads. Each thread owns a 4x4 score tile and a 4x8
-//   accumulator tile; the rows of both coincide, so the online rescale
-//   needs no exchange beyond 16-lane shuffles for the row max and row sum.
-//   This path sits far below the tensor-core rate.
+// alignment only. Two routes take d = 64 (bf16) or d in {32, 64} (f32) with
+// C <= 256, C % 8 == 0 and 16-byte aligned tensors (the flagship, config 5,
+// Stack A's two values of 200 + 56 channels):
+// - bf16: the warp-specialised kernel on the warpgroup tensor cores (wgmma,
+//   TMA; see its section). One block takes 128 query rows and all channels,
+//   so no score is computed twice. At the flagship it ran at 545 TFLOP/s
+//   (5.04 ms on an H100 SXM at 700 W, where scaled_dot_product_attention
+//   took 5.85 ms). What holds it back is the softmax between its two
+//   products: the products wait for it, and without the P V products the
+//   kernel still took 3.3-3.6 ms (tools/tensor_core_variants.py).
+// - f32: the split-precision kernel (3xTF32 on mma.sync m16n8k8, see its
+//   section and csrc/mma.cuh), held to the same f32 gate as the CUDA-core
+//   kernel. torch.backends.cuda.matmul.allow_tf32 does not govern it: that
+//   flag means one TF32 product, about 11 bits, which this route is not.
+// - everything else (other d or C, misaligned tensors): the CUDA cores in
+//   f32, 256 threads, one block per (64-row query tile, 128-channel chunk,
+//   sample); each chunk recomputes its scores. Each thread owns a 4x4 score
+//   tile and a 4x8 accumulator tile; the rows of both coincide, so the
+//   online rescale needs no exchange beyond 16-lane shuffles for the row
+//   max and row sum. This path sits far below the tensor-core rate; no path
+//   of the repo runs it but d = 48.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -217,148 +221,123 @@ int launch(const void* q, const void* v, void* o, void* lse, int N, int L,
 }
 
 // ---------------------------------------------------------------------------
-// mma.sync path for bf16 (d in {32, 64, 128}, C % 8 == 0, 16-byte aligned
-// rows) that the warpgroup path does not take. Four warps per (64-row query tile,
-// 128-channel chunk, sample); each warp owns 16 query rows. S = Q K^T and
-// O += P V run as mma.sync m16n8k16 (bf16 in, f32 accumulate); P is rounded
-// to bf16 for the second product, as the TPU kernel rounds it to the value
-// type. Key/value tiles stream through a double-buffered cp.async ring, so
-// the next tile's copy overlaps this tile's products. Shared-memory rows are
-// padded by 16 bytes so ldmatrix reads are free of bank conflicts.
+// Split-precision path for f32 (d in {32, 64}, C <= 256 with C % 8 == 0,
+// 16-byte aligned tensors): every product on the tensor cores as three TF32
+// products (csrc/mma.cuh: hi = rna(x), lo = rna(x - hi), a b = al bh + ah bl
+// + ah bh), S = Q K^T and O += P V alike, P kept in f32 and split as the
+// other operands are.
+//
+// Design: mma.sync m16n8k8 .tf32, one block of 8 warps per (128 query rows,
+// sample) with all C channels, so no score is computed twice; each warp owns
+// 16 rows and their O (C/8 x 4 f32 a thread, 128 at C = 256). Key tiles of
+// 32 keys (K [32][d] and V [32][C] in f32) stream through a 3-stage
+// cp.async ring, with one barrier a tile; Q stays in shared memory. Why not
+// wgmma, as the bf16 route: wgmma takes tf32 operands only K-major, so V
+// would have to reach shared memory transposed, and both hi and lo of every
+// B tile too (64 KB a 32-key V tile at C = 256, twice that for a ring), next
+// to the raw tiles the loads land in; mma.sync splits in registers at each
+// fragment load and keeps one f32 copy. The cost of that choice is the
+// split on the ALUs: every warp splits the whole V tile (two roundings and
+// a subtract an element), about two splits a three-product step, which
+// compete with the tensor cores for the warp schedulers' cycles.
+// - Q and K are K-major: ldmatrix (non-transposed) serves their fragments.
+// - P never leaves registers: the C fragment of S, physical keys 2t and 2t +
+//   1 of each 8, is the A fragment of P V in the k order 0, 2, 4, 6, 1, 3,
+//   5, 7; V ([keys][channels], MN-major for this product) is read with
+//   scalar loads of rows 2t and 2t + 1, conflict-free at the row stride C +
+//   4.
+// Error: the split keeps about 21 bits of each operand, so a product is off
+// by about 2^-21 of |a||b| where one TF32 product is off by 2^-11. An error
+// e in log2(e) S moves P by the relative factor 2^e; with |q|^2 ~ 4 as at
+// the flagship the scores' error is ~1e-6, far below the gate's 1e-4
+// relative. O sums L keys: a tile's products go to zeroed fragments (64
+// channels at a time, eight independent chains) that one rounded add each
+// takes into O, since the tensor cores' accumulate drifts over long sums
+// (csrc/mma.cuh; added in place, O used 0.40 of its gate at the flagship on
+// an H100, 0.02 this way: tools/tensor_core_variants.py). The gate of the f32
+// route (|kernel - plain| <= 1e-4 + 1e-4 |plain|, lse within 1e-3) is the
+// CUDA-core kernel's, unchanged.
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;
+constexpr int kTfBQ = 128;    // query rows a block, 16 a warp
+constexpr int kTfBK = 32;     // keys a tile
+constexpr int kTfStages = 3;
+constexpr int kTfThreads = 256;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&p);
-}
-
-template <int D>
-struct MmaPlan {
-  static constexpr int kQS = D + 8;      // padded row strides, in bf16
-  static constexpr int kKS = D + 8;
-  static constexpr int kVS = kCC + 8;
+template <int D, int NCW>
+struct TfPlan {
+  static constexpr int kCpad = 64 * NCW;  // value channels, padded
+  static constexpr int kQS = D + 4;       // row strides in f32, 4 mod 32
+  static constexpr int kVS = kCpad + 4;
+  static constexpr int kStage = kTfBK * (kQS + kVS);  // a K and a V tile, in f32
   static constexpr size_t kSmem =
-      sizeof(__nv_bfloat16) * (size_t)(kBQ * kQS + 2 * kBK * kKS + 2 * kBK * kVS);
+      sizeof(float) * ((size_t)kTfBQ * kQS + (size_t)kTfStages * kStage);
 };
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int L, int C) {
-  using P = MmaPlan<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBQ][kQS]
-  __nv_bfloat16* ks = qs + kBQ * P::kQS;                           // [2][kBK][kKS]
-  __nv_bfloat16* vs = ks + 2 * kBK * P::kKS;                       // [2][kBK][kVS]
+template <int D, int NCW>
+__global__ void __launch_bounds__(kTfThreads, 1)
+flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ v,
+                        float* __restrict__ o, float* __restrict__ lse, int L, int C) {
+  using namespace fmi_mma;
+  using P = TfPlan<D, NCW>;
+  constexpr int QS = P::kQS, VS = P::kVS, CP = P::kCpad, NS = kTfStages;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                  // [kTfBQ][QS]
+  float* ring = qs + kTfBQ * QS;     // [NS][K tile [kTfBK][QS], V tile [kTfBK][VS]]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;         // mma fragment row group / column pair
-  const int lm = lane >> 3, lr = lane & 7;       // ldmatrix: which 8x8 matrix, which row
-  const int q0 = blockIdx.x * kBQ;
-  const int c0 = blockIdx.y * kCC;
-  const int cw = min(kCC, C - c0);               // a multiple of 8
-  const int n = blockIdx.z;
-  const __nv_bfloat16* qn = q + (size_t)n * L * D;
-  const __nv_bfloat16* vn = v + (size_t)n * L * C;
+  const int g = lane >> 2, t = lane & 3, lm = lane >> 3, li = lane & 7;
+  const int q0 = blockIdx.x * kTfBQ, n = blockIdx.y;
+  const float* qn = q + (size_t)n * L * D;
+  const float* vn = v + (size_t)n * L * C;
 
-  // rows past L are zero-filled (src size 0) from a clamped, valid address
-  for (int i = tid; i < kBQ * D / 8; i += kMmaThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8, row = q0 + r;
-    cp_async16(&qs[r * P::kQS + c], qn + (size_t)min(row, L - 1) * D + c, row < L ? 16 : 0);
-  }
-  auto load_tile = [&](int tile, int buf) {
-    const int k0 = tile * kBK;
-    __nv_bfloat16* kb = ks + buf * kBK * P::kKS;
-    __nv_bfloat16* vb = vs + buf * kBK * P::kVS;
-    for (int i = tid; i < kBK * D / 8; i += kMmaThreads) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8, key = k0 + r;
-      cp_async16(&kb[r * P::kKS + c], qn + (size_t)min(key, L - 1) * D + c,
-                 key < L ? 16 : 0);
-    }
-    for (int i = tid; i < kBK * kCC / 8; i += kMmaThreads) {
-      const int r = i / (kCC / 8), c = (i % (kCC / 8)) * 8, key = k0 + r;
-      const bool ok = key < L && c < cw;  // masked keys and channels read as 0
-      cp_async16(&vb[r * P::kVS + c], vn + (size_t)min(key, L - 1) * C + c0 + (ok ? c : 0),
-                 ok ? 16 : 0);
-    }
+  auto load_tile = [&](int tile, int slot) {
+    float* st = ring + slot * P::kStage;
+    load_rows_f32(st, qn, tile * kTfBK, kTfBK, L, D, D, QS, tid, kTfThreads);
+    load_rows_f32(st + kTfBK * QS, vn, tile * kTfBK, kTfBK, L, C, CP, VS, tid, kTfThreads);
   };
+  const int n_tiles = (L + kTfBK - 1) / kTfBK;
+  load_rows_f32(qs, qn, q0, kTfBQ, L, D, D, QS, tid, kTfThreads);
   load_tile(0, 0);
   cp_async_commit();
+  if (n_tiles > 1) load_tile(1, 1);
+  cp_async_commit();
 
-  unsigned qf[D / 16][4];
-  float acc[kCC / 8][4];
+  float acc[CP / 8][4];  // O of rows g, g + 8 of the warp's 16
 #pragma unroll
-  for (int j = 0; j < kCC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};  // rows g, g+8
+  for (int j = 0; j < CP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
 
-  const int n_tiles = (L + kBK - 1) / kBK;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < n_tiles) load_tile(tile + 1, buf ^ 1);
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<1>();  // everything but the newest tile has landed
+    __syncthreads();     // ... for every thread; the slot of tile it - 1 is free
+    if (it + 2 < n_tiles) load_tile(it + 2, (it + 2) % NS);
     cp_async_commit();
-    cp_async_wait_one();  // everything but the tile just requested has landed
-    __syncthreads();
-    if (tile == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], &qs[(warp * 16 + (lm & 1) * 8 + lr) * P::kQS + kk * 16 +
-                                (lm >> 1) * 8]);
-    }
-    const __nv_bfloat16* kb = ks + buf * kBK * P::kKS;
-    const __nv_bfloat16* vb = vs + buf * kBK * P::kVS;
+    const float* kb = ring + (it % NS) * P::kStage;
+    const float* vb = kb + kTfBK * QS;
 
-    float s[kBK / 8][4];
+    // S = Q K^T: the warp's 16 rows x 32 keys
+    float s[kTfBK / 8][4];
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < kTfBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 8; ++kk) {
+      unsigned a[4], ah[4], al[4];
+      ldmatrix_x4(a, &qs[(warp * 16 + (lm & 1) * 8 + li) * QS + kk * 8 + (lm >> 1) * 4]);
+      split_a(a, ah, al);
 #pragma unroll
-      for (int jp = 0; jp < kBK / 16; ++jp) {
+      for (int jp = 0; jp < kTfBK / 16; ++jp) {
         unsigned b[4];
-        ldmatrix_x4(b, &kb[(jp * 16 + (lm >> 1) * 8 + lr) * P::kKS + kk * 16 + (lm & 1) * 8]);
-        mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+        ldmatrix_x4(b, &kb[(jp * 16 + (lm >> 1) * 8 + li) * QS + kk * 8 + (lm & 1) * 4]);
+        mma_tf32x3(s[2 * jp], ah, al, __uint_as_float(b[0]), __uint_as_float(b[1]));
+        mma_tf32x3(s[2 * jp + 1], ah, al, __uint_as_float(b[2]), __uint_as_float(b[3]));
       }
     }
 
-    const int k0 = tile * kBK;
-    if (k0 + kBK > L) {
+    const int k0 = it * kTfBK;
+    if (k0 + kTfBK > L) {
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
+      for (int j = 0; j < kTfBK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (k0 + j * 8 + 2 * t + (e & 1) >= L) s[j][e] = -INFINITY;
@@ -367,14 +346,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int h = 0; h < 2; ++h) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      for (int j = 0; j < kTfBK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // every tile holds at least one real key, so m_new is finite
       const float m_new = fmaxf(m_r[h], mx * kLog2e);  // running max, base-2 scale
       const float alpha = exp2f(m_r[h] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
+      for (int j = 0; j < kTfBK / 8; ++j) {
 #pragma unroll
         for (int e = 2 * h; e < 2 * h + 2; ++e) {
           s[j][e] = exp2f(fmaf(s[j][e], kLog2e, -m_new));
@@ -386,28 +366,41 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       l_r[h] = l_r[h] * alpha + rs;
       m_r[h] = m_new;
 #pragma unroll
-      for (int j = 0; j < kCC / 8; ++j) {
+      for (int j = 0; j < CP / 8; ++j) {
         acc[j][2 * h] *= alpha;
         acc[j][2 * h + 1] *= alpha;
       }
     }
 
+    // O += P V, 8 keys a step in the k order 0, 2, 4, 6, 1, 3, 5, 7: P's C
+    // fragment of keys 8 kk.. is its A fragment
+    unsigned ph[kTfBK / 8][4], pl[kTfBK / 8][4];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < kCC / 16; ++np) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b, &vb[(kk * 16 + (lm & 1) * 8 + lr) * P::kVS + np * 16 +
-                                 (lm >> 1) * 8]);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
+    for (int kk = 0; kk < kTfBK / 8; ++kk) {
+      const float pa[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+      split_a(pa, ph[kk], pl[kk]);
     }
-    __syncthreads();  // the next iteration refills the buffer read here
+    const float* vrow = vb + 2 * t * VS + g;  // keys 2t and 2t + 1 of each 8
+#pragma unroll
+    for (int jg = 0; jg < CP / 64; ++jg) {
+      // 64 channels at a time: the tile's 32 keys in zeroed fragments, then
+      // one rounded add each: O sums L keys (csrc/mma.cuh on the tensor
+      // cores' accumulate)
+      float part[8][4];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) part[jj][0] = part[jj][1] = part[jj][2] = part[jj][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kTfBK / 8; ++kk)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float* v0 = vrow + kk * 8 * VS + (jg * 8 + jj) * 8;
+          mma_tf32x3(part[jj], ph[kk], pl[kk], v0[0], v0[VS]);
+        }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jg * 8 + jj][e] += part[jj][e];
+    }
   }
 
 #pragma unroll
@@ -415,32 +408,42 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = q0 + warp * 16 + g + 8 * h;
     if (row >= L) continue;
     const float inv = 1.f / l_r[h];
-    __nv_bfloat16* orow = o + ((size_t)n * L + row) * C + c0;
+    float* orow = o + ((size_t)n * L + row) * C;
 #pragma unroll
-    for (int j = 0; j < kCC / 8; ++j) {
+    for (int j = 0; j < CP / 8; ++j) {
       const int ch = j * 8 + 2 * t;
-      if (ch < cw)
-        *reinterpret_cast<__nv_bfloat162*>(&orow[ch]) =
-            __floats2bfloat162_rn(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+      if (ch < C)
+        *reinterpret_cast<float2*>(&orow[ch]) =
+            make_float2(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
     }
-    if (lse != nullptr && blockIdx.y == 0 && t == 0)
-      lse[(size_t)n * L + row] = m_r[h] + log2f(l_r[h]);
+    if (lse != nullptr && t == 0) lse[(size_t)n * L + row] = m_r[h] + log2f(l_r[h]);
   }
 }
 
-template <int D>
-int launch_mma(const void* q, const void* v, void* o, void* lse, int N, int L, int C,
-               void* stream) {
-  const size_t smem = MmaPlan<D>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+template <int D, int NCW>
+int launch_tf32x3(const void* q, const void* v, void* o, void* lse, int N, int L, int C,
+                  void* stream) {
+  constexpr size_t smem = TfPlan<D, NCW>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tf32x3_kernel<D, NCW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + kBQ - 1) / kBQ, (C + kCC - 1) / kCC, N);
-  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), L, C);
+  const dim3 grid((L + kTfBQ - 1) / kTfBQ, N);
+  flash_fwd_tf32x3_kernel<D, NCW><<<grid, kTfThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), L, C);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_tf32x3_d(const void* q, const void* v, void* o, void* lse, int N, int L, int C,
+                    void* stream) {
+  switch ((C + 63) / 64) {
+    case 1: return launch_tf32x3<D, 1>(q, v, o, lse, N, L, C, stream);
+    case 2: return launch_tf32x3<D, 2>(q, v, o, lse, N, L, C, stream);
+    case 3: return launch_tf32x3<D, 3>(q, v, o, lse, N, L, C, stream);
+    default: return launch_tf32x3<D, 4>(q, v, o, lse, N, L, C, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -582,10 +585,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     auto pack = [&]() {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        pa[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+        pa[kk][0] = fmi_mma::pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+        pa[kk][1] = fmi_mma::pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+        pa[kk][2] = fmi_mma::pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+        pa[kk][3] = fmi_mma::pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
       }
     };
     auto rescale = [&]() {
@@ -708,44 +711,39 @@ int launch_wgmma(const void* q, const void* v, void* o, void* lse, int N, int L,
   return static_cast<int>(cudaGetLastError());
 }
 
-// 2: the warpgroup kernel; 1: the mma.sync kernel; 0: the CUDA cores
+// 2: the warpgroup kernel (bf16); 1: the split-precision kernel (f32); 0: the
+// CUDA cores
 int route(int bf16, const void* q, const void* v, const void* o, int N, int L, int d, int C) {
-  const bool ok = bf16 && N >= 1 && N <= 65535 && L >= 1 && C >= 8 && C % 8 == 0 &&
+  const bool ok = N >= 1 && N <= 65535 && L >= 1 && C >= 8 && C % 8 == 0 && C <= kWgCMax &&
                   aligned16(q) && aligned16(v) && aligned16(o);
-  if (ok && d == kWgD && C <= kWgCMax) return 2;
-  if (ok && (d == 32 || d == 64 || d == 128)) return 1;
+  if (ok && bf16 && d == kWgD) return 2;
+  if (ok && !bf16 && (d == 32 || d == 64)) return 1;
   return 0;
 }
 
 }  // namespace
 
 // q [N, L, d], v [N, L, C], o [N, L, C] (contiguous, same type), lse [N, L]
-// f32 or null. Returns a cudaError_t code; 0 means launched.
+// f32 or null. Returns a cudaError_t code; 0 means launched. Each type takes
+// the route fmi_flash_attention_fwd_route gives its shape and alignment.
 extern "C" int fmi_flash_attention_fwd_f32(const void* q, const void* v, void* o,
                                            void* lse, int N, int L, int d, int C,
                                            void* stream) {
-  return launch<float>(q, v, o, lse, N, L, d, C, stream);
+  if (route(0, q, v, o, N, L, d, C) != 1) return launch<float>(q, v, o, lse, N, L, d, C, stream);
+  if (d == 64) return launch_tf32x3_d<64>(q, v, o, lse, N, L, C, stream);
+  return launch_tf32x3_d<32>(q, v, o, lse, N, L, C, stream);
 }
 
-// bf16 takes the route fmi_flash_attention_fwd_route gives its shape and
-// alignment: the warpgroup kernel (the flagship and config 5), the mma.sync
-// kernel, or the CUDA cores.
 extern "C" int fmi_flash_attention_fwd_bf16(const void* q, const void* v, void* o,
                                             void* lse, int N, int L, int d, int C,
                                             void* stream) {
-  switch (route(1, q, v, o, N, L, d, C)) {
-    case 2: return launch_wgmma(q, v, o, lse, N, L, C, stream);
-    case 1:
-      if (d == 64) return launch_mma<64>(q, v, o, lse, N, L, C, stream);
-      if (d == 32) return launch_mma<32>(q, v, o, lse, N, L, C, stream);
-      return launch_mma<128>(q, v, o, lse, N, L, C, stream);
-    default: return launch<__nv_bfloat16>(q, v, o, lse, N, L, d, C, stream);
-  }
+  if (route(1, q, v, o, N, L, d, C) == 2) return launch_wgmma(q, v, o, lse, N, L, C, stream);
+  return launch<__nv_bfloat16>(q, v, o, lse, N, L, d, C, stream);
 }
 
 // Which K1 kernel takes a call with these pointers and shape: 2 the
-// warpgroup (wgmma) kernel, 1 the mma.sync kernel, 0 the CUDA-core kernel.
-// By type, shape and alignment only.
+// warpgroup (wgmma) kernel, 1 the split-precision (3xTF32) kernel, 0 the
+// CUDA-core kernel. By type, shape and alignment only.
 extern "C" int fmi_flash_attention_fwd_route(int bf16, const void* q, const void* v,
                                              const void* o, int N, int L, int d, int C) {
   return route(bf16, q, v, o, N, L, d, C);

@@ -20,11 +20,17 @@ K5 replaces the backward kernels of the JAX ``custom_vjp`` (``_backward_sym``,
 D = rowsum(dO * O) it returns dq (both roles of the tied q == k summed) and
 dv. ``flash_attention_bwd`` launches it for CUDA tensors and runs
 ``flash_attention_bwd_plain`` for CPU tensors. ``flash_attention_autograd``
-joins K1 and K5 in one ``torch.autograd.Function``. K5 has two routes, chosen
-by the C side by shape and alignment only (``flash_attention_bwd_route``):
-bf16 at d in {32, 64} and C <= 256 (C % 8 == 0) runs on the tensor cores,
-where dq's two roles meet in an f32 scratch through atomics (so dq is not
-bit-deterministic); everything else on the CUDA cores.
+joins K1 and K5 in one ``torch.autograd.Function``.
+
+Both kernels choose their route on the C side, by type, shape and alignment
+only (``flash_attention_route``, ``flash_attention_bwd_route``). At d in
+{32, 64} (K1 in bf16: d = 64) and C <= 256 with C % 8 == 0, bf16 runs on the
+tensor cores and f32 on the tensor cores in split precision ("tf32x3": each
+f32 operand as two TF32 parts, three products, held to the f32 gates; not
+the one-product TF32 that ``torch.backends.cuda.matmul.allow_tf32`` means,
+and not governed by it); everything else on the CUDA cores. On K5's tensor
+core routes dq's two roles meet through f32 atomics, so dq is not
+bit-deterministic there.
 """
 
 from __future__ import annotations
@@ -118,17 +124,17 @@ def _route_function():
     return fn
 
 
-_ROUTES = {2: "wgmma", 1: "mma_sync", 0: "cuda_cores"}
+_ROUTES = {2: "wgmma", 1: "tf32x3", 0: "cuda_cores"}
 
 
 def flash_attention_route(q: torch.Tensor, values: Sequence[torch.Tensor]) -> str:
-    """"wgmma", "mma_sync" or "cuda_cores": the K1 kernel that a call on these
+    """"wgmma", "tf32x3" or "cuda_cores": the K1 kernel that a call on these
     CUDA tensors launches. The C side decides, by type, shape and alignment
-    only: bf16 at d = 64 and C <= 256 (C % 8 == 0, 16-byte aligned rows)
-    takes the warpgroup kernel, other bf16 at d in {32, 64, 128} with
-    C % 8 == 0 the mma.sync kernel, the rest the CUDA cores. The values are
-    concatenated and the output allocated as the call does it, so v_cat's
-    alignment stands for both."""
+    only: with C <= 256, C % 8 == 0 and 16-byte aligned rows, bf16 at d = 64
+    takes the warpgroup kernel and f32 at d in {32, 64} the split-precision
+    (3xTF32) kernel; the rest the CUDA cores. The values are concatenated
+    and the output allocated as the call does it, so v_cat's alignment
+    stands for both."""
     _check(q, values)
     n, l, d = q.shape
     v_cat = values[0] if len(values) == 1 else torch.cat(list(values), dim=-1)
@@ -219,20 +225,23 @@ def _bwd_route_function():
     return fn
 
 
-def _bwd_tensor_cores(q, v_cat, do_cat, dq, dv) -> bool:
-    """Whether K5 runs a call on the tensor cores: the C side decides, by
-    shape and alignment (bf16, d in {32, 64}, C <= 256 with C % 8 == 0)."""
-    return bool(_bwd_route_function()(
+_BWD_ROUTES = {1: "tensor_cores", 2: "tf32x3", 0: "cuda_cores"}
+
+
+def _bwd_route(q, v_cat, do_cat, dq, dv) -> str:
+    """The K5 route of a call: the C side decides, by type, shape and
+    alignment (d in {32, 64}, C <= 256 with C % 8 == 0, 16-byte aligned:
+    bf16 on the tensor cores, f32 in split precision)."""
+    return _BWD_ROUTES[_bwd_route_function()(
         q.dtype == torch.bfloat16, q.data_ptr(), v_cat.data_ptr(), do_cat.data_ptr(),
-        dq.data_ptr(), dv.data_ptr(), q.shape[-1], v_cat.shape[-1]))
+        dq.data_ptr(), dv.data_ptr(), q.shape[-1], v_cat.shape[-1])]
 
 
 def flash_attention_bwd_route(q: torch.Tensor, v_cat: torch.Tensor) -> str:
-    """"tensor_cores" or "cuda_cores": the K5 route of a call on these CUDA
-    tensors (dO and the outputs are allocated as they are, so q's and
-    v_cat's alignment decides)."""
-    return ("tensor_cores" if _bwd_tensor_cores(q, v_cat, v_cat, q, v_cat)
-            else "cuda_cores")
+    """"tensor_cores" (bf16), "tf32x3" (f32) or "cuda_cores": the K5 route of
+    a call on these CUDA tensors (dO and the outputs are allocated as they
+    are, so q's and v_cat's alignment decides)."""
+    return _bwd_route(q, v_cat, v_cat, q, v_cat)
 
 
 def flash_attention_bwd(q: torch.Tensor, v_cat: torch.Tensor, lse: torch.Tensor,
@@ -262,7 +271,7 @@ def flash_attention_bwd(q: torch.Tensor, v_cat: torch.Tensor, lse: torch.Tensor,
     if q.dtype == torch.bfloat16:
         # the tensor-core kernels sum dq's two roles in f32 here
         work = (torch.empty((n, l, d), dtype=torch.float32, device=q.device)
-                if _bwd_tensor_cores(q, v_cat, do_cat, dq, dv) else None)
+                if _bwd_route(q, v_cat, do_cat, dq, dv) == "tensor_cores" else None)
         ptrs.append(None if work is None else work.data_ptr())
     with torch.cuda.device(q.device):
         rc = _bwd_function(q.dtype)(*ptrs, n, l, d, v_cat.shape[-1],

@@ -4,23 +4,29 @@ variants of their own sources on one NVIDIA GPU.
     python -m face_mask_inpaint_tpu_torch.tools.tensor_core_variants
 
 A variant is ``csrc/decoder_conv.cu``, ``csrc/flash_attention_bwd.cu`` or
-``csrc/flash_attention_fwd.cu`` with one part of one kernel's work taken out
-(K4b and K4a: the staging pass that applies the prologue and lays the chunk
-out channel-innermost, the tensor-core products, the cp.async copies of the
+``csrc/flash_attention_fwd.cu``, with its own copy of the ``csrc/*.cuh``
+headers, with one part of one kernel's work taken out (K4b and K4a: the
+staging pass that applies the prologue and lays the chunk out
+channel-innermost, the tensor-core products, the cp.async copies of the
 next chunk; K5: the f32 atomics of dq's query role; K1: the P V products,
-the exp2 of the softmax, the rescale of O) or moved (K5: v_c's A fragments
-read from shared memory instead of kept in registers), built with the
-port's nvcc flags into ``build/kernels/variants/``. A variant that takes work out
+the exp2 of the softmax, the rescale of O; the f32 split-precision routes
+of K1 and K5: the lo products, so one TF32 product is left (which fails the
+f32 gate), and the split conversions) or moved (K5: v_c's A fragments read
+from shared memory instead of kept in registers; the f32 routes: each step's
+products added to the long sums in place instead of through a zeroed
+fragment and a rounded add), built with the port's nvcc flags into
+``build/kernels/variants/``. A variant that takes work out
 computes a wrong result: its time says what that work costs, not what a
 kernel could do. The committed source is checked against its plain version.
 Every variant is timed with CUDA events through its C entry point (so
 without the wrapper's host work) at the flagship shapes (K4b and K4a:
 decoders 3 and 4 at batch 16; K5: config 5; K1: the flagship's 128^2
-attention at batch 16), twice, in turns (a, b, ..., b, a), beside the
-wrapper's own call (the C entry point plus the wrapper's host work: weight
-packing, padding, the stats sum) and the PyTorch call that computes the same
-function. Prints one line per kernel and shape and the card's name and power
-limit. Exits non-zero without CUDA.
+attention at batch 16; K1 and K5 in bf16 and in f32), twice, in turns (a,
+b, ..., b, a), beside the wrapper's own call (the C entry point plus the
+wrapper's host work: weight packing, padding, the stats sum), the plain
+version (f32) and the PyTorch call that computes the same function. Prints
+one line per kernel and shape and the card's name and power limit. Exits
+non-zero without CUDA.
 
 The variants are made by replacing fragments of the committed sources, and
 the tool raises when a fragment is not found. It backs the breakdown of the
@@ -57,6 +63,27 @@ _K1_PV = "      for (int kk = 0; kk < 4; ++kk) wgmma_m64n256k16_rs(oacc, pa[kk],
 _K1_EXP2 = "            sacc[4 * j + e] = exp2f(fmaf(sacc[4 * j + e], kLog2e, -m_new));"
 _K1_RESCALE = """          oacc[4 * j + 2 * h] *= alpha[h];
           oacc[4 * j + 2 * h + 1] *= alpha[h];"""
+# the split-precision routes (csrc/mma.cuh and the f32 kernels)
+_TF32_THREE = """  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);"""
+_TF32_RNA = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
+_F32_SPLIT_VARIANTS = {
+    "one TF32 product": {"mma.cuh": {_TF32_THREE: "  mma_tf32(c, ah, bh0, bh1);"}},
+    "no split conversions": {"mma.cuh": {_TF32_RNA: "  return __float_as_uint(x);"}},
+}
+_K1F32_ADD = """          mma_tf32x3(part[jj], ph[kk], pl[kk], v0[0], v0[VS]);"""
+_K1F32_FLUSH = """#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jg * 8 + jj][e] += part[jj][e];"""
+_K5F32_ADD = """            mma_tf32x3(part[mt][jj], ah[mt], al[mt], bh0, bh1, bl0, bl1);"""
+_K5F32_FLUSH = """#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int jj = 0; jj < CP / 64; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dva[mt][jh * (CP / 64) + jj][e] += part[mt][jj][e];"""
 # each variant's name starts with the kernel it is timed for
 VARIANTS = {
     "decoder_conv": {
@@ -77,6 +104,10 @@ VARIANTS = {
         "K1 no P V products": {_K1_PV: _K1_PV.replace("kk < 4;", "kk < 4 * (n_tiles < 0);")},
         "K1 no exp2": {_K1_EXP2: _K1_EXP2.replace("exp2f(", "(")},
         "K1 no rescale of O": {_K1_RESCALE: ""},
+        **{f"f32 K1 {k}": v for k, v in _F32_SPLIT_VARIANTS.items()},
+        "f32 K1 products added to O in place": {
+            _K1F32_ADD: "          mma_tf32x3(acc[jg * 8 + jj], ph[kk], pl[kk], v0[0], v0[VS]);",
+            _K1F32_FLUSH: ""},
     },
     "flash_attention_bwd": {
         "as committed": {},
@@ -88,6 +119,10 @@ VARIANTS = {
         ldmatrix_x4(a, &vc[(kw * 16 + (lm & 1) * 8 + li) * CS + kk * 16 + (lm >> 1) * 8]);
         mma_bf16(dp[2 * jp], a, b[0], b[1]);
         mma_bf16(dp[2 * jp + 1], a, b[2], b[3]);"""},
+        **{f"f32 K5 {k}": v for k, v in _F32_SPLIT_VARIANTS.items()},
+        "f32 K5 products added to dv in place": {
+            _K5F32_ADD: _K5F32_ADD.replace("part[mt][jj]", "dva[mt][jh * (CP / 64) + jj]"),
+            _K5F32_FLUSH: ""},
     },
 }
 # (name, C, Co, H = W) of the flagship's decoders 3 and 4, batch 16
@@ -95,22 +130,31 @@ DECODERS = [("decoder 3", 128, 64, 256), ("decoder 4", 64, 32, 512)]
 CONFIG5 = (16, 16384, 64, 256)  # N, L, d, C
 
 
+def _edited(text: str, edits: dict, what: str) -> str:
+    for old, new in edits.items():
+        if old not in text:
+            raise RuntimeError(f"{what}: {old!r} not in the source")
+        text = text.replace(old, new, 1)
+    return text
+
+
 def _build(name: str) -> dict[str, ctypes.CDLL]:
+    """Each variant in a directory of its own, beside its own copies of the
+    headers (the source includes them by quotes, so they are found first)."""
     source = (build.CSRC / f"{name}.cu").read_text()
-    out_dir = build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, (variant, edits) in enumerate(VARIANTS[name].items()):
-        text = source
-        for old, new in edits.items():
-            if old not in text:
-                raise RuntimeError(f"{name} variant {variant!r}: {old!r} not in the source")
-            text = text.replace(old, new, 1)
-        src, lib = out_dir / f"{name}_v{i}.cu", out_dir / f"{name}_v{i}.so"
-        src.write_text(text)
+        out_dir = build.BUILD_DIR / "variants" / f"{name}_v{i}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        edits = dict(edits)
+        for header in build.CSRC.glob("*.cuh"):
+            (out_dir / header.name).write_text(_edited(
+                header.read_text(), edits.pop(header.name, {}), f"{variant!r}, {header.name}"))
+        src, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
+        src.write_text(_edited(source, edits, f"{name} variant {variant!r}"))
         procs[variant] = (lib, subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(lib),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for variant, (lib, proc) in procs.items():
         log, _ = proc.communicate()
@@ -317,6 +361,95 @@ def _k1(libs, gen, card: str) -> None:
     _report(f"K1 flagship N={n} L={l} d={d} C={c} bf16", _in_turns(calls, 10), card)
 
 
+def _f32_inputs(gen):
+    """The flagship's and config 5's attention shape in f32, q scaled as
+    chip_smoke.py scales it."""
+    n, l, d, c = CONFIG5
+    q = torch.randn(n, l, d, device="cuda", generator=gen) / d ** 0.5 * 2
+    v = torch.randn(n, l, c, device="cuda", generator=gen)
+    return q, v
+
+
+def _gate_report(label: str, used: dict[str, float], card: str) -> None:
+    print(f"{label}, share of the f32 gate used on {card}: " + "; ".join(
+        f"{k} {u:.3f}" for k, u in used.items()), flush=True)
+
+
+def _k1_f32(libs, gen, card: str) -> None:
+    """K1's split-precision route at the flagship shape in f32."""
+    q, v = _f32_inputs(gen)
+    n, l, d = q.shape
+    c = v.shape[-1]
+    o, lse = torch.empty_like(v), torch.empty(n, l, device="cuda")
+    if fa.flash_attention_route(q, [v]) != "tf32x3":
+        raise RuntimeError("K1: the flagship shape in f32 does not take the tf32x3 route")
+    (want,), want_lse = fa.flash_attention_plain(q, [v], with_lse=True)
+    calls, used = {}, {}
+    for variant, lib in _mine(libs, "f32 K1").items():
+        fn = _c_function(lib, "fmi_flash_attention_fwd_f32",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+        def call(fn=fn):
+            _checked(fn(q.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), n, l, d, c,
+                        torch.cuda.current_stream().cuda_stream))
+        call()
+        torch.cuda.synchronize()
+        used[variant] = max(float(((o - want).abs() / (1e-4 + 1e-4 * want.abs())).max()),
+                            float((lse - want_lse).abs().max()) / 1e-3)
+        calls[variant] = call
+    if used["as committed"] > 1.0:
+        raise RuntimeError(f"K1 f32: the committed kernel uses {used['as committed']:.3f} of "
+                           f"its gate")
+    del want, want_lse
+    calls["wrapper"] = lambda: fa.flash_attention(q, [v], with_lse=True)
+    calls["plain"] = lambda: fa.flash_attention_plain(q, [v])
+    q4, v4 = q[:, None], v[:, None]
+    calls["SDPA"] = lambda: F.scaled_dot_product_attention(q4, q4, v4, scale=1.0)
+    _report(f"K1 flagship N={n} L={l} d={d} C={c} f32", _in_turns(calls, 3), card)
+    _gate_report("K1 flagship f32", used, card)
+
+
+def _k5_f32(libs, gen, card: str) -> None:
+    """K5's split-precision route at config 5 in f32."""
+    q, v = _f32_inputs(gen)
+    n, l, d = q.shape
+    c = v.shape[-1]
+    (o,), lse = fa.flash_attention(q, [v], with_lse=True)
+    do = torch.randn(n, l, c, device="cuda", generator=gen)
+    dsum = (do * o).sum(-1)
+    del o
+    if fa.flash_attention_bwd_route(q, v) != "tf32x3":
+        raise RuntimeError("K5: config 5 in f32 does not take the tf32x3 route")
+    want = fa.flash_attention_bwd_plain(q, v, lse, do, dsum)
+    dq, dv = torch.empty_like(q), torch.empty_like(v)
+    calls, used = {}, {}
+    for variant, lib in _mine(libs, "f32 K5").items():
+        fn = _c_function(lib, "fmi_flash_attention_bwd_f32",
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+        def call(fn=fn):
+            _checked(fn(q.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        dsum.data_ptr(), dq.data_ptr(), dv.data_ptr(), n, l, d, c,
+                        torch.cuda.current_stream().cuda_stream))
+        call()
+        torch.cuda.synchronize()
+        used[variant] = max(float((g - w).abs().max()) / (1e-4 * float(w.abs().max()))
+                            for g, w in zip((dq, dv), want))
+        calls[variant] = call
+    if used["as committed"] > 1.0:
+        raise RuntimeError(f"K5 f32: the committed kernel uses {used['as committed']:.3f} of "
+                           f"its gate")
+    del want
+    calls["wrapper"] = lambda: fa.flash_attention_bwd(q, v, lse, do, dsum)
+    calls["plain"] = lambda: fa.flash_attention_bwd_plain(q, v, lse, do, dsum)
+    q4, v4 = q[:, None].detach().requires_grad_(), v[:, None].detach().requires_grad_()
+    out = F.scaled_dot_product_attention(q4, q4, v4, scale=1.0)
+    calls["SDPA backward"] = lambda: torch.autograd.grad(out, (q4, v4), do[:, None],
+                                                         retain_graph=True)
+    _report(f"K5 config 5 N={n} L={l} d={d} C={c} f32", _in_turns(calls, 2), card)
+    _gate_report("K5 config 5 f32", used, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("tensor_core_variants: CUDA is not available", file=sys.stderr)
@@ -329,8 +462,11 @@ def main() -> int:
     conv = _build("decoder_conv")
     _k4b(conv, gen, card)
     _k4a(conv, gen, card)
-    _k5(_build("flash_attention_bwd"), gen, card)
-    _k1(_build("flash_attention_fwd"), gen, card)
+    bwd, fwd = _build("flash_attention_bwd"), _build("flash_attention_fwd")
+    _k5(bwd, gen, card)
+    _k1(fwd, gen, card)
+    _k5_f32(bwd, gen, card)
+    _k1_f32(fwd, gen, card)
     print(card)
     return 0
 

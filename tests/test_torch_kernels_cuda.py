@@ -1,7 +1,9 @@
 """K1, K5, K2, K3, K4a, K4b, K6 (forward and backward), K7a and K7b against
 their plain versions on an NVIDIA GPU, on each of their routes (K1: the
-warpgroup, mma.sync and CUDA-core kernels; K4a, K4b and K5: tensor cores and
-CUDA cores), with each route's choice by shape and alignment.
+warpgroup kernel in bf16, the split-precision (3xTF32) kernel in f32 and the
+CUDA-core kernel; K5: tensor cores in bf16, split precision in f32 and CUDA
+cores; K4a and K4b: tensor cores and CUDA cores), with each route's choice
+by shape and alignment.
 Marked ``cuda``: they skip where torch.cuda.is_available() is False (the
 decision is taken in a fixture, at run time). Run on the card, where JAX need
 not be installed, with
@@ -19,7 +21,9 @@ bfloat16 tolerance adds rtol times the sum of the output's terms' magnitudes
 (see the test).
 
 Tolerance: |kernel - plain| <= atol + rtol |plain| with (1e-4, 1e-4) in
-float32 (TF32 off; only the order of f32 sums differs) and (1e-3, 2^-7) in
+float32 (TF32 off; only the order of f32 sums differs, and on K1's and K5's
+split-precision route the about 21 bits the split keeps of each operand)
+and (1e-3, 2^-7) in
 bfloat16 (each side rounds an f32 result once: one bf16 ulp apart at most).
 K5's dq and dv are held to max |kernel - plain| <= tol * max |plain| with tol
 1e-4 in float32 and 1e-2 in bfloat16: in bfloat16 both sides round P and dS
@@ -65,8 +69,9 @@ def _assert_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,l,d,widths", [
     (2, 320, 8, [24, 16]), (2, 257, 128, [130]),                        # CUDA-core path
-    (1, 4100, 64, [256]),                                     # bf16: warpgroup (wgmma) path
-    (2, 300, 128, [264]), (2, 257, 32, [128, 8]),             # bf16: mma.sync path
+    (1, 4100, 64, [256]),     # bf16: warpgroup (wgmma) path; f32: split precision (tf32x3)
+    (2, 300, 128, [264]),                                               # CUDA-core path
+    (2, 257, 32, [128, 8]),              # bf16: CUDA-core path; f32: split precision
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, n, l, d, widths):
     q = (torch.randn(n, l, d, device="cuda", generator=cuda) * 0.5).to(dtype)
@@ -104,22 +109,49 @@ def test_flash_attention_wgmma_route_matches_plain(cuda, l, widths):
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
 
 
+# f32 at d in {32, 64} with C <= 256: the split-precision (3xTF32) kernel, at
+# L of one key, under and just over one 128-row query block, and ragged over
+# many key tiles; C of the flagship (256), of Stack A's two values (200 +
+# 56), of one n-tile (8) and ending inside a 64-channel group (72). It is
+# held to the f32 gate (TF32 off), not to a TF32 one.
+@pytest.mark.parametrize("d", [64, 32])
+@pytest.mark.parametrize("l", [1, 100, 130, 4100])
+@pytest.mark.parametrize("widths", [[256], [200, 56], [8], [72]])
+def test_flash_attention_tf32x3_route_matches_plain(cuda, d, l, widths):
+    q = torch.randn(2, l, d, device="cuda", generator=cuda) / d ** 0.5 * 2
+    vs = [torch.randn(2, l, c, device="cuda", generator=cuda) for c in widths]
+    assert fa.flash_attention_route(q, vs) == "tf32x3"
+    before = fa.flash_attention.launches
+    outs, lse = fa.flash_attention(q, vs, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    refs, lse_ref = fa.flash_attention_plain(q, vs, with_lse=True)
+    for o, r in zip(outs, refs):
+        assert o.dtype == torch.float32 and o.shape == r.shape
+        _assert_close(o, r, torch.float32)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
 def test_flash_attention_routes(cuda):
     """bf16 at d = 64 and C <= 256 (C % 8 == 0) takes the warpgroup kernel,
-    the flagship and config 5 (C = 256) among them; bf16 at d in {32, 128}
-    or C > 256 the mma.sync kernel; other shapes, misaligned tensors and
-    float32 the CUDA cores."""
+    the flagship and config 5 (C = 256) among them; f32 at d in {32, 64}
+    and C <= 256 the split-precision (tf32x3) kernel; other shapes (d = 48
+    among them, and bf16 at d in {32, 128} or C > 256), misaligned tensors
+    the CUDA cores."""
     def route(d, widths, dtype=torch.bfloat16, offset=0):
         q = torch.zeros(2, 8, d, device="cuda", dtype=dtype)
         return fa.flash_attention_route(q, [
             torch.zeros(2 * 8 * c + offset, device="cuda", dtype=dtype)[offset:].view(2, 8, c)
             for c in widths])
     assert route(64, [256]) == route(64, [200, 56]) == route(64, [8]) == "wgmma"
-    assert route(64, [264]) == route(32, [256]) == route(128, [64]) == "mma_sync"
+    assert route(64, [264]) == route(32, [256]) == route(128, [64]) == "cuda_cores"
     assert route(48, [256]) == route(64, [60]) == "cuda_cores"
     assert route(64, [256], offset=1) == "cuda_cores"
     assert route(64, [200, 56], offset=1) == "wgmma"  # concatenated into a new tensor
-    assert route(64, [256], torch.float32) == "cuda_cores"
+    f32 = torch.float32
+    assert route(64, [256], f32) == route(64, [200, 56], f32) == route(32, [8], f32) == "tf32x3"
+    assert route(48, [256], f32) == route(64, [264], f32) == route(64, [60], f32) == "cuda_cores"
+    assert route(128, [64], f32) == route(64, [256], f32, offset=1) == "cuda_cores"
 
 
 def test_flash_attention_kernel_rejects_bad_input(cuda):
@@ -154,7 +186,8 @@ def _bwd_inputs(gen, n, l, d, widths, dtype):
 @pytest.mark.parametrize("n,l,d,widths", [
     (2, 320, 8, [24, 16]), (2, 257, 128, [130]), (1, 300, 48, [64]),   # CUDA cores
     (2, 300, 128, [264]), (1, 130, 64, [264]), (1, 90, 64, [36]),      # CUDA cores (C)
-    (1, 4100, 64, [256]), (2, 257, 32, [128, 8]),   # bf16: tensor cores
+    # bf16: tensor cores; f32: split precision (tf32x3)
+    (1, 4100, 64, [256]), (2, 257, 32, [128, 8]),
     (2, 40, 64, [256]), (2, 4100, 64, [200, 56]), (1, 333, 32, [64]),  # L < one tile, ragged
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, n, l, d, widths):
@@ -170,10 +203,45 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, n, l, d, widths):
         _assert_bwd_close(got, want, dtype)
 
 
+# f32 at d in {32, 64} with C <= 256: K5's split-precision (3xTF32) kernel,
+# at L of one key, under one 64-key tile and ragged over many (L = 4100 runs
+# dv and dq's key role over 129 row tiles, where the tensor cores'
+# accumulate would drift without the rounded adds); the widths of K1's case
+@pytest.mark.parametrize("d", [64, 32])
+@pytest.mark.parametrize("l", [1, 100, 130, 4100])
+@pytest.mark.parametrize("widths", [[256], [200, 56], [8], [72]])
+def test_flash_attention_bwd_tf32x3_route_matches_plain(cuda, d, l, widths):
+    q = torch.randn(2, l, d, device="cuda", generator=cuda) / d ** 0.5 * 2
+    vs = [torch.randn(2, l, c, device="cuda", generator=cuda) for c in widths]
+    outs, lse = fa.flash_attention_plain(q, vs, with_lse=True)
+    v_cat = torch.cat(vs, dim=-1)
+    do_cat = torch.randn(v_cat.shape, device="cuda", generator=cuda)
+    dsum = (do_cat * torch.cat(outs, dim=-1)).sum(dim=-1)
+    assert fa.flash_attention_bwd_route(q, v_cat) == "tf32x3"
+    before = fa.flash_attention_bwd.launches
+    dq, dv = fa.flash_attention_bwd(q, v_cat, lse, do_cat, dsum)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    dq_ref, dv_ref = fa.flash_attention_bwd_plain(q, v_cat, lse, do_cat, dsum)
+    assert dq.dtype == dv.dtype == torch.float32
+    if l == 1:
+        # one key: P = 1 and dS = dO.v - D is exactly 0, so dq = 2 dS q is,
+        # on both sides, what is left of two terms of size sum_k |dO_k v_k|
+        # that cancel; it is held to 1e-4 of 2 sum_k |dO_k v_k| |q|, the
+        # size dq would have from either term alone
+        size = 2 * (do_cat * v_cat).abs().sum(-1, keepdim=True) * q.abs()
+        assert bool(((dq - dq_ref).abs() <= 1e-4 * size).all())
+    else:
+        _assert_bwd_close(dq, dq_ref, torch.float32)
+    for got, want in zip(torch.split(dv, widths, -1), torch.split(dv_ref, widths, -1)):
+        _assert_bwd_close(got, want, torch.float32)
+
+
 def test_flash_attention_bwd_routes(cuda):
     """bf16 at d in {32, 64} and C <= 256 (C % 8 == 0) takes the tensor
-    cores, config 5 (d = 64, C = 256) among them; other shapes, misaligned
-    tensors and float32 take the CUDA cores."""
+    cores, config 5 (d = 64, C = 256) among them, and f32 at the same shapes
+    the split-precision (tf32x3) kernel; other shapes and misaligned tensors
+    take the CUDA cores."""
     def route(d, c, dtype=torch.bfloat16, offset=0):
         q = torch.zeros(2, 8, d, device="cuda", dtype=dtype)
         v = torch.zeros(2 * 8 * c + offset, device="cuda", dtype=dtype)[offset:].view(2, 8, c)
@@ -182,7 +250,10 @@ def test_flash_attention_bwd_routes(cuda):
     assert route(64, 200 + 56) == route(32, 136) == route(64, 8) == "tensor_cores"
     assert route(48, 256) == route(128, 256) == route(64, 264) == route(64, 60) == "cuda_cores"
     assert route(64, 256, offset=1) == "cuda_cores"
-    assert route(64, 256, torch.float32) == "cuda_cores"
+    f32 = torch.float32
+    assert route(64, 256, f32) == route(64, 200 + 56, f32) == route(32, 8, f32) == "tf32x3"
+    assert route(48, 256, f32) == route(64, 264, f32) == route(64, 60, f32) == "cuda_cores"
+    assert route(64, 256, f32, offset=1) == "cuda_cores"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
