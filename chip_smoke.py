@@ -20,10 +20,11 @@ it and read just after. Phases:
    flagship shapes and ragged ones, in float32 (TF32 off) and bfloat16; time
    each at the flagship shape beside its bound (the larger of its bytes over
    the memory rate and its operations over the peak rate of the route that
-   ran it: K1's and K5's f32 split-precision route as three TF32 products)
-   and, for K1, K5, K4b and K4a, beside the PyTorch call that computes the
-   same function (K1's and K5's in both types, with that call's error
-   against the plain version, not gated);
+   ran it: K1's, K4b's and K5's f32 split-precision route as three TF32
+   products) and, for K1, K5, K4b and K4a, beside the PyTorch call that
+   computes the same function (K1's and K5's in both types, with that call's
+   error against the plain version, not gated; K4b's and K4a's cuDNN call in
+   both types);
    K5, the flash-attention backward, at the config-5 shape (batch 16) and
    ragged ones, for dq and each dv; K1 also at L under and just over one
    128-row block and at C = 64, K4a also on one stream without a prologue,
@@ -34,8 +35,11 @@ it and read just after. Phases:
    kernels; and their CUDA-core ones elsewhere (d = 48, d = 128, C > 256),
    that K4b and K4a take their tensor-core routes in
    bfloat16 where W % 8 == 0 (the flagship's decoders 3 and 4 and W = 72
-   among them) and their CUDA-core ones elsewhere, and print each one's
-   route and K1's, K4a's, K4b's and K5's achieved TFLOP/s;
+   among them) and their CUDA-core ones elsewhere, that K4b takes its
+   split-precision (tf32x3) route in float32 where W % 4 == 0 (decoders 3
+   and 4, W = 72, 48, 100 and 36) and its CUDA-core one elsewhere, while
+   K4a's float32 stays on the CUDA cores, and print each one's route and
+   K1's, K4a's, K4b's and K5's achieved TFLOP/s;
 3. the flagship models at batch 4, float32, random weights from --seed:
    output shape, range and finiteness; the kernel path against the plain
    versions on the card; the launch counts of one forward (K1 once, K2 ten
@@ -43,8 +47,10 @@ it and read just after. Phases:
    show K1's split-precision kernel and neither of its others;
 3b. the packed-convt configuration on the same models and inputs: the
    launch counts of one forward (K1 once, K2 six times, K4b and K4a twice,
-   K3 never), the kernel path against the plain versions and against the
-   default configuration's output (both compute the same function);
+   K3 never), a ``torch.profiler`` window of one forward, which must show
+   K4b's split-precision kernel and neither of its others, the kernel path
+   against the plain versions and against the default configuration's
+   output (both compute the same function);
 4. the CLI's ``infer_batch`` (float32, as the CLI runs) over three seeded
    batches, with SSIM/MS-SSIM and the median wall time of the calls;
 5. the flagship forward at batch 16 in bfloat16 (bench.py's configuration),
@@ -77,7 +83,8 @@ it and read just after. Phases:
 8. Stack B, pSp -> StyleGAN2 inference at BASELINE config 4 (the path of
    ``psp_inference.py --use_ref --use_attention 1``): K6 (upfirdn2d) and
    K7a (fused_leaky_relu) against their plain versions in float32 and
-   bfloat16 at the shapes of one config-4 forward and ragged ones, timed
+   bfloat16 at the shapes of one config-4 forward, ragged ones and ones of
+   several of K6's tiles in both axes on 1025- and 513-wide rows, timed
    over the 16 K6 and 17 K7a calls of one batch-16 forward beside their
    bounds and a PyTorch yardstick; the pSp model of the CLI's
    ``build_models`` (output 1024, attention, random weights from --seed)
@@ -88,7 +95,8 @@ it and read just after. Phases:
    ``ModelInterface.infer``; then config 4 at batch 16 in bfloat16 (the
    model as bench.py builds it): the forward timed with CUDA events in
    turns against the plain versions (median and quartiles), its peak device
-   memory and a ``torch.profiler`` window;
+   memory and a ``torch.profiler`` window, which must show K6's fused
+   kernel and not the two-pass one it replaced;
 9. Stack B training at BASELINE config 4 (the path of ``train_psp.py``,
    the ``scripts/train_psp.sh`` recipe with ``--use_attention``: decoder
    trained, identity, LPIPS, L2, logged style and contextual terms, latent
@@ -106,7 +114,8 @@ it and read just after. Phases:
    K7a and K7b 17 times each, K1-K5 never), finite losses with
    ``skipped_nonfinite`` 0, the step time (CUDA events, median and quartiles
    of STEP_ROUNDS steps after two warm-up), its peak device memory and a
-   ``torch.profiler`` window (device-busy share).
+   ``torch.profiler`` window (device-busy share), which must show K6's
+   fused kernel and not the two-pass one it replaced.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -151,8 +160,8 @@ DECODER_TAIL = [dict(name="decoder 3", c=128, co=64, h=256),
 STATS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # one H100 SXM: HBM bytes/s; dense bf16 tensor-core and f32 CUDA-core FLOP/s
 MEM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
-# dense TF32 tensor-core FLOP/s: K1's and K5's f32 split-precision route runs
-# three TF32 products for each f32 multiply-add
+# dense TF32 tensor-core FLOP/s: K1's, K4b's and K5's f32 split-precision
+# route runs three TF32 products for each f32 multiply-add
 TF32_RATE = 495e12
 
 # rounds of the phase-6 spread: enough for quartiles of a host-bound forward
@@ -266,10 +275,10 @@ def _bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def _flash_bound(nbytes: float, ops: float, dtype_name: str, route: str) -> tuple[float, str]:
-    """K1's and K5's bound for the route that ran them: bf16 at the dense
-    bf16 rate; f32 on the split-precision route as three TF32 products at the
-    dense TF32 rate, on the CUDA cores at the f32 rate."""
+def _route_bound(nbytes: float, ops: float, dtype_name: str, route: str) -> tuple[float, str]:
+    """K1's, K4b's and K5's bound for the route that ran them: bf16 at the
+    dense bf16 rate; f32 on the split-precision route as three TF32 products
+    at the dense TF32 rate, on the CUDA cores at the f32 rate."""
     if dtype_name == "bfloat16":
         return _bound(nbytes, ops, BF16_RATE)
     if route == "tf32x3":
@@ -475,7 +484,7 @@ def _phase_flash_backward(run: Run, gen, timings: dict):
                 # q, v, dO, lse, D read once; dq, dv written once. Operations:
                 # the bound formula 2 N L^2 (1.5 d + 2 C)
                 ops = 2.0 * n * l * l * (1.5 * d + 2 * c_all)
-                bound = _flash_bound(es * n * l * (2 * d + 3 * c_all) + 8 * n * l, ops, dname,
+                bound = _route_bound(es * n * l * (2 * d + 3 * c_all) + 8 * n * l, ops, dname,
                                      route)
                 lib_ms, lib_err = _library_attention_bwd(q, v_cat, do_cat, dq_ref, dv_ref)
                 timings[("flash_attention_bwd", dname)] = (ms, plain_ms, *bound, lib_ms)
@@ -538,7 +547,7 @@ def phase_kernels(run: Run, seed: int, timings: dict):
                 plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, vs), 5)
                 c_all = sum(widths)
                 ops = 2.0 * n * l * l * (d + c_all)
-                bound = _flash_bound(q.element_size() * n * l * (d + 2 * c_all), ops, dname,
+                bound = _route_bound(q.element_size() * n * l * (d + 2 * c_all), ops, dname,
                                      route)
                 lib_ms, lib_err = _library_attention(q, vs[0], refs[0])
                 timings[("flash_attention_fwd", dname)] = (ms, plain_ms, *bound, lib_ms)
@@ -655,14 +664,19 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
 
     # W = 41 and 70 take K4b's and K4a's CUDA-core kernels in bf16; W = 72 and
     # 48 their tensor cores, with odd H, C and Co off their tiles (Co = 3 and
-    # 80); each K4a also runs on the x stream alone, which has no prologue
+    # 80); each K4a also runs on the x stream alone, which has no prologue. In
+    # f32, K4b takes its split-precision kernel where W % 4 == 0 (72, 48, 100,
+    # 36: H and W off its tile, C = 13 and 21 off its 8-channel chunk, Co = 16
+    # and 40 off its channel block, with and without a prologue) and K4a its
+    # CUDA-core one
     ragged = [dict(name="ragged", n=3, c=13, co=3, h=37, w=41, pro="ReLU", act="LeakyReLU"),
               dict(name="ragged", n=2, c=21, co=80, h=17, w=70, pro=None, act=None),
               dict(name="ragged", n=2, c=40, co=80, h=19, w=72, pro="LeakyReLU", act="ReLU"),
-              dict(name="ragged", n=2, c=24, co=3, h=21, w=48, pro=None, act="LeakyReLU")]
+              dict(name="ragged", n=2, c=24, co=3, h=21, w=48, pro=None, act="LeakyReLU"),
+              dict(name="ragged", n=2, c=13, co=16, h=23, w=100, pro="ReLU", act="LeakyReLU"),
+              dict(name="ragged", n=1, c=21, co=40, h=10, w=36, pro=None, act="ReLU")]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        rate = BF16_RATE if dtype == torch.bfloat16 else F32_RATE
         acc = {k: dict(ms=0.0, plain=0.0, lib=0.0, flops=0.0, bounds=[])
                for k in ("conv3x3_stats", "convt_pair")}
         cases = [dict(d, n=16, w=d["h"], pro="LeakyReLU",
@@ -721,29 +735,35 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
                                        f"{', stats within rtol' if with_stats else ''}")
                 del got1, want1
             if dtype == torch.bfloat16:
-                want_route = "tensor_cores" if w % 8 == 0 else "cuda_cores"
-                for kname, route in (("K4b", dc.conv3x3_route(t["x"])),
-                                     ("K4a", dc.convt_pair_route(y))):
-                    run.check(route == want_route, f"{kname} {case['name']} W={w} {dname} takes "
-                                                   f"the {want_route} (route {route})")
+                want_k4b = want_k4a = "tensor_cores" if w % 8 == 0 else "cuda_cores"
+            else:
+                want_k4b, want_k4a = "tf32x3" if w % 4 == 0 else "cuda_cores", "cuda_cores"
+            for kname, route, want_route in (("K4b", dc.conv3x3_route(t["x"]), want_k4b),
+                                             ("K4a", dc.convt_pair_route(y), want_k4a)):
+                run.check(route == want_route, f"{kname} {case['name']} W={w} {dname} takes "
+                                               f"the {want_route} route (route {route})")
             if flagship:
                 es = t["x"].element_size()
                 w1, b1 = t["w1"].to(dtype), t["b1"].to(dtype)
                 w2, b2, wb, bb = (t[k].to(dtype) for k in ("w2", "b2", "wb", "bb"))
-                # the library yardsticks leave out the prologues and the stats
+                # the library yardsticks leave out the prologues and the stats;
+                # each bound at the rate of the route that ran (K4b's f32
+                # split-precision route: three TF32 products a multiply-add)
                 per = {"conv3x3_stats": (
                     lambda: dc.conv3x3_stats(*k4b_args, with_stats=True),
                     lambda: dc.conv3x3_stats_plain(*k4b_args, with_stats=True),
                     lambda: F.conv2d(t["x"], w1, b1, padding=1),
-                    _bound((t["x"].numel() + y.numel() + w1.numel()) * es,
-                           2.0 * n * h * w * co * c * 9, rate)),
+                    _route_bound((t["x"].numel() + y.numel() + w1.numel()) * es,
+                                 2.0 * n * h * w * co * c * 9, dname,
+                                 dc.conv3x3_route(t["x"]))),
                        "convt_pair": (
                     lambda: dc.convt_pair(streams, act, with_stats),
                     lambda: dc.convt_pair_plain(streams, act, with_stats),
                     lambda: (F.conv_transpose2d(y, w2, b2, 2, 1, 1)
                              + F.conv_transpose2d(t["x"], wb, bb, 2, 1, 1)),
-                    _bound((y.numel() + t["x"].numel() + out.numel() + w2.numel()
-                            + wb.numel()) * es, 2.0 * n * h * w * 9 * (co * co + c * co), rate))}
+                    _route_bound((y.numel() + t["x"].numel() + out.numel() + w2.numel()
+                                  + wb.numel()) * es, 2.0 * n * h * w * 9 * (co * co + c * co),
+                                 dname, dc.convt_pair_route(y)))}
                 for name, (kernel, plain, library, bound) in per.items():
                     a = acc[name]
                     ms, plain_ms, lib_ms = (_time_ms(kernel, 5), _time_ms(plain, 3),
@@ -760,7 +780,7 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
                     print(f"[time] {'K4b' if name == 'conv3x3_stats' else 'K4a'} "
                           f"{case['name']} {dname} ({route}): kernel {ms:.3f} ms "
                           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library "
-                          f"{lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
+                          f"(cuDNN) {lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
             del t, y, out, streams
             torch.cuda.empty_cache()
         for name, a in acc.items():
@@ -881,6 +901,19 @@ def phase_flagship(run: Run, seed: int) -> tuple[dict, dict]:
         run.check(tuple(out_p.shape) == (4, HW, HW, 3) and bool(torch.isfinite(out_p).all())
                   and float(out_p.abs().max()) <= 1.0,
                   f"packed-convt output shape {tuple(out_p.shape)}, finite, within [-1, 1]")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        _check_launched(run, rows, "conv3x3_tf32x3_kernel",
+                        ("conv3x3_kernel", "conv3x3_mma_kernel"),
+                        "K4b in the f32 packed-convt forward")
+        k4b_ms = sum(e.self_device_time_total for e in rows if "conv3x3_" in e.key) / 1e3
+        print(f"[packed-convt] f32 forward, batch 4: K4b {k4b_ms:.3f} ms of "
+              f"{sum(e.self_device_time_total for e in rows) / 1e3:.3f} ms device time",
+              flush=True)
+        del prof
         with plain_versions():
             out_pp, _ = forward()
     err = float((out_p - out_pp).abs().max())
@@ -1111,7 +1144,8 @@ def phase_profile(run: Run, seed: int, rounds: int, card: str):
                         ("flash_fwd_tf32x3_kernel", "flash_fwd_kernel"),
                         f"K1 in the bf16 {side} forward")
         if side == "packed-convt":
-            _check_launched(run, rows, "conv3x3_mma_kernel", ("conv3x3_kernel",),
+            _check_launched(run, rows, "conv3x3_mma_kernel",
+                            ("conv3x3_kernel", "conv3x3_tf32x3_kernel"),
                             "K4b in the bf16 packed-convt forward")
             _check_launched(run, rows, "convt_pair_mma_kernel", ("convt_pair_kernel",),
                             "K4a in the bf16 packed-convt forward")
@@ -1342,6 +1376,12 @@ def phase_stackb_kernels(run: Run, seed: int, timings: dict):
     k6_cases += [("ragged", (2, 1, 37, 41), 1, 1, (1, 1), 4.0),
                  ("ragged", (3, 3, 19, 27), 2, 1, (2, 1), 4.0),
                  ("ragged", (2, 5, 33, 21), 1, 2, (1, 1), 1.0)]
+    # several of the fused kernel's tiles in both axes, ragged at the edges,
+    # on the blurs' unaligned 1025- and 513-wide rows and odd plane counts
+    k6_cases += [("several tiles", (1, 3, 100, 1025), 1, 1, (1, 1), 4.0),
+                 ("several tiles", (3, 1, 513, 513), 1, 1, (1, 1), 4.0),
+                 ("several tiles", (2, 5, 70, 513), 2, 1, (2, 1), 4.0),
+                 ("several tiles", (3, 1, 130, 1025), 1, 2, (1, 1), 1.0)]
     asym = [("asymmetric", (2, 3, 23, 17), up, down, pad, float(up * up))
             for up, down, pad in ((1, 1, (2, 1)), (2, 1, (1, 2)), (1, 2, (2, 2)))]
     for dtype in (torch.float32, torch.bfloat16):
@@ -1564,6 +1604,8 @@ def phase_psp_timing(run: Run, seed: int, rounds: int, card: str):
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"[psp] profile, three forwards: wall {wall:.2f} ms, summed device time {busy:.2f} ms, "
           f"device busy {100 * busy / wall:.1f}% on {card}")
+    _check_launched(run, rows, "upfirdn2d_kernel", ("upfirdn1d_kernel",),
+                    "K6 in the bf16 config-4 forward")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"[psp]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:100]}")
     del detector, psp, forward, prof
@@ -1865,6 +1907,8 @@ def phase_psp_train(run: Run, seed: int, card: str) -> dict:
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"[psp-train] profile, two steps: wall {wall:.2f} ms, summed device time {busy:.2f} ms, "
           f"device busy {100 * busy / wall:.1f}% on {card}")
+    _check_launched(run, rows, "upfirdn2d_kernel", ("upfirdn1d_kernel",),
+                    "K6 in the f32 config-4 step (its forward and backward calls)")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"[psp-train]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
               f"{e.key[:100]}")

@@ -70,7 +70,23 @@
 // H100 SXM at 700 W): it is bound neither by bytes nor by the tensor cores
 // but by that unoverlapped work (tools/tensor_core_variants.py).
 //
-// K4b and K4a in f32 (and bf16 maps their routes reject) run on the CUDA
+// K4b in f32 (W % 4 == 0, 16-byte aligned maps; fmi_conv3x3_route) runs the
+// same implicit GEMM on the tensor cores in split precision (3xTF32 on
+// mma.sync m16n8k8, csrc/mma.cuh): 8-channel chunks (one k8 step a tap), the
+// input split into tf32 hi and lo tiles once, by the staging pass that
+// applies the prologue, and the weights split once a call by the wrapper and
+// packed N-major, [2][9][co_pad][c_pad] (there is no transposed ldmatrix for
+// 32-bit data), with 48-byte rows so that 8-row ldmatrix reads are
+// conflict-free. Each chunk's products go to zeroed fragments that are then
+// added to the f32 totals with one rounded add. Two f32 sets of accumulators
+// (a warp keeps 32 pixels x 64 channels or 64 x 32) leave one block of 8
+// warps an SM, so its staging pass is not overlapped by a second block. At
+// the flagship's decoders 3 and 4 (f32, batch 16: 309 GFLOP, 928 of them
+// TF32 products) the bound is 1.87 ms by the tensor cores' TF32 rate; what
+// it reaches is in PERF.md (tools/tensor_core_variants.py times it without
+// two of its three products and with its sums added in place).
+//
+// K4a in f32, and K4b and K4a on maps their routes reject, run on the CUDA
 // cores:
 //   - a block of 256 threads owns a tile of output pixels for up to 64
 //     output channels, so each input byte is read from device memory about
@@ -679,6 +695,284 @@ conv3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
 }
 
 // ---------------------------------------------------------------------------
+// K4b, f32 on the tensor cores in split precision (3xTF32, see csrc/mma.cuh):
+// the bf16 kernel's implicit GEMM, M = TH x 64 output pixels, N = COP output
+// channels, K = 9 C in chunks of 8 input channels (one m16n8k8 step a tap).
+// Each operand is split into tf32 hi and lo once: the weights by the wrapper,
+// packed [2][9][co_pad][c_pad] (hi, lo; tap; output channel; input channel),
+// N-major and K-contiguous because ldmatrix cannot transpose 32-bit data;
+// the input where the staging pass applies the prologue, into a hi and a lo
+// tile. A chunk's nine taps take their products in zeroed fragments, which
+// are then added to the f32 totals with one rounded add each: the tensor
+// cores' accumulate drifts over the 9 C products of a whole sum (mma.cuh).
+// Holds the f32 gates; torch.backends.cuda.matmul.allow_tf32 does not
+// govern it.
+// ---------------------------------------------------------------------------
+
+constexpr int kTf32CK = 8;  // input channels a chunk: one k8 step a tap
+
+template <int COP>
+struct Tf32Cfg {
+  static constexpr int MT = MmaCfg<COP>::MT;       // m16 tiles a warp keeps
+  static constexpr int NT = COP / 8;               // n8 tiles a warp keeps
+  static constexpr int TW = MmaCfg<COP>::TW;       // tile columns
+  static constexpr int WPR = TW / (16 * MT);       // warps a tile row
+  static constexpr int TH = kWarps / WPR;          // tile rows, as the bf16 kernel's
+  static constexpr int SH = TH + 2, SW = TW + 2;   // the tile and its one-pixel halo
+  static constexpr int CK = kTf32CK;
+  static constexpr int SP = CK + 4;                // staged pixel stride: 48 bytes
+  static constexpr int RW = TW + 8;                // raw row: columns x0 - 4 .. x0 + TW + 3
+  static constexpr int WS = CK + 4;                // weight row stride: 48 bytes
+  static constexpr int kRaw = CK * SH * RW;        // f32 a raw buffer
+  static constexpr int kStage = SH * SW * SP;      // f32 a staged tile (hi or lo)
+  static constexpr int kW = 9 * COP * WS;          // f32 a weight tile (hi or lo)
+  static constexpr int OP = TH * TW + 4;           // output plane stride in the epilogue
+  static constexpr size_t kMain = sizeof(float) * (2 * kRaw + 2 * kStage + 4 * kW + 4 * CK);
+  static constexpr size_t kEpi = sizeof(float) * (COP * OP + 2 * kWarps * COP);
+  static constexpr size_t kSmem = kMain > kEpi ? kMain : kEpi;
+  static_assert(TH == MmaCfg<COP>::TH, "the tiles (and so psum's extent) of the bf16 kernel");
+};
+
+// the chunk's nine taps, each one k8 step: c += A_tap B_tap in split
+// precision, from the staged hi/lo tiles and the chunk's hi/lo weights
+template <typename Cfg>
+__device__ __forceinline__ void tf32x3_taps(float (&c)[Cfg::MT][Cfg::NT][4], const float* sh,
+                                            const float* sl, const float* wh, const float* wl,
+                                            int wrow, int wcol, int lane) {
+  using namespace fmi_mma;
+  constexpr int MT = Cfg::MT, NT = Cfg::NT, SW = Cfg::SW, SP = Cfg::SP, WS = Cfg::WS;
+  constexpr int COP = NT * 8;
+  const int lm = lane >> 3, li = lane & 7;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int ky = tap / 3, kx = tap % 3;
+    // the tap is a shift of the staged tile: a row address per lane
+    unsigned ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int p = (wrow + ky) * SW + wcol + mt * 16 + (lane & 15) + kx;
+      ldmatrix_x4(ah[mt], sh + p * SP + (lane >> 4) * 4);
+      ldmatrix_x4(al[mt], sl + p * SP + (lane >> 4) * 4);
+    }
+    if constexpr (NT == 1) {
+      unsigned bh[2], bl[2];
+      const int row = tap * COP + li, col = (lm & 1) * 4;
+      ldmatrix_x2(bh, wh + row * WS + col);
+      ldmatrix_x2(bl, wl + row * WS + col);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        mma_tf32x3(c[mt][0], ah[mt], al[mt], bh[0], bh[1], bl[0], bl[1]);
+    } else {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        // b0, b1 of n-tile 2 np and b2, b3 of 2 np + 1
+        unsigned bh[4], bl[4];
+        const int row = tap * COP + np * 16 + (lm >> 1) * 8 + li, col = (lm & 1) * 4;
+        ldmatrix_x4(bh, wh + row * WS + col);
+        ldmatrix_x4(bl, wl + row * WS + col);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_tf32x3(c[mt][2 * np], ah[mt], al[mt], bh[0], bh[1], bl[0], bl[1]);
+          mma_tf32x3(c[mt][2 * np + 1], ah[mt], al[mt], bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+    }
+  }
+}
+
+// x [N, C, H, W] and out [N, Co, H, W] f32; wp [2][9][co_pad][c_pad] f32 (hi,
+// lo; zero past C and Co); A, B [N, C] f32 and the prologue's activation PRO
+// (< 0: no prologue); bias [co_pad] f32; psum, psq [N, Co, tiles] or null.
+// W % 4 == 0 and 16-byte aligned x and out.
+template <int COP, int PRO>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ wp,
+                      const float* __restrict__ A, const float* __restrict__ B,
+                      const float* __restrict__ bias, float* __restrict__ out,
+                      float* __restrict__ psum, float* __restrict__ psq, int C, int c_pad, int H,
+                      int W, int Co, int co_blocks, int co_pad, int act) {
+  using namespace fmi_mma;
+  using Cfg = Tf32Cfg<COP>;
+  constexpr int MT = Cfg::MT, NT = Cfg::NT, TW = Cfg::TW, TH = Cfg::TH, SH = Cfg::SH,
+                SW = Cfg::SW, CK = Cfg::CK, SP = Cfg::SP, RW = Cfg::RW, WS = Cfg::WS,
+                OP = Cfg::OP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* raw = reinterpret_cast<float*>(smem_raw);  // [2][CK][SH][RW]
+  float* stage = raw + 2 * Cfg::kRaw;               // [hi, lo][SH * SW][SP]
+  float* ws = stage + 2 * Cfg::kStage;              // [2][hi, lo][9][COP][WS]
+  float* ab = ws + 4 * Cfg::kW;                     // [2][A, B][CK]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = blockIdx.z / co_blocks;
+  const int co0 = (blockIdx.z - n * co_blocks) * COP;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int wrow = warp / Cfg::WPR, wcol = (warp % Cfg::WPR) * 16 * MT;
+  const float* xn = x + static_cast<size_t>(n) * C * H * W;
+
+  // chunk [c0, c0 + CK) into buffer buf: the raw rows y0 - 1 .. y0 + TH as
+  // they lie in memory (16-byte pieces, zeros outside the image and past C),
+  // the chunk's hi and lo weights and its prologue affine
+  auto prefetch = [&](int c0, int buf) {
+    constexpr int kPieces = RW / 4;
+    float* rb = raw + buf * Cfg::kRaw;
+    for (int i = tid; i < CK * SH * kPieces; i += kThreads) {
+      const int j = i % kPieces, rest = i / kPieces;  // rest = ch * SH + r
+      const int r = rest % SH, c = c0 + rest / SH;
+      const int y = y0 - 1 + r, xx = x0 - 4 + 4 * j;
+      const bool ok = c < C && y >= 0 && y < H && xx >= 0 && xx < W;
+      cp_async16(rb + rest * RW + 4 * j, ok ? xn + (static_cast<size_t>(c) * H + y) * W + xx : xn,
+                 ok ? 16 : 0);
+    }
+    float* wb = ws + buf * 2 * Cfg::kW;
+    constexpr int kWP = CK / 4;  // 16-byte pieces a weight row
+    for (int i = tid; i < 2 * 9 * COP * kWP; i += kThreads) {
+      const int p = i % kWP, rest = i / kWP;  // rest = (part * 9 + tap) * COP + co
+      const int co = rest % COP, pt = rest / COP;
+      cp_async16(wb + rest * WS + 4 * p,
+                 wp + (static_cast<size_t>(pt) * co_pad + co0 + co) * c_pad + c0 + 4 * p, 16);
+    }
+    if (PRO >= 0 && tid < 2 * CK) {
+      const int c = c0 + tid % CK;
+      const bool ok = c < C;
+      cp_async4(ab + buf * 2 * CK + tid,
+                (tid < CK ? A : B) + static_cast<size_t>(n) * C + (ok ? c : 0), ok ? 4 : 0);
+    }
+  };
+
+  // raw buffer buf -> the hi and lo tiles, channel-innermost: the prologue
+  // in f32 (two roundings, no FMA), zeros outside the image written after
+  // it, then the split. A thread takes all CK channels of one pixel.
+  auto stage_split = [&](int buf) {
+    const float* rb = raw + buf * Cfg::kRaw;
+    const float* abb = ab + buf * 2 * CK;
+    for (int p = tid; p < SH * SW; p += kThreads) {
+      const int r = p / SW, s = p - r * SW;
+      const int y = y0 - 1 + r, xx = x0 - 1 + s;
+      const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;
+      unsigned hi[CK], lo[CK];
+#pragma unroll
+      for (int ch = 0; ch < CK; ++ch) {
+        float f = rb[(ch * SH + r) * RW + s + 3];
+        if constexpr (PRO >= 0)
+          f = apply_act(__fadd_rn(__fmul_rn(f, abb[ch]), abb[CK + ch]), PRO);
+        split_tf32(inside ? f : 0.f, hi[ch], lo[ch]);
+      }
+#pragma unroll
+      for (int q = 0; q < CK; q += 4) {
+        *reinterpret_cast<uint4*>(stage + p * SP + q) =
+            make_uint4(hi[q], hi[q + 1], hi[q + 2], hi[q + 3]);
+        *reinterpret_cast<uint4*>(stage + Cfg::kStage + p * SP + q) =
+            make_uint4(lo[q], lo[q + 1], lo[q + 2], lo[q + 3]);
+      }
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+  const int n_chunks = (C + CK - 1) / CK;
+  prefetch(0, 0);
+  cp_async_commit();
+  for (int ck = 0; ck < n_chunks; ++ck) {
+    const int buf = ck & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ck landed; every warp is done with chunk ck - 1
+    if (ck + 1 < n_chunks) prefetch((ck + 1) * CK, buf ^ 1);
+    cp_async_commit();
+    stage_split(buf);
+    __syncthreads();
+    const float* wh = ws + buf * 2 * Cfg::kW;
+    float part[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][j][e] = 0.f;
+    tf32x3_taps<Cfg>(part, stage, stage + Cfg::kStage, wh, wh + Cfg::kW, wrow, wcol, lane);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = __fadd_rn(acc[mt][j][e], part[mt][j][e]);
+  }
+  __syncthreads();  // the epilogue reuses the staging memory
+
+  // bias, stats from the f32 value, act; the tile goes through shared
+  // memory so that each channel row leaves in 16-byte pieces
+  float* ot = reinterpret_cast<float*>(smem_raw);  // [COP][OP]
+  float* red = ot + COP * OP;                       // [2][kWarps][COP]
+  const bool row_in = y0 + wrow < H;
+  float s1[NT][2], s2[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s1[j][0] = s1[j][1] = s2[j][0] = s2[j][1] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = wcol + mt * 16 + g + 8 * (e >> 1);
+        const int co = j * 8 + 2 * t + (e & 1);
+        const float yv = acc[mt][j][e] + bias[co0 + co];  // bias is padded to co_pad
+        if (row_in && x0 + col < W && co0 + co < Co) {
+          s1[j][e & 1] += yv;
+          s2[j][e & 1] += yv * yv;
+        }
+        ot[co * OP + wrow * TW + col] = apply_act(yv, act);
+      }
+  if (psum != nullptr) {
+    // over the 8 pixel rows g of the fragments, then the warps in order
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float a = s1[j][h], b = s2[j][h];
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          a += __shfl_xor_sync(0xffffffffu, a, m);
+          b += __shfl_xor_sync(0xffffffffu, b, m);
+        }
+        if (lane < 4) {
+          red[warp * COP + j * 8 + 2 * lane + h] = a;
+          red[(kWarps + warp) * COP + j * 8 + 2 * lane + h] = b;
+        }
+      }
+  }
+  __syncthreads();
+  if (psum != nullptr && tid < COP && co0 + tid < Co) {
+    float a = 0.f, b = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      a += red[w * COP + tid];
+      b += red[(kWarps + w) * COP + tid];
+    }
+    const int tiles = gridDim.x * gridDim.y;
+    const size_t k = (static_cast<size_t>(n) * Co + co0 + tid) * tiles +
+                     blockIdx.y * gridDim.x + blockIdx.x;
+    psum[k] = a;
+    psq[k] = b;
+  }
+  constexpr int kPieces = TW / 4;
+  for (int i = tid; i < COP * TH * kPieces; i += kThreads) {
+    const int kc = i % kPieces, rest = i / kPieces;  // rest = co * TH + r
+    const int r = rest % TH, co = rest / TH;
+    const int y = y0 + r, xx = x0 + 4 * kc;
+    if (co0 + co < Co && y < H && xx < W) {
+      const size_t dst = ((static_cast<size_t>(n) * Co + co0 + co) * H + y) * W + xx;
+      *reinterpret_cast<float4*>(out + dst) =
+          *reinterpret_cast<const float4*>(ot + co * OP + r * TW + 4 * kc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K4a, bf16 on the tensor cores: an implicit GEMM per output parity over one
 // staged tile of TH x 64 input pixels plus the row and column below and to
 // the right (the zero of output_padding at row H and column W). With the
@@ -1045,6 +1339,43 @@ int launch_conv3_mma(const __nv_bfloat16* x, const __nv_bfloat16* wp, const floa
   }
 }
 
+template <int COP, int PRO>
+int launch_conv3_tf32x3(const float* x, const float* wp, const float* A, const float* B,
+                        const float* bias, float* out, float* psum, float* psq, int N, int C,
+                        int H, int W, int Co, int co_pad, int act, cudaStream_t stream) {
+  using Cfg = Tf32Cfg<COP>;
+  const int co_blocks = co_pad / COP;
+  const dim3 grid((W + Cfg::TW - 1) / Cfg::TW, (H + Cfg::TH - 1) / Cfg::TH, N * co_blocks);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_tf32x3_kernel<COP, PRO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Cfg::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv3x3_tf32x3_kernel<COP, PRO><<<grid, kThreads, Cfg::kSmem, stream>>>(
+      x, wp, A, B, bias, out, psum, psq, C, mma_c_pad(C), H, W, Co, co_blocks, co_pad, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int COP>
+int launch_conv3_tf32x3(const float* x, const float* wp, const float* A, const float* B, int pro,
+                        const float* bias, float* out, float* psum, float* psq, int N, int C,
+                        int H, int W, int Co, int co_pad, int act, cudaStream_t s) {
+  switch (pro) {
+    case 0:
+      return launch_conv3_tf32x3<COP, 0>(x, wp, A, B, bias, out, psum, psq, N, C, H, W, Co,
+                                         co_pad, act, s);
+    case 1:
+      return launch_conv3_tf32x3<COP, 1>(x, wp, A, B, bias, out, psum, psq, N, C, H, W, Co,
+                                         co_pad, act, s);
+    case 2:
+      return launch_conv3_tf32x3<COP, 2>(x, wp, A, B, bias, out, psum, psq, N, C, H, W, Co,
+                                         co_pad, act, s);
+    default:
+      return launch_conv3_tf32x3<COP, -1>(x, wp, A, B, bias, out, psum, psq, N, C, H, W, Co,
+                                          co_pad, act, s);
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
 template <typename T, int COP>
@@ -1155,10 +1486,13 @@ extern "C" int fmi_conv3x3_stats_bf16(const void* x, const void* w, const void* 
 }
 
 // Which K4b kernel takes a call: 1 the tensor-core kernel (bf16, W % 8 == 0,
-// x and out 16-byte aligned), 0 the CUDA-core kernel. By shape and
-// alignment only.
+// x and out 16-byte aligned), 2 the split-precision tensor-core kernel (f32,
+// W % 4 == 0, x and out 16-byte aligned), 0 the CUDA-core kernel. By type,
+// shape and alignment only.
 extern "C" int fmi_conv3x3_route(int bf16, const void* x, const void* out, int W) {
-  return bf16 && W % 8 == 0 && aligned16(x) && aligned16(out) ? 1 : 0;
+  if (!aligned16(x) || !aligned16(out)) return 0;
+  if (bf16) return W % 8 == 0 ? 1 : 0;
+  return W % 4 == 0 ? 2 : 0;
 }
 
 // K4b on the tensor cores, for the calls fmi_conv3x3_route sends there: as
@@ -1194,6 +1528,46 @@ extern "C" int fmi_conv3x3_stats_bf16_mma(const void* x, const void* w, const vo
       return launch_conv3_mma<32>(xb, wb, a, b, p, bs, o, s1, s2, N, C, H, W, Co, co_pad, act, cs);
     default:
       return launch_conv3_mma<64>(xb, wb, a, b, p, bs, o, s1, s2, N, C, H, W, Co, co_pad, act, cs);
+  }
+}
+
+// K4b in f32 on the tensor cores in split precision, for the calls
+// fmi_conv3x3_route sends there: as fmi_conv3x3_stats_f32, but w is f32
+// [2][9][co_pad][c_pad] (tf32 hi, then lo = tf32(w - hi); tap ky * 3 + kx,
+// output channel, input channel; c_pad = fmi_decoder_conv_c_pad(C); zeros
+// past C and Co) and tiles is fmi_decoder_conv_tiles(2, H, W, Co).
+extern "C" int fmi_conv3x3_stats_f32_tf32x3(const void* x, const void* w, const void* A,
+                                            const void* B, const void* bias, void* out,
+                                            void* psum, void* psq, int N, int C, int H, int W,
+                                            int Co, int co_pad, int pro, int act,
+                                            void* stream) {
+  if (bad_shape(N, H, W, Co) || C < 1 || pro > 2 || bad_act(act) ||
+      co_pad != (Co + pick_cop(Co) - 1) / pick_cop(Co) * pick_cop(Co) ||
+      fmi_conv3x3_route(0, x, out, W) != 2 || !aligned16(w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  const float* a = static_cast<const float*>(A);
+  const float* b = static_cast<const float*>(B);
+  const float* bs = static_cast<const float*>(bias);
+  float* o = static_cast<float*>(out);
+  float* s1 = static_cast<float*>(psum);
+  float* s2 = static_cast<float*>(psq);
+  const int p = pro < 0 ? -1 : pro;
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (pick_cop(Co)) {
+    case 8:
+      return launch_conv3_tf32x3<8>(xf, wf, a, b, p, bs, o, s1, s2, N, C, H, W, Co, co_pad, act,
+                                    cs);
+    case 16:
+      return launch_conv3_tf32x3<16>(xf, wf, a, b, p, bs, o, s1, s2, N, C, H, W, Co, co_pad, act,
+                                     cs);
+    case 32:
+      return launch_conv3_tf32x3<32>(xf, wf, a, b, p, bs, o, s1, s2, N, C, H, W, Co, co_pad, act,
+                                     cs);
+    default:
+      return launch_conv3_tf32x3<64>(xf, wf, a, b, p, bs, o, s1, s2, N, C, H, W, Co, co_pad, act,
+                                     cs);
   }
 }
 
@@ -1277,13 +1651,14 @@ extern "C" int fmi_decoder_conv_co_pad(int Co) {
 }
 
 // c_pad for C input channels: the C extent of the tensor-core K4b's packed
-// weights, C rounded up to its channel chunk (16).
+// weights (bf16 and f32), C rounded up to the bf16 kernel's channel chunk
+// (16, a multiple of the f32 kernel's 8).
 extern "C" int fmi_decoder_conv_c_pad(int C) { return mma_c_pad(C); }
 
 // The number of tiles, i.e. the last dimension of psum and psq, of K4b on
 // the CUDA cores (kind 0), K4a on the CUDA cores (kind 1), K4b on the tensor
-// cores (kind 2) or K4a on the tensor cores (kind 3) at H x W input and Co
-// outputs.
+// cores (kind 2: bf16, and f32 in split precision, whose tiles are the same)
+// or K4a on the tensor cores (kind 3) at H x W input and Co outputs.
 extern "C" int fmi_decoder_conv_tiles(int kind, int H, int W, int Co) {
   if (kind == 3) {
     int th = 0;

@@ -1,5 +1,5 @@
 // Warp-level tensor-core idioms shared by K4a's, K4b's and K5's bf16 kernels
-// and K1's and K5's f32 kernels: cp.async copies into shared memory, ldmatrix
+// and K1's, K4b's and K5's f32 kernels: cp.async copies into shared memory, ldmatrix
 // fragment loads, mma.sync m16n8k16 (bf16 operands, f32 accumulation) and
 // mma.sync m16n8k8 on TF32 operands in split precision (3xTF32, below).
 // sm_80 instructions, run on sm_90a.
@@ -41,8 +41,11 @@
 // 11 significant bits, together about 21 of f32's 24; a b = al bh + ah bl +
 // ah bh (the small terms first), with f32 accumulation, drops only al bl,
 // about 2^-22 |a||b|. One TF32 product (torch's allow_tf32) keeps about 11
-// bits; this keeps the f32 gates. The split runs on the ALUs, at each
-// fragment load (no lo copies are stored). The tensor cores' f32
+// bits; this keeps the f32 gates. K1 and K5 split on the ALUs at each
+// fragment load (no lo copies are stored: K1's P is made in registers); K4b,
+// whose operands are each reused by many products, splits each once where it
+// is staged (hi and lo tiles in shared memory, the weights packed hi and lo
+// by its wrapper). The tensor cores' f32
 // accumulate does not round to nearest: on the H100 an accumulator that
 // takes thousands of products drifts, in one direction (with dv added in
 // place, K5 used 1.3 of its f32 gate at config 5,
@@ -92,6 +95,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* p) 
                : "r"(a));
 }
 // two matrices: lanes 0-15 give the addresses (the others are ignored)
+__device__ __forceinline__ void ldmatrix_x2(unsigned r[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
 __device__ __forceinline__ void ldmatrix_x2_trans(unsigned r[2], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"

@@ -19,12 +19,17 @@ value; the optional ``act`` and one rounding to the input dtype follow
 (packed_convt.py:114-130, :214-217, :394-441). Activations: LeakyReLU(0.1)
 and ReLU.
 
-K4b and K4a each have two CUDA kernels, chosen by the C side by shape and
-alignment only (``conv3x3_route``, ``convt_pair_route``): bf16 maps with
-W % 8 == 0 run on the tensor cores, with the weights packed once per call as
-bf16 [9, c_pad, co_pad] (K4a: one such operand a stream, its four output
-parities computed as four GEMMs over one staged tile); everything else
-(float32, other widths) on the CUDA cores with f32 [C, 9, co_pad] weights.
+The CUDA kernels are chosen by the C side by dtype, shape and alignment only
+(``conv3x3_route``, ``convt_pair_route``): bf16 maps with W % 8 == 0 run on
+the tensor cores, with the weights packed once per call as bf16
+[9, c_pad, co_pad] (K4a: one such operand a stream, its four output parities
+computed as four GEMMs over one staged tile); K4b's float32 maps with
+W % 4 == 0 run on the tensor cores in split precision ("tf32x3": each f32
+operand split into tf32 hi + lo, three TF32 products, the weights split and
+packed once per call as f32 [2, 9, co_pad, c_pad] by ``tf32_split``), which
+holds the float32 gates whatever ``torch.backends.cuda.matmul.allow_tf32``
+says; everything else (K4a in float32, other widths) runs on the CUDA cores
+with f32 [C, 9, co_pad] weights.
 
 Weights are the port's own: ``Conv2d`` [Co, Ci, 3, 3] and ``ConvTranspose2d``
 torch's [Ci, Co, 3, 3] (nn/layers.py). Each wrapper launches its kernel for
@@ -49,7 +54,8 @@ from face_mask_inpaint_tpu_torch.kernels import build
 from face_mask_inpaint_tpu_torch.kernels.output_head import _no_grad_needed
 
 __all__ = ["conv3x3_stats", "conv3x3_stats_plain", "conv3x3_route", "convt_pair",
-           "convt_pair_plain", "convt_pair_route", "instance_affine_from_stats", "ACTS"]
+           "convt_pair_plain", "convt_pair_route", "instance_affine_from_stats", "tf32_split",
+           "ACTS"]
 
 ACTS = ("LeakyReLU", "ReLU")
 _SLOPE = 0.1  # the reference registry's LeakyReLU slope
@@ -192,6 +198,7 @@ _STREAM_ARGS = [_PTR] * 4 + [_INT] * 2  # x, w, A, B, C, pro
 _ARGTYPES = {
     "fmi_conv3x3_stats": [_PTR] * 8 + [_INT] * 8 + [_PTR],
     "fmi_conv3x3_stats_bf16_mma": [_PTR] * 8 + [_INT] * 8 + [_PTR],
+    "fmi_conv3x3_stats_f32_tf32x3": [_PTR] * 8 + [_INT] * 8 + [_PTR],
     "fmi_conv3x3_route": [_INT, _PTR, _PTR, _INT],
     "fmi_convt_pair": _STREAM_ARGS * 2 + [_INT] + [_PTR] * 4 + [_INT] * 6 + [_PTR],
     "fmi_convt_pair_bf16_mma": _STREAM_ARGS * 2 + [_INT] + [_PTR] * 4 + [_INT] * 6 + [_PTR],
@@ -229,6 +236,27 @@ def _weights_mma(w: torch.Tensor, c_pad: int, co_pad: int) -> torch.Tensor:
     # reads the operand by its pointer, so it must be contiguous
     return F.pad(w.to(torch.bfloat16).permute(2, 3, 1, 0),
                  (0, co_pad - co, 0, c_pad - c)).reshape(9, c_pad, co_pad).contiguous()
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 x -> (hi, lo) with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x -
+    hi): 10 mantissa bits each, rounded to nearest with ties away from zero
+    (the magnitude's bits rounded half up at bit 13, as csrc/mma.cuh's
+    rna_tf32 does); hi + lo keeps about 21 of f32's 24 bits."""
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _weights_tf32x3(w: torch.Tensor, c_pad: int, co_pad: int) -> torch.Tensor:
+    """K4b's split-precision operand: [2, 9, co_pad, c_pad] f32 (tf32 hi,
+    then lo; tap ky * 3 + kx; output channel; input channel) from
+    [Co, C, 3, 3], zeros past C and Co; c_pad is fmi_decoder_conv_c_pad(C)."""
+    co, c = w.shape[:2]
+    taps = F.pad(w.float().permute(2, 3, 0, 1), (0, c_pad - c, 0, co_pad - co))
+    return torch.stack(tf32_split(taps.reshape(9, co_pad, c_pad)))
 
 
 def _convt_weights_mma(w: torch.Tensor, c_pad: int, co_pad: int) -> torch.Tensor:
@@ -273,17 +301,22 @@ def _stats_buffers(n: int, co: int, tiles: int, device, with_stats: bool):
             torch.empty((n, co, tiles), dtype=torch.float32, device=device))
 
 
-def _route(x: torch.Tensor, out: torch.Tensor) -> bool:
-    """Whether K4b runs this call on the tensor cores (bf16, W % 8 == 0,
-    16-byte aligned maps): the C side decides, by shape and alignment."""
-    return bool(_function("fmi_conv3x3_route")(x.dtype == torch.bfloat16, x.data_ptr(),
-                                                out.data_ptr(), x.shape[3]))
+_ROUTES = {1: "tensor_cores", 2: "tf32x3", 0: "cuda_cores"}
+
+
+def _route(x: torch.Tensor, out: torch.Tensor) -> str:
+    """The K4b kernel this call runs: "tensor_cores" (bf16, W % 8 == 0),
+    "tf32x3" (float32, W % 4 == 0), both with 16-byte aligned maps, or
+    "cuda_cores": the C side decides, by dtype, shape and alignment."""
+    return _ROUTES[_function("fmi_conv3x3_route")(x.dtype == torch.bfloat16, x.data_ptr(),
+                                                   out.data_ptr(), x.shape[3])]
 
 
 def conv3x3_route(x: torch.Tensor) -> str:
-    """"tensor_cores" or "cuda_cores": the K4b kernel a call on the CUDA map x
-    launches (its output is allocated as x is, so x's alignment decides)."""
-    return "tensor_cores" if _route(x, x) else "cuda_cores"
+    """"tensor_cores", "tf32x3" or "cuda_cores": the K4b kernel a call on the
+    CUDA map x launches (its output is allocated as x is, so x's alignment
+    decides)."""
+    return _route(x, x)
 
 
 def _convt_route(streams, out: torch.Tensor) -> bool:
@@ -310,7 +343,9 @@ def conv3x3_stats(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     x [N, C, H, W] contiguous, float32 or bfloat16; w [Co, C, 3, 3] (the
     effective weight) and b [Co] or None in any float dtype; prologue None or
     (A, B, act) with A, B [N, C]. CPU tensors take the plain version; CUDA
-    tensors launch K4b.
+    tensors launch K4b on the route ``conv3x3_route`` names. Its float32
+    route "tf32x3" runs on the tensor cores in split precision and holds the
+    float32 gates whatever ``torch.backends.cuda.matmul.allow_tf32`` says.
     """
     if x.device.type == "cpu":
         return conv3x3_stats_plain(x, w, b, prologue, act, with_stats)
@@ -325,14 +360,17 @@ def conv3x3_stats(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     co_pad = _function("fmi_decoder_conv_co_pad")(co)
     bias = _padded(_bias32(b, co, x.device), co_pad)
     out = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
-    mma = _route(x, out)
-    if mma:
+    route = _route(x, out)
+    if route == "tensor_cores":
         wt = _weights_mma(w, _function("fmi_decoder_conv_c_pad")(c), co_pad)
         kernel = _function("fmi_conv3x3_stats_bf16_mma")
+    elif route == "tf32x3":
+        wt = _weights_tf32x3(w, _function("fmi_decoder_conv_c_pad")(c), co_pad)
+        kernel = _function("fmi_conv3x3_stats_f32_tf32x3")
     else:
         wt, kernel = (_weights(w, x.dtype, co_pad, transposed=False),
                       _function("fmi_conv3x3_stats", x.dtype))
-    tiles = _function("fmi_decoder_conv_tiles")(2 if mma else 0, h, wd, co)
+    tiles = _function("fmi_decoder_conv_tiles")(0 if route == "cuda_cores" else 2, h, wd, co)
     # the partial sums of y and y^2 in one buffer, summed by one reduction
     parts = (torch.empty((2, n, co, tiles), dtype=torch.float32, device=x.device)
              if with_stats else None)

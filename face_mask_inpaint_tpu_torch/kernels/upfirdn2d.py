@@ -1,4 +1,4 @@
-"""K6: separable upfirdn2d as two 1-D passes (CUDA C++, ``csrc/upfirdn2d.cu``).
+"""K6: separable upfirdn2d in one fused pass (CUDA C++, ``csrc/upfirdn2d.cu``).
 
 Replaces face_mask_inpaint_tpu/ops/pallas/upfirdn2d_pallas.py
 ``upfirdn2d_pallas`` (``upfirdn1d_axis``, run once along H and once along
@@ -11,8 +11,12 @@ W). For x [N, C, H, W], 1-D taps k and a mode (up, down):
     4. keep every ``down``-th sample.
 
 Output side (L * up + pad0 + pad1 - len(k)) // down + 1. Each pass sums in
-f32 and rounds once to x's dtype; the H pass's result is stored in x's dtype
-before the W pass reads it, as ``upfirdn1d_axis`` writes it. The taps come
+f32 in tap order, a multiply and an add a tap, and rounds once to x's dtype;
+the H pass's result is rounded to x's dtype before the W pass reads it, as
+``upfirdn1d_axis`` writes it. The kernel does both passes in one launch, a
+tile of outputs a block, with the H pass's tile in shared memory (no
+intermediate in device memory), and computes what ``upfirdn2d_plain``
+computes, value for value. The taps come
 from the caller's 1-D list (``ops.upfirdn2d.make_taps``), with any gain
 already split evenly between the two axes: no decomposition of a 2-D kernel.
 
@@ -32,6 +36,7 @@ calls and ``upfirdn2d_bwd.launches`` the backward ones, on CUDA tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -45,7 +50,7 @@ __all__ = ["upfirdn2d", "upfirdn2d_bwd", "upfirdn2d_plain", "transposed_pads", "
 
 MODES = ((1, 1), (2, 1), (1, 2))
 _MAX_TAPS = 16
-_SYMBOLS = {torch.float32: "fmi_upfirdn1d_f32", torch.bfloat16: "fmi_upfirdn1d_bf16"}
+_SYMBOLS = {torch.float32: "fmi_upfirdn2d_f32", torch.bfloat16: "fmi_upfirdn2d_bf16"}
 
 
 def out_len(n: int, up: int, down: int, pad0: int, pad1: int, k: int) -> int:
@@ -100,8 +105,9 @@ def _check(x: torch.Tensor, k: np.ndarray, up: int, down: int, pad) -> None:
         raise ValueError(f"upfirdn2d of {h}x{w} with pad {pad} and {len(k)} taps is empty")
 
 
-def _function(dtype: torch.dtype):
-    fn = getattr(build.load("upfirdn2d"), _SYMBOLS[dtype])
+@functools.lru_cache(maxsize=None)
+def _function(symbol: str):
+    fn = getattr(build.load("upfirdn2d"), symbol)
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
                    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -110,23 +116,19 @@ def _function(dtype: torch.dtype):
 
 def _launch(x: torch.Tensor, taps: Sequence[float], up: int, down: int,
             pad: tuple[int, int]) -> torch.Tensor:
-    """One K6 call (two CUDA launches, the H pass and the W pass)."""
+    """One K6 call: one CUDA launch, both passes."""
     k = _flipped(taps)
     _check(x, k, up, down, pad)
     n, c, h, w = x.shape
     ho = out_len(h, up, down, *pad, len(k))
     wo = out_len(w, up, down, *pad, len(k))
-    kp = k.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-    fn = _function(x.dtype)
-    mid = torch.empty((n, c, ho, w), dtype=x.dtype, device=x.device)
     out = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for src, dst, hh, axis, length in ((x, mid, h, 0, ho), (mid, out, ho, 1, wo)):
-            rc = fn(src.data_ptr(), dst.data_ptr(), kp, len(k), n * c, hh, w, axis, up,
-                    down, pad[0], length, stream)
-            if rc != 0:
-                raise RuntimeError(f"upfirdn2d launch failed: cudaError {rc}")
+        rc = _function(_SYMBOLS[x.dtype])(
+            x.data_ptr(), out.data_ptr(), k.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            len(k), n * c, h, w, up, down, pad[0], ho, wo, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"upfirdn2d launch failed: cudaError {rc}")
     return out
 
 
@@ -165,8 +167,7 @@ def upfirdn2d(x: torch.Tensor, taps: Sequence[float], up: int = 1, down: int = 1
 
     x: [N, C, H, W] contiguous, float32 or bfloat16; taps: the 1-D filter
     (at most 16). CPU tensors take the plain version; CUDA tensors launch
-    K6. ``launches`` counts calls: one call makes two CUDA launches, the H
-    pass and the W pass.
+    K6. ``launches`` counts calls, each one CUDA launch.
     """
     taps = tuple(float(t) for t in np.asarray(taps, np.float32).reshape(-1))
     return _Upfirdn2d.apply(x, taps, int(up), int(down), (int(pad[0]), int(pad[1])),

@@ -10,18 +10,21 @@ staging pass that applies the prologue and lays the chunk out
 channel-innermost, the tensor-core products, the cp.async copies of the
 next chunk; K5: the f32 atomics of dq's query role; K1: the P V products,
 the exp2 of the softmax, the rescale of O; the f32 split-precision routes
-of K1 and K5: the lo products, so one TF32 product is left (which fails the
-f32 gate), and the split conversions) or moved (K5: v_c's A fragments read
-from shared memory instead of kept in registers; the f32 routes: each step's
-products added to the long sums in place instead of through a zeroed
-fragment and a rounded add), built with the port's nvcc flags into
+of K1, K4b and K5: the lo products, so one TF32 product is left (which
+fails the f32 gate); those of K1 and K5: the split conversions; K4b's f32
+route: all its products) or moved
+(K5: v_c's A fragments read from shared memory instead of kept in
+registers; the f32 routes: each step's or chunk's products added to the
+long sums in place instead of through a zeroed fragment and a rounded
+add), built with the port's nvcc flags into
 ``build/kernels/variants/``. A variant that takes work out
 computes a wrong result: its time says what that work costs, not what a
 kernel could do. The committed source is checked against its plain version.
 Every variant is timed with CUDA events through its C entry point (so
 without the wrapper's host work) at the flagship shapes (K4b and K4a:
-decoders 3 and 4 at batch 16; K5: config 5; K1: the flagship's 128^2
-attention at batch 16; K1 and K5 in bf16 and in f32), twice, in turns (a,
+decoders 3 and 4 at batch 16, K4b in bf16 and in f32; K5: config 5; K1:
+the flagship's 128^2 attention at batch 16; K1 and K5 in bf16 and in f32),
+twice, in turns (a,
 b, ..., b, a), beside the wrapper's own call (the C entry point plus the
 wrapper's host work: weight packing, padding, the stats sum), the plain
 version (f32) and the PyTorch call that computes the same function. Prints
@@ -78,6 +81,9 @@ _K1F32_FLUSH = """#pragma unroll
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[jg * 8 + jj][e] += part[jj][e];"""
 _K5F32_ADD = """            mma_tf32x3(part[mt][jj], ah[mt], al[mt], bh0, bh1, bl0, bl1);"""
+_K4BF32_ADD = "    tf32x3_taps<Cfg>(part, stage,"
+_K4BF32_FLUSH = ("        for (int e = 0; e < 4; ++e) acc[mt][j][e] = "
+                 "__fadd_rn(acc[mt][j][e], part[mt][j][e]);")
 _K5F32_FLUSH = """#pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -98,6 +104,11 @@ VARIANTS = {
         "K4a no products": {_K4A_MMA: _K4A_MMA.replace("tap < 9;", "tap < 9 * (n_chunks < 0);")},
         "K4a no prefetch of the next chunk": {
             _K4A_PREFETCH: _K4A_PREFETCH.replace("n_chunks)", "n_chunks && n_chunks < 0)")},
+        "f32 K4b no products": {_K4BF32_ADD: "    if (n_chunks < 0)\n" + _K4BF32_ADD},
+        "f32 K4b one TF32 product": _F32_SPLIT_VARIANTS["one TF32 product"],
+        "f32 K4b products added to the sums in place": {
+            _K4BF32_ADD: _K4BF32_ADD.replace("part", "acc"),
+            _K4BF32_FLUSH: "        for (int e = 0; e < 4; ++e) (void)part[mt][j][e];"},
     },
     "flash_attention_fwd": {
         "as committed": {},
@@ -138,12 +149,13 @@ def _edited(text: str, edits: dict, what: str) -> str:
     return text
 
 
-def _build(name: str) -> dict[str, ctypes.CDLL]:
-    """Each variant in a directory of its own, beside its own copies of the
-    headers (the source includes them by quotes, so they are found first)."""
+def _build(name: str, variants: dict | None = None) -> dict[str, ctypes.CDLL]:
+    """Each variant of csrc/<name>.cu (``VARIANTS[name]`` unless ``variants``
+    is given) in a directory of its own, beside its own copies of the headers
+    (the source includes them by quotes, so they are found first)."""
     source = (build.CSRC / f"{name}.cu").read_text()
     procs = {}
-    for i, (variant, edits) in enumerate(VARIANTS[name].items()):
+    for i, (variant, edits) in enumerate((variants or VARIANTS[name]).items()):
         out_dir = build.BUILD_DIR / "variants" / f"{name}_v{i}"
         out_dir.mkdir(parents=True, exist_ok=True)
         edits = dict(edits)
@@ -245,6 +257,57 @@ def _k4b(libs, gen, card: str) -> None:
                                                     with_stats=True)
         calls["cuDNN conv2d (no prologue, no stats)"] = lambda: F.conv2d(x, wb, bb, padding=1)
         _report(f"K4b {label} N={n} C={c} Co={co} H=W={hw} bf16", _in_turns(calls, 10), card)
+
+
+def _k4b_f32(libs, gen, card: str) -> None:
+    """K4b's split-precision route at decoders 3 and 4 in f32 (LeakyReLU
+    prologue, stats), the share of the f32 gates each variant uses, beside
+    the wrapper, the plain version and cuDNN's conv2d."""
+    for label, c, co, hw in DECODERS:
+        n = 16
+        x = torch.randn(n, c, hw, hw, device="cuda", generator=gen) * 1.5 + 0.2
+        w = torch.randn(co, c, 3, 3, device="cuda", generator=gen) / (3 * c ** 0.5)
+        b = 0.5 * torch.randn(co, device="cuda", generator=gen)
+        a_ = (0.5 + torch.rand(n, c, device="cuda", generator=gen)).contiguous()
+        b_ = 0.3 * torch.randn(n, c, device="cuda", generator=gen)
+        if dc.conv3x3_route(x) != "tf32x3":
+            raise RuntimeError(f"K4b {label}: f32 does not take the tf32x3 route")
+        co_pad = dc._function("fmi_decoder_conv_co_pad")(co)
+        c_pad = dc._function("fmi_decoder_conv_c_pad")(c)
+        wp, bias = dc._weights_tf32x3(w, c_pad, co_pad), dc._padded(b, co_pad)
+        out = torch.empty(n, co, hw, hw, device="cuda")
+        want, (ws1, ws2) = dc.conv3x3_stats_plain(x, w, b, (a_, b_, "LeakyReLU"), with_stats=True)
+        calls, used = {}, {}
+        for variant, lib in _mine(libs, "f32 K4b").items():
+            fn = _c_function(lib, "fmi_conv3x3_stats_f32_tf32x3",
+                             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            tiles = _c_function(lib, "fmi_decoder_conv_tiles", [ctypes.c_int] * 4)
+            parts = torch.empty((2, n, co, tiles(2, hw, hw, co)), device="cuda")
+
+            def call(fn=fn, parts=parts):
+                _checked(fn(x.data_ptr(), wp.data_ptr(), a_.data_ptr(), b_.data_ptr(),
+                            bias.data_ptr(), out.data_ptr(), parts[0].data_ptr(),
+                            parts[1].data_ptr(), n, c, hw, hw, co, co_pad, 2, 0,
+                            torch.cuda.current_stream().cuda_stream))
+            call()
+            torch.cuda.synchronize()
+            sums = parts.sum(dim=3)
+            used[variant] = max(
+                float(((out - want).abs() / (1e-4 + 1e-4 * want.abs())).max()),
+                *(float(((g - r).abs() / (1e-4 * (r.abs() + r.abs().max()))).max())
+                  for g, r in ((sums[0], ws1), (sums[1], ws2))))
+            calls[variant] = call
+        if used["as committed"] > 1.0:
+            raise RuntimeError(f"K4b {label} f32: the committed kernel uses "
+                               f"{used['as committed']:.3f} of its gate")
+        del want
+        calls["wrapper"] = lambda: dc.conv3x3_stats(x, w, b, (a_, b_, "LeakyReLU"),
+                                                    with_stats=True)
+        calls["plain"] = lambda: dc.conv3x3_stats_plain(x, w, b, (a_, b_, "LeakyReLU"),
+                                                        with_stats=True)
+        calls["cuDNN conv2d (no prologue, no stats)"] = lambda: F.conv2d(x, w, b, padding=1)
+        _report(f"K4b {label} N={n} C={c} Co={co} H=W={hw} f32", _in_turns(calls, 5), card)
+        _gate_report(f"K4b {label} f32", used, card)
 
 
 def _k4a(libs, gen, card: str) -> None:
@@ -461,6 +524,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     conv = _build("decoder_conv")
     _k4b(conv, gen, card)
+    _k4b_f32(conv, gen, card)
     _k4a(conv, gen, card)
     bwd, fwd = _build("flash_attention_bwd"), _build("flash_attention_fwd")
     _k5(bwd, gen, card)

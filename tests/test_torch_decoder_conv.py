@@ -10,6 +10,8 @@ Packed JAX operands are made and undone with JAX's ``space_to_depth`` /
 to the port through convert.py. float32; tolerances per test.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -86,6 +88,14 @@ def _pack(x, r):
 
 def _unpack(y, r):
     return np.asarray(jpacked.depth_to_space(y, r) if r > 1 else y)
+
+
+def jitted_apply(module, **kw):
+    """``module.apply`` with the keywords kw, under ``jax.jit``: one XLA
+    program for the whole module in place of one per operation (most of an
+    eager apply's time on the CPU). Traced anew at each call of this helper,
+    so the FMI_* settings in force are the ones the trace reads."""
+    return jax.jit(functools.partial(module.apply, **kw))
 
 
 def random_variables(init, seed):
@@ -209,7 +219,7 @@ def test_res_block_decoder_fused_matches_jax(tail_calls, r, in_stats, want_stats
     xj = _pack(x, r)
     variables = random_variables(lambda: jblock.init(KEY, xj, **kw), 9)
     _reset(tail_calls)  # tracing init ran the kernels too
-    res = jblock.apply(variables, xj, **kw)
+    res = jitted_apply(jblock, **kw)(variables, xj)
     want, want_out_stats = res if want_stats else (res, None)
 
     block = ResBlockDecoder(c, co, co, norm="instance", activation="LeakyReLU",
@@ -245,7 +255,7 @@ def test_res_generator_packed_convt_matches_jax(tail_calls, use_attn):
     variables = random_variables(
         lambda: jgen.init(KEY, jnp.asarray(x), z=jnp.asarray(z), train=False), 8)
     _reset(tail_calls)  # tracing init ran the kernels too
-    want = np.asarray(jgen.apply(variables, jnp.asarray(x), z=jnp.asarray(z), train=False))
+    want = np.asarray(jitted_apply(jgen, train=False)(variables, jnp.asarray(x), z=jnp.asarray(z)))
     sd = None
     outs = {}
     for packed in (True, False):
@@ -284,7 +294,7 @@ def test_reference_fill_packed_convt_matches_jax(tail_calls, monkeypatch):
         lambda: jmodel.init({"params": KEY, "sample": KEY}, *args, train=False), 7)
     _reset(tail_calls)  # tracing init ran the kernels too
     rng = jax.random.PRNGKey(1)
-    want = np.asarray(jmodel.apply(variables, *args, train=False, rng=rng))
+    want = np.asarray(jitted_apply(jmodel, train=False)(variables, *args, rng=rng))
     rng_q, rng_p = jax.random.split(rng)
     eps_q = np.array(jax.random.normal(rng_q, (2, 8, 8, 16)))
     eps_p = np.array(jax.random.normal(rng_p, (2, 8, 8, 16)))

@@ -2,8 +2,8 @@
 their plain versions on an NVIDIA GPU, on each of their routes (K1: the
 warpgroup kernel in bf16, the split-precision (3xTF32) kernel in f32 and the
 CUDA-core kernel; K5: tensor cores in bf16, split precision in f32 and CUDA
-cores; K4a and K4b: tensor cores and CUDA cores), with each route's choice
-by shape and alignment.
+cores; K4a and K4b: tensor cores and CUDA cores, and K4b's split-precision
+kernel in f32), with each route's choice by dtype, shape and alignment.
 Marked ``cuda``: they skip where torch.cuda.is_available() is False (the
 decision is taken in a fixture, at run time). Run on the card, where JAX need
 not be installed, with
@@ -21,8 +21,9 @@ bfloat16 tolerance adds rtol times the sum of the output's terms' magnitudes
 (see the test).
 
 Tolerance: |kernel - plain| <= atol + rtol |plain| with (1e-4, 1e-4) in
-float32 (TF32 off; only the order of f32 sums differs, and on K1's and K5's
-split-precision route the about 21 bits the split keeps of each operand)
+float32 (TF32 off; only the order of f32 sums differs, and on K1's, K4b's
+and K5's split-precision route the about 21 bits the split keeps of each
+operand)
 and (1e-3, 2^-7) in
 bfloat16 (each side rounds an f32 result once: one bf16 ulp apart at most).
 K5's dq and dv are held to max |kernel - plain| <= tol * max |plain| with tol
@@ -442,16 +443,44 @@ def test_conv3x3_stats_takes_strided_weight_and_bias(cuda, dtype, c, co):
 
 def test_conv3x3_routes(cuda):
     """bf16 maps with W % 8 == 0 take the tensor cores, the flagship's
-    decoders 3 and 4 among them; other widths, misaligned maps and float32
-    the CUDA cores."""
+    decoders 3 and 4 among them; float32 maps with W % 4 == 0 the tensor
+    cores in split precision; other widths and misaligned maps the CUDA
+    cores."""
     def route(c, h, w, dtype=torch.bfloat16, offset=0):
         flat = torch.zeros(c * h * w + offset, device="cuda", dtype=dtype)
         return dc.conv3x3_route(flat[offset:].view(1, c, h, w))
     assert route(128, 256, 256) == route(64, 512, 512) == "tensor_cores"  # decoders 3, 4
     assert route(5, 9, 72) == "tensor_cores"
-    assert route(5, 9, 70) == route(5, 9, 33) == "cuda_cores"
+    assert route(5, 9, 70) == route(5, 9, 33) == route(5, 9, 36) == "cuda_cores"
     assert route(5, 9, 72, offset=1) == "cuda_cores"
-    assert route(5, 9, 72, torch.float32) == "cuda_cores"
+    f32 = torch.float32
+    assert route(128, 256, 256, f32) == route(64, 512, 512, f32) == "tf32x3"  # decoders 3, 4
+    assert route(5, 9, 72, f32) == route(5, 9, 36, f32) == route(5, 9, 4, f32) == "tf32x3"
+    assert route(5, 9, 70, f32) == route(5, 9, 33, f32) == "cuda_cores"
+    assert route(5, 9, 72, f32, offset=1) == route(5, 9, 72, f32, offset=2) == "cuda_cores"
+
+
+# (N, C, H, W, Co): H and W off the 64-column tile (4 or 8 rows), C off the
+# 8-channel chunk, Co of 3, 8, 16, 32, 64 and 80 (two channel blocks)
+@pytest.mark.parametrize("pro", [None, "LeakyReLU", "ReLU", "none"])
+@pytest.mark.parametrize("act", [None, "LeakyReLU", "ReLU"])
+@pytest.mark.parametrize("n,c,h,w,co", [
+    (2, 13, 37, 72, 3), (1, 21, 19, 100, 8), (2, 5, 9, 36, 16), (1, 70, 30, 132, 32),
+    (2, 128, 13, 68, 64), (1, 40, 11, 4, 80)])
+def test_conv3x3_tf32x3_route_matches_plain(cuda, n, c, h, w, co, pro, act):
+    """K4b's f32 split-precision kernel against its plain version at the f32
+    gate, with the stats, at ragged shapes, every prologue and activation."""
+    x = _map(cuda, (n, c, h, w), torch.float32)
+    assert dc.conv3x3_route(x) == "tf32x3"
+    wt = torch.randn(co, c, 3, 3, device="cuda", generator=cuda) / (3 * c ** 0.5)
+    b = 0.5 * torch.randn(co, device="cuda", generator=cuda)
+    prologue = _prologue(cuda, n, c, pro) if pro else None
+    y, stats = dc.conv3x3_stats(x, wt, b, prologue, act, with_stats=True)
+    torch.cuda.synchronize()
+    want, want_stats = dc.conv3x3_stats_plain(x, wt, b, prologue, act, with_stats=True)
+    assert y.dtype == torch.float32 and y.shape == (n, co, h, w)
+    _assert_close(y, want, torch.float32)
+    _assert_stats(stats, want_stats, torch.float32)
 
 
 def test_decoder_conv_pads(cuda):
@@ -584,7 +613,18 @@ K6_CASES = [((2, 3, 37, 41), 1, 1, (1, 1), [1, 3, 3, 1], 4.0),
             ((2, 3, 23, 17), 1, 1, (2, 1), [1, 2, 3, 4], 1.0),
             ((2, 3, 23, 17), 2, 1, (1, 2), [1, 2, 3, 4], 4.0),
             ((2, 3, 23, 17), 1, 2, (2, 2), [1, 2, 3, 4], 1.0),
-            ((1, 2, 20, 30), 1, 1, (-1, 2), [1, 2, 3, 4], 1.0)]
+            ((1, 2, 20, 30), 1, 1, (-1, 2), [1, 2, 3, 4], 1.0),
+            # several of the fused kernel's tiles in both axes, on the blurs'
+            # 1025- and 513-wide rows (off every 16-byte boundary), odd widths
+            # and several planes
+            ((1, 3, 100, 1025), 1, 1, (1, 1), [1, 3, 3, 1], 4.0),
+            ((3, 2, 97, 513), 1, 1, (1, 1), [1, 3, 3, 1], 4.0),
+            ((2, 3, 70, 257), 2, 1, (2, 1), [1, 3, 3, 1], 4.0),
+            ((3, 1, 130, 1025), 1, 2, (1, 1), [1, 3, 3, 1], 1.0),
+            ((2, 2, 67, 301), 1, 1, (-2, 3), [1, 2, 3, 4], 1.0),
+            ((1, 2, 90, 150), 1, 1, (9, 6), list(range(1, 17)), 1.0),
+            ((1, 2, 70, 131), 2, 1, (8, 7), list(range(16, 0, -1)), 4.0),
+            ((1, 3, 75, 259), 1, 2, (7, 7), list(range(1, 17)), 1.0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -608,6 +648,21 @@ def test_upfirdn2d_kernel_matches_plain(cuda, dtype, shape, up, down, pad, taps,
     m = fir.upfirdn2d_plain(x.float().abs(), [abs(t) for t in k], up, down, pad)
     assert bool(((got.float() - want.float()).abs() <= atol + rtol * (want.float().abs() + m))
                 .all())
+
+
+def test_upfirdn2d_kernel_takes_an_unaligned_view(cuda):
+    """A contiguous view that starts off a 16-byte boundary: the kernel's
+    pieces are counted from the boundary before it."""
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+
+    k = [0.125, 0.375, 0.375, 0.125]
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = torch.randn(3 * 2 * 40 * 70 + 3, device="cuda", generator=cuda).to(dtype)
+        x = flat[3:].view(3, 2, 40, 70)
+        assert x.data_ptr() % 16 != 0
+        got = fir.upfirdn2d(x, k, 1, 1, (1, 2))
+        torch.cuda.synchronize()
+        assert torch.equal(got, fir.upfirdn2d_plain(x, k, 1, 1, (1, 2)))
 
 
 def test_upfirdn2d_kernel_rejects_bad_input(cuda):
@@ -699,7 +754,13 @@ def test_fused_leaky_relu_grad_of_grad_matches_plain(cuda):
 @pytest.mark.parametrize("shape,up,down,pad", [((2, 32, 65, 65), 1, 1, (1, 1)),
                                                ((2, 3, 32, 32), 2, 1, (2, 1)),
                                                ((2, 5, 33, 21), 1, 2, (1, 1)),
-                                               ((2, 1, 38, 42), 1, 1, (1, 1))])
+                                               ((2, 1, 38, 42), 1, 1, (1, 1)),
+                                               # several tiles in both axes: the
+                                               # blurs' 1025- and 513-wide inputs
+                                               ((1, 3, 101, 1025), 1, 1, (1, 1)),
+                                               ((3, 2, 130, 513), 1, 1, (1, 1)),
+                                               ((3, 3, 64, 256), 2, 1, (2, 1)),
+                                               ((2, 1, 75, 151), 2, 1, (2, 1))])
 def test_upfirdn2d_bwd_kernel_matches_autograd_of_plain(cuda, dtype, shape, up, down, pad):
     """K6's backward (mode (down, up), taps reversed, pads transposed)
     against the plain version of the same call; in f32 also against

@@ -9,6 +9,8 @@ NCHW. Weights are seeded random values in the shapes of ``init``, carried
 across with convert.py. float32 unless stated; tolerances per test.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -72,6 +74,14 @@ def _nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().permute(0, 2, 3, 1).numpy()
 
 
+def jitted_apply(module, **kw):
+    """``module.apply`` with the keywords kw, under ``jax.jit``: one XLA
+    program for the whole module in place of one per operation (most of an
+    eager apply's time on the CPU). Traced anew at each call of this helper,
+    so the FMI_* settings in force are the ones the trace reads."""
+    return jax.jit(functools.partial(module.apply, **kw))
+
+
 def random_variables(init, seed):
     """Variables shaped by ``jax.eval_shape(init)`` from a seeded numpy
     RandomState: kernels ~ N(0, 1/fan_in), norm scales near 1, small random
@@ -107,10 +117,10 @@ def test_plain_head_matches_jax_pair_head(head_calls, monkeypatch, f, act):
     kw = dict(train=False, pack_in=f, fuse_pool=True)
     variables = random_variables(lambda: jmod.init(KEY, (h, s), **kw), f)
     head_calls["jax"] = 0  # tracing init ran the head too
-    want_kernel = np.asarray(jmod.apply(variables, (h, s), **kw))
+    want_kernel = np.asarray(jitted_apply(jmod, **kw)(variables, (h, s)))
     assert head_calls["jax"] == 1
     monkeypatch.setenv("FMI_OUTPUT_KERNEL", "0")
-    want_dense = np.asarray(jmod.apply(variables, (h, s), **kw))
+    want_dense = np.asarray(jitted_apply(jmod, **kw)(variables, (h, s)))
 
     port = Output(c, 3, 3, norm="none", activation=act, use_spect=True)
     port.load_state_dict(state_dict_from_jax(port, variables), strict=True)
@@ -189,7 +199,7 @@ def test_res_generator_pair_head_matches_jax(head_calls, use_attn, threshold, po
     variables = random_variables(
         lambda: jgen.init(KEY, jnp.asarray(x), z=jnp.asarray(z), **kw), 8)
     head_calls["jax"] = 0  # tracing init ran the head too
-    want = np.asarray(jgen.apply(variables, jnp.asarray(x), z=jnp.asarray(z), **kw))
+    want = np.asarray(jitted_apply(jgen, **kw)(variables, jnp.asarray(x), z=jnp.asarray(z)))
     assert head_calls["jax"] == 1
 
     tgen = tp.define_g(**GEN, use_attn=use_attn, input_nc=32, z_channels=16)
@@ -223,7 +233,7 @@ def test_reference_fill_pair_head_matches_jax(head_calls, monkeypatch):
         lambda: jmodel.init({"params": KEY, "sample": KEY}, *args, train=False), 7)
     head_calls["jax"] = 0  # tracing init ran the head too
     rng = jax.random.PRNGKey(1)
-    want = np.asarray(jmodel.apply(variables, *args, train=False, rng=rng))
+    want = np.asarray(jitted_apply(jmodel, train=False)(variables, *args, rng=rng))
     assert head_calls["jax"] == 1
     rng_q, rng_p = jax.random.split(rng)
     eps_q = np.array(jax.random.normal(rng_q, (2, 8, 8, 16)))

@@ -39,12 +39,13 @@ def one_torch_thread():
 
 
 def _jax_grads(op, x, w):
-    """(d/dx <op(x), w>, d/dw |d/dx <op(x), w>|^2) of a JAX op on NHWC."""
+    """(d/dx <op(x), w>, d/dw |d/dx <op(x), w>|^2) of a JAX op on NHWC, each
+    under jax.jit (one XLA program, where eager runs one an operation)."""
     def f(x, w):
         return jnp.sum(op(x) * w)
 
-    dx = jax.grad(f)(x, w)
-    dw = jax.grad(lambda w: jnp.sum(jax.grad(f)(x, w) ** 2))(w)
+    dx = jax.jit(jax.grad(f))(x, w)
+    dw = jax.jit(jax.grad(lambda w: jnp.sum(jax.grad(f)(x, w) ** 2)))(w)
     return np.asarray(dx), np.asarray(dw)
 
 
