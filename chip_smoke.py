@@ -33,6 +33,11 @@ it and read just after. Phases:
    [200, 56] values, L = 100 and 130): in bfloat16 K1's warpgroup (wgmma)
    kernel and K5's tensor-core one, in float32 the split-precision (tf32x3)
    kernels; and their CUDA-core ones elsewhere (d = 48, d = 128, C > 256),
+   that K2 takes its cluster route at every decoder norm and its two_pass
+   route at [2, 3, 1024, 1024], with constant planes giving finite zeros,
+   and K3 its tensor-core route (mma_sync) in bfloat16 at W % 8 == 0 and f
+   a power of two up to 32 and its CUDA-core one elsewhere, with K2's
+   nearest two-call PyTorch pair timed beside it (not gated);
    that K4b and K4a take their tensor-core routes in
    bfloat16 where W % 8 == 0 (the flagship's decoders 3 and 4 and W = 72
    among them) and their CUDA-core ones elsewhere, that K4b takes its
@@ -64,10 +69,14 @@ it and read just after. Phases:
    of the forward over PROFILE_ROUNDS rounds of three forwards a side in
    alternating order (kernels, dense head, plain versions) with the host's
    enqueue time, and a ``torch.profiler`` window of three forwards in each
-   configuration (device-busy share, kernels by device time); that window
-   must show K1's warpgroup kernel, and neither of its others, in every
-   configuration, and K4b's and K4a's tensor-core kernels, and not their
-   CUDA-core ones, in the packed-convt forward;
+   configuration (device-busy share, kernels by device time, device
+   kernels a forward beside the count before K2's one-launch route); that
+   window must show K1's warpgroup kernel, and neither of its others, and
+   K2's cluster kernel, and neither its two-pass kernels nor the Triton
+   passes it replaced, in every configuration, K3's tensor-core kernel and
+   not its CUDA-core ones in the default forward, and K4b's and K4a's
+   tensor-core kernels, and not their CUDA-core ones, in the packed-convt
+   forward;
 7. the config-5 GAN training step (G, D and VGG built by the trainer CLI's
    ``get_args`` and ``Trainer`` with ``--device cuda --decoder_img_f 256``)
    at batch 16 in bfloat16 on seeded batches: finite losses, the launches
@@ -177,6 +186,10 @@ PACKED_PER_FORWARD = {"flash_attention_fwd": 1, "flash_attention_bwd": 0,
                       "convt_pair": 2}
 PER_STEP = {"flash_attention_fwd": 1, "flash_attention_bwd": 1, "instance_norm_act": 10,
             "output_head": 0, "conv3x3_stats": 0, "convt_pair": 0}
+# device kernels (copies and fills aside) of one default bf16 forward before
+# K2 ran as one launch a call (two Triton passes and about a dozen eager
+# finishing ops a call): tools/chip_ab.py on the parent tree, on the H100
+KERNELS_PER_FORWARD_BEFORE = 1803
 # Stack B's kernels run in none of the Stack A paths above
 for _d in (PER_FORWARD, PACKED_PER_FORWARD, PER_STEP):
     _d.update(upfirdn2d=0, upfirdn2d_bwd=0, fused_leaky_relu=0, fused_leaky_relu_bwd=0)
@@ -217,7 +230,7 @@ KERNELS = {
         route="cuda", source="face_mask_inpaint_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="face_mask_inpaint_tpu/ops/pallas/flash_attention.py:579"),
     "instance_norm_act": dict(
-        route="triton", source="face_mask_inpaint_tpu_torch/kernels/norm_act.py",
+        route="cuda", source="face_mask_inpaint_tpu_torch/csrc/norm_act.cu",
         replaces="face_mask_inpaint_tpu/ops/pallas/norm_act.py:84"),
     "output_head": dict(
         route="cuda", source="face_mask_inpaint_tpu_torch/csrc/output_head.cu",
@@ -504,6 +517,7 @@ def _phase_flash_backward(run: Run, gen, timings: dict):
 
 def phase_kernels(run: Run, seed: int, timings: dict):
     import torch
+    import torch.nn.functional as F
 
     from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
     from face_mask_inpaint_tpu_torch.kernels import norm_act as na
@@ -563,11 +577,16 @@ def phase_kernels(run: Run, seed: int, timings: dict):
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        total, total_plain, nbytes, ops = 0.0, 0.0, 0.0, 0.0
-        cases = [(f"decoder N=16 C={c} H=W={h}", (16, c, h, h), "LeakyReLU")
+        total, total_plain, total_lib, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0.0
+        cases = [(f"decoder N=16 C={c} H=W={h}", (16, c, h, h), "LeakyReLU", "cluster")
                  for c, h in DECODER_NORMS]
-        cases += [("ragged", (3, 5, 37, 41), act) for act in ("LeakyReLU", "ReLU", "none")]
-        for label, shape, act in cases:
+        cases += [("ragged", (3, 5, 37, 41), act, "cluster") for act in ("LeakyReLU", "ReLU",
+                                                                         "none")]
+        cases += [("two_pass", (2, 3, 1024, 1024), "LeakyReLU", "two_pass"),
+                  ("two_pass", (2, 3, 1024, 1024), "ReLU", "two_pass")]
+        for label, shape, act, want in cases:
+            route = na.norm_act_route(shape, dtype)
+            run.check(route == want, f"K2 {label} {dname} takes the {want} route (route {route})")
             x = (torch.randn(shape, device=dev, generator=gen) * 2 + 1).to(dtype)
             w = torch.randn(shape[1], device=dev, generator=gen)
             b = torch.randn(shape[1], device=dev, generator=gen)
@@ -580,21 +599,46 @@ def phase_kernels(run: Run, seed: int, timings: dict):
             if label.startswith("decoder"):
                 total += _time_ms(lambda: na.instance_norm_act(x, w, b, act), 5)
                 total_plain += _time_ms(lambda: na.instance_norm_act_plain(x, w, b, act), 5)
+                wl, bl = w.to(dtype), b.to(dtype)
+                total_lib += _time_ms(lambda: F.leaky_relu(
+                    F.instance_norm(x, weight=wl, bias=bl, eps=1e-5), 0.1), 5)
                 # one read of x, one write of y; about 5 flops an element
                 # (sum, square-sum, then scale, shift and the activation)
                 nbytes += 2 * x.numel() * x.element_size()
                 ops += 5.0 * x.numel()
             del x, y
+        # a constant plane: the variance is 0 (clamped, never negative), so
+        # every route gives finite zeros
+        for shape in ((16, 256, 32, 32), (2, 32, 512, 512), (2, 3, 1024, 1024)):
+            x = torch.full(shape, 1.5, device=dev, dtype=dtype)
+            y = na.instance_norm_act(x, None, None, "LeakyReLU")
+            torch.cuda.synchronize()
+            run.check(bool(torch.isfinite(y).all()) and bool((y == 0).all()),
+                      f"K2 constant plane {list(shape)} {dname} "
+                      f"({na.norm_act_route(shape, dtype)}): finite zeros")
+            del x, y
         bound = _bound(nbytes, ops, F32_RATE)
+        # no one PyTorch call computes K2: the yardstick is the nearest pair,
+        # F.instance_norm then F.leaky_relu (two calls, not one)
         timings[("instance_norm_act", dname)] = (total, total_plain, *bound, None)
         print(f"[time] K2 ten decoder norms at N=16 {dname}: kernel {total:.3f} ms, "
-              f"plain {total_plain:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
+              f"plain {total_plain:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), yardstick "
+              f"{total_lib:.3f} ms (instance_norm + leaky_relu, two calls, not gated)")
 
     head_cases = [("flagship", HEAD["shape"], HEAD["co"], HEAD["pool"], "LeakyReLU")]
     head_cases += [("ragged", (2, 5, 36, 44), 3, f, act)
                    for f, act in ((1, "LeakyReLU"), (2, "ReLU"), (4, "LeakyReLU"))]
     head_cases += [("ragged", (1, 7, 30, 42), 2, 3, "LeakyReLU"),
                    ("one cell a block", (1, 3, 128, 192), 4, 64, "ReLU")]
+    # the tensor-core route (bf16) at ragged shapes: C off its 16-channel
+    # chunk, H off its 16- and 32-row tiles, W of one 64-column tile and of
+    # one and a bit (72: the right halo of the 8-column tile is column W
+    # reflected), co 1, 2, 4, f 1, 2, 8, 32
+    head_cases += [("ragged", (2, 20, 96 if f == 32 else 24, w), co, f, act)
+                   for co, f, w, act in ((1, 1, 64, "LeakyReLU"), (2, 2, 72, "ReLU"),
+                                         (4, 8, 72, "LeakyReLU"), (1, 32, 64, "ReLU"),
+                                         (4, 1, 72, "ReLU"), (2, 8, 64, "LeakyReLU"),
+                                         (4, 32, 64, "LeakyReLU"), (1, 2, 64, "ReLU"))]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for label, shape, co, f, act in head_cases:
@@ -603,6 +647,11 @@ def phase_kernels(run: Run, seed: int, timings: dict):
             s = torch.randn(shape, device=dev, generator=gen).to(dtype)
             w = torch.randn(co, c, 3, 3, device=dev, generator=gen) / (3 * c ** 0.5)
             b = torch.randn(co, device=dev, generator=gen) * 0.1
+            route = oh.output_head_route(shape, dtype, f)
+            want = ("mma_sync" if dtype == torch.bfloat16 and shape[3] % 8 == 0 and f <= 32
+                    and f & (f - 1) == 0 else "cuda_cores")
+            run.check(route == want, f"K3 {label} {list(shape)} f={f} {dname} takes the {want} "
+                                     f"route (route {route})")
             y = oh.output_head(h, s, w, b, act, f)
             torch.cuda.synchronize()
             ok, err = _close(y, oh.output_head_plain(h, s, w, b, act, f), dname)
@@ -613,12 +662,14 @@ def phase_kernels(run: Run, seed: int, timings: dict):
                 ms = _time_ms(lambda: oh.output_head(h, s, w, b, act, f), 10)
                 plain_ms = _time_ms(lambda: oh.output_head_plain(h, s, w, b, act, f), 5)
                 # h and s read once, the pooled image written once; 9 C co
-                # multiply-adds a pixel on the CUDA cores in f32
+                # multiply-adds a pixel, on the tensor cores in bf16 (route
+                # mma_sync) and on the CUDA cores in f32
+                flops = 2.0 * shape[0] * shape[2] * shape[3] * co * c * 9
                 bound = _bound(2 * h.numel() * h.element_size() + y.numel() * y.element_size(),
-                               2.0 * shape[0] * shape[2] * shape[3] * co * c * 9, F32_RATE)
+                               flops, BF16_RATE if route == "mma_sync" else F32_RATE)
                 timings[("output_head", dname)] = (ms, plain_ms, *bound, None)
-                print(f"[time] K3 flagship {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-                      f"ms, bound {bound[0]:.3f} ms ({bound[1]})")
+                print(f"[time] K3 flagship {dname} ({route}): kernel {ms:.3f} ms, plain "
+                      f"{plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
             del h, s, y
         torch.cuda.empty_cache()
     _phase_decoder_tail(run, gen, timings)
@@ -1143,6 +1194,21 @@ def phase_profile(run: Run, seed: int, rounds: int, card: str):
         _check_launched(run, rows, "flash_fwd_wgmma_kernel",
                         ("flash_fwd_tf32x3_kernel", "flash_fwd_kernel"),
                         f"K1 in the bf16 {side} forward")
+        # K2 on its one-read cluster route (neither the two-pass kernels nor
+        # the Triton passes it replaced); K3, where it runs, on the tensor
+        # cores and not on the CUDA-core kernels
+        _check_launched(run, rows, "norm_act_cluster_kernel",
+                        ("stats_kernel", "apply_kernel", "norm_act_sums_kernel",
+                         "norm_act_scale_kernel"), f"K2 in the bf16 {side} forward")
+        if side == "kernels":
+            _check_launched(run, rows, "output_head_mma_kernel",
+                            ("output_head_tile_kernel", "output_head_cell_kernel"),
+                            "K3 in the bf16 default forward")
+        kernels = [e for e in rows if not e.key.startswith(("Memcpy", "Memset"))]
+        k2 = sum(e.count for e in kernels if "norm_act_" in e.key)
+        print(f"[profile] {side}: {sum(e.count for e in kernels) / 3:.0f} device kernels a "
+              f"forward ({KERNELS_PER_FORWARD_BEFORE} in the default one before K2's one-launch "
+              f"route), {k2 / 3:.0f} of them K2's on {card}")
         if side == "packed-convt":
             _check_launched(run, rows, "conv3x3_mma_kernel",
                             ("conv3x3_kernel", "conv3x3_tf32x3_kernel"),

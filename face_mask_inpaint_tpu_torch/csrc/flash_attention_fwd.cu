@@ -653,36 +653,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
-// cuTensorMapEncodeTiled, a driver-API function, reached through the
-// runtime so that the library links no libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // [N][L][width] bf16 as a 3-d map of [64 x 64] boxes with the 128-byte
 // swizzle; out-of-range elements read as zeros
 bool rows_map(CUtensorMap* map, const void* base, int N, int L, int width) {
-  const EncodeTiled encode = encode_tiled();
+  const fmi_wgmma::EncodeTiled encode = fmi_wgmma::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(N)};

@@ -1,24 +1,21 @@
-"""K2: fused instance norm + activation (Triton).
+"""K2: fused instance norm + activation (CUDA C++, ``csrc/norm_act.cu``).
 
 Replaces face_mask_inpaint_tpu/ops/pallas/norm_act.py ``instance_norm_act``
-(``_stats_kernel`` and ``_apply_kernel``):
+(``_stats_kernel``, ``_apply_kernel`` and the finish between them):
 
-    pass 1: per-(n, c) sum x and sum x^2 in f32          (one read)
-    finish: the [N, C] affine a, b (plain torch, as the JAX package leaves it
-            to XLA), var = E[x^2] - mu^2 clamped at 0, eps 1e-5
-    pass 2: y = act(a * x + b), act in LeakyReLU(slope) | ReLU | none
-                                                         (one read, one write)
+    per (n, c): sum x and sum x^2 in f32; mean, var = E[x^2] - mu^2 clamped
+    at 0, a = rsqrt(var + eps) * weight; y = act(a * (x - mean) + bias),
+    act in LeakyReLU(slope) | ReLU | none, rounded once to x's dtype
 
-What bounds it on an H100: it is a reduction followed by an elementwise pass
-with no matrix products, so bytes moved bound it: two reads and one write of
-the map. Triton's block reductions reach that floor as well as CUDA C++
-would. Design: at NCHW every (n, c) plane is contiguous; pass 1 splits each
-plane into 16K-element chunks (one program each, partial sums summed in
-torch) so the 512^2 decoder planes spread over the whole card, and pass 2 is
-one program per 2K elements of a plane, reading that plane's a, b once.
+The CUDA source says what bounds the kernel on the card and what its design
+does about that. ``_plan`` chooses its route by the plane's size:
+"cluster" (one launch a call; each plane read once into the shared memory of
+a group of warps or of a cluster of up to 8 blocks) or "two_pass" (a plane no
+cluster holds: a sums kernel, then a kernel that finishes and applies);
+``norm_act_route`` names it.
 
-``instance_norm_act`` launches the kernels for CUDA tensors and raises on what
-they cannot take; for CPU tensors it runs ``instance_norm_act_plain``, a port
+``instance_norm_act`` launches the kernel for CUDA tensors and raises on what
+it cannot take; for CPU tensors it runs ``instance_norm_act_plain``, a port
 of ``instance_norm_act_reference``, which is also what the kernel is held
 against on the card. Where a gradient is needed it runs inside a
 ``torch.autograd.Function`` whose backward recomputes the plain version under
@@ -29,17 +26,73 @@ port.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["instance_norm_act", "instance_norm_act_plain", "ACTS"]
+from face_mask_inpaint_tpu_torch.kernels import build
+
+__all__ = ["instance_norm_act", "instance_norm_act_plain", "norm_act_route", "ACTS"]
 
 ACTS = ("LeakyReLU", "ReLU", "none")
-_STATS_CHUNK = 16384
-_STATS_BLOCK = 1024
-_APPLY_BLOCK = 2048
+_SYMBOLS = {torch.float32: "fmi_norm_act_f32", torch.bfloat16: "fmi_norm_act_bf16"}
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
+_ROUTES = {"cluster": 0, "two_pass": 1}
+_WARPS = 8                 # a block of the kernels: 8 warps
+_SMALL_PLANE = 16 * 1024   # bytes: planes up to this size go several to a block
+_SMALL_BLOCK = 48 * 1024   # bytes of such planes a block holds at most
+_SLICE = 64 * 1024         # bytes of a plane a cluster's block holds, where 8 blocks suffice
+_SMEM = 226 * 1024         # shared memory a block takes at most (csrc: kSmemMax - kStatic)
+_CLUSTERS = (1, 2, 4, 8)   # cluster sizes; 8 is the portable maximum
+_CHUNK = 16384             # elements a block of the two-pass route takes
+
+
+class Plan(NamedTuple):
+    """How the kernel cuts a plane of ``hw`` elements: ``route``; on
+    "cluster", ``cluster`` blocks a plane of ``slice`` elements each, or
+    ``planes_per_block`` whole planes a block (8 / that many warps a plane);
+    on "two_pass", ``cluster`` chunks of ``slice`` elements a plane."""
+    route: str
+    cluster: int
+    planes_per_block: int
+    slice: int
+
+
+def _cap(elements: int, itemsize: int) -> int:
+    """Shared memory of one slice: its bytes rounded up to 16, plus the 16
+    that a slice off a 16-byte boundary may need (csrc ``cluster_smem``)."""
+    return -(-elements * itemsize // 16) * 16 + 16
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(hw: int, itemsize: int) -> Plan:
+    """The kernel's cut of a plane of hw elements of itemsize bytes."""
+    if hw * itemsize <= _SMALL_PLANE:
+        ppb = _WARPS
+        while ppb > 1 and ppb * _cap(hw, itemsize) > _SMALL_BLOCK:
+            ppb //= 2
+        return Plan("cluster", 1, ppb, hw)
+    per_piece = 16 // itemsize  # slices start on 16-byte boundaries of the plane
+    for cs in _CLUSTERS:
+        sl = -(-(-(-hw // cs)) // per_piece) * per_piece
+        if sl * itemsize <= _SLICE or (cs == _CLUSTERS[-1] and _cap(sl, itemsize) <= _SMEM):
+            return Plan("cluster", -(-hw // sl), 1, sl)
+    return Plan("two_pass", -(-hw // _CHUNK), 1, _CHUNK)
+
+
+def norm_act_route(shape, dtype: torch.dtype) -> str:
+    """"cluster" or "two_pass": the route K2 takes for an NCHW map of this
+    shape and dtype (alignment changes only how a slice is loaded)."""
+    if len(shape) != 4:
+        raise ValueError(f"instance_norm_act takes NCHW, got {tuple(shape)}")
+    if dtype not in _SYMBOLS:
+        raise TypeError(f"instance_norm_act takes float32 or bfloat16, got {dtype}")
+    n, c, h, w = shape
+    if n * c >= 2 ** 31 or h * w >= 2 ** 31:
+        raise ValueError(f"instance_norm_act: {tuple(shape)} is too large for the kernel")
+    return _plan(h * w, _ITEMSIZE[dtype]).route
 
 
 def _act(y: torch.Tensor, act: str, slope: float) -> torch.Tensor:
@@ -67,49 +120,16 @@ def instance_norm_act_plain(x: torch.Tensor, weight: Optional[torch.Tensor],
 
 
 @functools.lru_cache(maxsize=None)
-def _triton_kernels():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def stats_kernel(x_ptr, part_ptr, hw, CHUNK: tl.constexpr, BLOCK: tl.constexpr):
-        plane = tl.program_id(0)
-        split = tl.program_id(1)
-        base = x_ptr + plane.to(tl.int64) * hw
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        acc2 = tl.zeros([BLOCK], dtype=tl.float32)
-        for off in range(0, CHUNK, BLOCK):
-            idx = split * CHUNK + off + tl.arange(0, BLOCK)
-            v = tl.load(base + idx, mask=idx < hw, other=0.0).to(tl.float32)
-            acc += v
-            acc2 += v * v
-        out = part_ptr + (plane.to(tl.int64) * tl.num_programs(1) + split) * 2
-        tl.store(out, tl.sum(acc, axis=0))
-        tl.store(out + 1, tl.sum(acc2, axis=0))
-
-    @triton.jit
-    def apply_kernel(x_ptr, a_ptr, b_ptr, y_ptr, hw, slope,
-                     ACT: tl.constexpr, BLOCK: tl.constexpr):
-        plane = tl.program_id(0)
-        idx = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-        mask = idx < hw
-        base = plane.to(tl.int64) * hw
-        x = tl.load(x_ptr + base + idx, mask=mask, other=0.0).to(tl.float32)
-        y = x * tl.load(a_ptr + plane) + tl.load(b_ptr + plane)
-        if ACT == 0:
-            y = tl.where(y >= 0, y, y * slope)
-        elif ACT == 1:
-            y = tl.maximum(y, 0.0)
-        tl.store(y_ptr + base + idx, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    return triton.cdiv, stats_kernel, apply_kernel
+def _function(dtype: torch.dtype):
+    fn = getattr(build.load("norm_act"), _SYMBOLS[dtype])
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(x, weight, bias, act) -> None:
-    if x.dim() != 4:
-        raise ValueError(f"instance_norm_act takes NCHW, got {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"instance_norm_act takes float32 or bfloat16, got {x.dtype}")
+    norm_act_route(x.shape, x.dtype)
     if not x.is_contiguous():
         raise ValueError("instance_norm_act takes a contiguous NCHW tensor")
     if act not in ACTS:
@@ -129,27 +149,24 @@ def _forward(x, weight, bias, act, slope, eps) -> torch.Tensor:
         raise ValueError(f"instance_norm_act runs on cpu or cuda, not {x.device}")
     _check(x, weight, bias, act)
     n, c, h, w = x.shape
-    hw = h * w
-    cdiv, stats_kernel, apply_kernel = _triton_kernels()
-    n_split = cdiv(hw, _STATS_CHUNK)
+    plan = _plan(h * w, x.element_size())
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    w32 = b32 = parts = None
     with torch.cuda.device(x.device):
-        parts = torch.empty((n * c, n_split, 2), dtype=torch.float32, device=x.device)
-        stats_kernel[(n * c, n_split)](x, parts, hw, CHUNK=_STATS_CHUNK,
-                                       BLOCK=_STATS_BLOCK, num_warps=4)
-        sums = parts.sum(dim=1)
-        mean = sums[:, 0] / hw
-        var = torch.clamp_min(sums[:, 1] / hw - mean * mean, 0.0)
-        a = torch.rsqrt(var + eps).view(n, c)
-        mean = mean.view(n, c)
         if weight is not None:
-            a = a * weight.float()[None, :]
-            b = bias.float()[None, :] - mean * a
-        else:
-            b = -mean * a
-        y = torch.empty_like(x)
-        apply_kernel[(n * c, cdiv(hw, _APPLY_BLOCK))](
-            x, a.contiguous(), b.contiguous(), y, hw, float(slope),
-            ACT=ACTS.index(act), BLOCK=_APPLY_BLOCK, num_warps=4)
+            w32, b32 = weight.float().contiguous(), bias.float().contiguous()
+        if plan.route == "two_pass":
+            parts = torch.empty((n * c, plan.cluster, 2), dtype=torch.float32, device=x.device)
+        rc = _function(x.dtype)(
+            x.data_ptr(), None if w32 is None else w32.data_ptr(),
+            None if b32 is None else b32.data_ptr(), y.data_ptr(),
+            None if parts is None else parts.data_ptr(), n * c, c, h * w, _ROUTES[plan.route],
+            plan.cluster, plan.planes_per_block, plan.slice, ACTS.index(act), float(slope),
+            float(eps), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"instance_norm_act launch failed: cudaError {rc}")
     instance_norm_act.launches += 1
     return y
 
@@ -182,8 +199,8 @@ def instance_norm_act(x: torch.Tensor, weight: Optional[torch.Tensor],
     """Fused instance norm (+ optional affine) + activation over NCHW.
 
     x: [N, C, H, W] float32 or bfloat16; weight/bias: [C] or None. CPU
-    tensors take the plain version; CUDA tensors launch K2. Differentiable
-    in x, weight and bias.
+    tensors take the plain version; CUDA tensors launch K2 on the route
+    ``norm_act_route`` names. Differentiable in x, weight and bias.
     """
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, weight, bias)):

@@ -14,9 +14,12 @@ in f32, bias, tanh and the mean stay in f32, and the result is rounded once
 the TPU kernel casts its packed weight to the stream dtype. The CUDA source
 says what bounds the kernel on the card and what its design does about that.
 
-``output_head`` launches the kernel for CUDA tensors and raises on what it
-cannot take; for CPU tensors it runs ``output_head_plain``, which is also what
-the kernel is held against on the card. The kernel has no backward (the JAX
+``output_head`` launches the kernel for CUDA tensors on the route
+``output_head_route`` names ("mma_sync": bf16 on the tensor cores, its
+weights packed once a call as bf16 [9, c_pad, 8]; "cuda_cores": the rest)
+and raises on what it cannot take; for CPU tensors it runs
+``output_head_plain``, which is also what the kernel is held against on the
+card. The kernel has no backward (the JAX
 package runs it in inference only, ``use_packed_output_kernel(train)``), so on
 CUDA tensors it raises when a gradient would be needed; the plain version is
 differentiable.
@@ -25,18 +28,22 @@ differentiable.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from face_mask_inpaint_tpu_torch.kernels import build
 
-__all__ = ["output_head", "output_head_plain", "ACTS"]
+__all__ = ["output_head", "output_head_plain", "output_head_route", "ACTS"]
 
 ACTS = ("LeakyReLU", "ReLU")
 _SLOPE = 0.1  # the reference registry's LeakyReLU slope
-_CO_MAX = 4   # the kernel keeps up to four output channels in registers
+_CO_MAX = 4   # the kernels keep up to four output channels
 _SYMBOLS = {torch.float32: "fmi_output_head_f32", torch.bfloat16: "fmi_output_head_bf16"}
+_CK = 16      # the tensor-core kernel's channels a chunk
+_N_PAD = 8    # its output channels, padded to one n8 tile
+_MMA_POOLS = (1, 2, 4, 8, 16, 32)  # f a power of two up to 32: a tile holds whole cells
 
 
 def _check(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -85,11 +92,30 @@ def _no_grad_needed(what: str, tensors) -> None:
                            "training mode, which takes the differentiable path")
 
 
-def _function(dtype: torch.dtype):
-    fn = getattr(build.load("output_head"), _SYMBOLS[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+def output_head_route(shape, dtype: torch.dtype, pool: int, aligned: bool = True) -> str:
+    """"mma_sync" or "cuda_cores": the K3 kernel a call on [N, C, H, W] maps
+    of this dtype with this pool launches. ``aligned``: whether h and s start
+    on 16-byte boundaries (fresh tensors do). The C side's
+    ``fmi_output_head_route`` decides the same."""
+    if (dtype == torch.bfloat16 and shape[3] % 8 == 0 and pool in _MMA_POOLS and aligned):
+        return "mma_sync"
+    return "cuda_cores"
+
+
+@functools.lru_cache(maxsize=None)
+def _function(symbol: str, n_ints: int):
+    fn = getattr(build.load("output_head"), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _weights_mma(weight: torch.Tensor, c_pad: int) -> torch.Tensor:
+    """The tensor-core kernel's weights: [9, c_pad, 8] bf16 (tap ky * 3 + kx,
+    input channel, output channel) from [co, C, 3, 3], zeros past C and co."""
+    co, c = weight.shape[:2]
+    return F.pad(weight.to(torch.bfloat16).permute(2, 3, 1, 0),
+                 (0, _N_PAD - co, 0, c_pad - c)).reshape(9, c_pad, _N_PAD).contiguous()
 
 
 def output_head(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor,
@@ -113,17 +139,27 @@ def output_head(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor,
         raise ValueError("output_head takes contiguous NCHW tensors")
     n, c, height, width = h.shape
     co = weight.shape[0]
-    # [C, 9, 4] f32, tap-major, co padded to four: the weight rounded to the
-    # stream dtype, as the TPU kernel rounds it
-    w = torch.zeros((c, 9, _CO_MAX), dtype=torch.float32, device=h.device)
-    w[:, :, :co] = weight.to(h.dtype).float().permute(1, 2, 3, 0).reshape(c, 9, co)
-    b = bias.float().contiguous()
+    aligned = h.data_ptr() % 16 == 0 and s.data_ptr() % 16 == 0
+    route = output_head_route(h.shape, h.dtype, pool, aligned)
     out = torch.empty((n, co, height // pool, width // pool), dtype=h.dtype, device=h.device)
+    leaky = int(act == "LeakyReLU")
     with torch.cuda.device(h.device):
-        rc = _function(h.dtype)(
-            h.data_ptr(), s.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            n, c, height, width, co, pool, int(act == "LeakyReLU"),
-            torch.cuda.current_stream().cuda_stream)
+        b = bias.float().contiguous()
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "mma_sync":
+            c_pad = -(-c // _CK) * _CK
+            w = _weights_mma(weight, c_pad)
+            rc = _function("fmi_output_head_bf16_mma", 8)(
+                h.data_ptr(), s.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                n, c, c_pad, height, width, co, pool, leaky, stream)
+        else:
+            # [C, 9, 4] f32, tap-major, co padded to four: the weight rounded
+            # to the stream dtype, as the TPU kernel rounds it
+            w = torch.zeros((c, 9, _CO_MAX), dtype=torch.float32, device=h.device)
+            w[:, :, :co] = weight.to(h.dtype).float().permute(1, 2, 3, 0).reshape(c, 9, co)
+            rc = _function(_SYMBOLS[h.dtype], 7)(
+                h.data_ptr(), s.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                n, c, height, width, co, pool, leaky, stream)
     if rc != 0:
         raise RuntimeError(f"output_head launch failed: cudaError {rc}")
     output_head.launches += 1

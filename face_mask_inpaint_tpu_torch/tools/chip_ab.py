@@ -1,8 +1,9 @@
 """Time two checkouts of the port on one card, in turns A, B, B, A: chip_smoke.py's
 flagship bf16 batch-16 forward (phase 5: default, packed-convt and plain
 configurations), its profile (phase 6: per-stage times and the summed
-device time of three forwards of each configuration) and its config-5
-bf16-mixed training step (phase 7).
+device time of three forwards of each configuration), its config-5
+bf16-mixed training step (phase 7) and the number of device kernels (copies
+and fills aside) of one default bf16 forward, from a profiler window.
 
     python -m face_mask_inpaint_tpu_torch.tools.chip_ab DIR_A DIR_B
 
@@ -34,6 +35,24 @@ run = cs.Run()
 cs.phase_timing(run, 0, {}, card)
 cs.phase_profile(run, 0, cs.PROFILE_ROUNDS, card)
 cs.phase_train(run, 0, card)
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+detector, model = cs._models(0, torch.bfloat16)
+gen = torch.Generator(device="cuda").manual_seed(0)
+src = torch.rand(16, cs.HW, cs.HW, 3, device="cuda", generator=gen)
+ref = torch.rand(16, cs.HW, cs.HW, 3, device="cuda", generator=gen)
+noise = torch.Generator(device="cuda").manual_seed(1)
+def forward():
+    with torch.no_grad():
+        return model(src, ref, detector.predict_mask(src), generator=noise)
+forward()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    forward()
+    torch.cuda.synchronize()
+rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+        and e.self_device_time_total > 0 and not e.key.startswith(("Memcpy", "Memset"))]
+print(f"[count] device kernels of one default bf16 forward: {sum(e.count for e in rows)}")
 raise SystemExit(1 if run.failures else 0)
 """
 
@@ -50,7 +69,7 @@ def main(argv=None) -> int:
                               capture_output=True, text=True)
         for line in proc.stdout.splitlines():
             if (line.startswith(("[time] flagship", "[time] peak", "[train] config-5",
-                                 "[train] profile", "FAIL"))
+                                 "[train] profile", "[count]", "FAIL"))
                     or line.startswith("[profile]") and ("per stage" in line
                                                          or "device time" in line)):
                 print(f"{side}{turn} {line}", flush=True)

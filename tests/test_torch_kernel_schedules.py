@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
+from face_mask_inpaint_tpu_torch.kernels import norm_act as na
+from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
 
 CK = 8  # K4b tf32x3's input channels a chunk
@@ -227,3 +229,257 @@ def test_k6_window_covers_the_taps(up, down):
                              for t in range(k) if (o * down - pad0 + t) % up == 0]
                     assert all(i0 <= i < i0 + count for i in reads)
                     assert count <= ((n - 1) * down + k - 1) // up + 2
+
+
+# ---------------------------------------------------------------------------
+# K2 (csrc/norm_act.cu): the plane cut as the wrapper's ``_plan`` cuts it,
+# each thread's f32 sums over its 16-byte pieces in the kernel's order, the
+# warps' shuffle tree, the warps and then the cluster's ranks (or the
+# two-pass route's chunks) added in order, the finish with the clamp, and
+# y = act(a (x - mean) + bias) with one fused multiply-add, rounded once.
+# The kernel's fused multiply-adds are taken in float64 and rounded to f32
+# (exact but for a rare double rounding), its rsqrtf as torch.rsqrt: the
+# emulation is held to instance_norm_act_plain at the card's gates, not bit
+# for bit.
+# ---------------------------------------------------------------------------
+
+K2_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 2.0 ** -7)}
+DECODER_NORMS = [(256, 32), (256, 64), (256, 128), (128, 256), (64, 512), (32, 512)]
+
+
+def _k2_sums(data, starts, length, hw, threads, itemsize):
+    """(s1, s2) [spans] of the spans [start, start + len) of data (the map's
+    f32 values, its first element on a 16-byte boundary) as a group of
+    ``threads`` threads takes them: thread t sums pieces t, t + threads, ...
+    in element order, then the shuffle tree and the warps in order."""
+    e = 16 // itemsize
+    starts = torch.as_tensor(starts)
+    lens = torch.clamp(torch.minimum(torch.full_like(starts, length),
+                                     hw - starts % hw), min=0)
+    lead = starts % e
+    pieces = int(((lead + lens + e - 1) // e).max())
+    steps = -(-pieces // threads)
+    j = torch.arange(steps * threads * e).view(1, -1)
+    idx = (starts - lead).view(-1, 1) + j
+    inside = (j - lead.view(-1, 1) >= 0) & (j - lead.view(-1, 1) < lens.view(-1, 1))
+    vals = torch.where(inside, data[idx.clamp(max=data.numel() - 1)], torch.zeros(()))
+    vals = vals.view(-1, steps, threads, e)
+    s1 = torch.zeros(vals.shape[0], threads)
+    s2 = torch.zeros(vals.shape[0], threads, dtype=torch.float64)
+    for step in range(steps):
+        for k in range(e):
+            v = vals[:, step, :, k]
+            s1 = s1 + v
+            s2 = (s2 + v.double() * v.double()).float().double()  # fmaf(v, v, s2)
+    s2 = s2.float()
+    lanes = torch.arange(32)
+    s1, s2 = s1.view(-1, threads // 32, 32), s2.view(-1, threads // 32, 32)
+    for m in (16, 8, 4, 2, 1):
+        s1, s2 = s1 + s1[..., lanes ^ m], s2 + s2[..., lanes ^ m]
+    t1, t2 = torch.zeros(s1.shape[0]), torch.zeros(s1.shape[0])
+    for w in range(threads // 32):
+        t1, t2 = t1 + s1[:, w, 0], t2 + s2[:, w, 0]
+    return t1, t2
+
+
+def _k2_schedule(x, weight, bias, act, slope=0.1, eps=1e-5, clamp=True):
+    """K2's schedule on the CPU; with clamp=False the variance is not
+    clamped at 0, as the JAX Pallas ``_forward`` leaves it."""
+    n, c, h, w = x.shape
+    hw, planes = h * w, n * c
+    plan = na._plan(hw, x.element_size())
+    if plan.route == "cluster" and plan.planes_per_block > 1:
+        threads, ranks, length = 256 // plan.planes_per_block, 1, hw
+    else:
+        threads, ranks, length = 256, plan.cluster, plan.slice
+    starts = [p * hw + r * length for p in range(planes) for r in range(ranks)]
+    s1, s2 = _k2_sums(x.float().reshape(-1), starts, length, hw, threads, x.element_size())
+    t1, t2 = torch.zeros(planes), torch.zeros(planes)
+    for r in range(ranks):  # the ranks (or chunks) in order
+        t1, t2 = t1 + s1.view(planes, ranks)[:, r], t2 + s2.view(planes, ranks)[:, r]
+    count = torch.tensor(float(hw))
+    mean = t1 / count
+    var = t2 / count - mean * mean
+    if clamp:
+        var = torch.clamp_min(var, 0.0)
+    a = torch.rsqrt(var + eps)
+    beta = torch.zeros(planes)
+    if weight is not None:
+        a = a * weight.float().repeat(n)
+        beta = bias.float().repeat(n)
+    xm = x.float().reshape(planes, hw) - mean[:, None]
+    y = (a.double()[:, None] * xm.double() + beta.double()[:, None]).float()
+    return na._act(y, act, slope).to(x.dtype).view(x.shape)
+
+
+def _k2_case(seed, shape, dtype, affine=True):
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy((rs.randn(*shape) * 2 + 1).astype(np.float32)).to(dtype)
+    if not affine:
+        return x, None, None
+    w = torch.from_numpy(rs.randn(shape[1]).astype(np.float32))
+    b = torch.from_numpy(rs.randn(shape[1]).astype(np.float32))
+    return x, w, b
+
+
+def _within(got, want, dtype):
+    atol, rtol = K2_TOL[dtype]
+    return float(((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,act,affine", [
+    *[((1, min(c, 4), h, h), "LeakyReLU", True) for c, h in DECODER_NORMS],
+    ((3, 5, 37, 41), "ReLU", True),      # odd hw: small planes off 16-byte boundaries
+    ((1, 3, 129, 257), "none", False),   # odd hw: sliced over a cluster
+    ((1, 1, 1024, 1024), "LeakyReLU", True),  # two_pass
+])
+def test_k2_schedule_meets_gate(shape, act, affine, dtype):
+    """The one-read schedule (and the two-pass route's chunks) within the
+    card's gates of the plain version, at the flagship decoder norms' plane
+    sizes (batch and channels cut) and at ragged ones."""
+    x, w, b = _k2_case(4, shape, dtype, affine)
+    used = _within(_k2_schedule(x, w, b, act), na.instance_norm_act_plain(x, w, b, act), dtype)
+    assert used <= 1.0, used
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 32, 32), (1, 2, 256, 256), (1, 1, 1024, 1024)])
+def test_k2_schedule_constant_plane_gives_zeros(shape, dtype):
+    """A plane whose values all equal its mean: zeros, finite, as the plain
+    version gives, on the small-plane, cluster and two-pass cuts."""
+    x = torch.full(shape, 1.5, dtype=dtype)
+    y = _k2_schedule(x, None, None, "LeakyReLU")
+    assert bool(torch.isfinite(y).all()) and bool((y == 0).all())
+    assert torch.equal(y, na.instance_norm_act_plain(x, None, None, "LeakyReLU"))
+
+
+def test_k2_schedule_clamps_the_variance():
+    """The kernel's finish clamps the variance at 0, as
+    ``instance_norm_act_reference`` does and the JAX Pallas ``_forward``
+    does not: on a constant f32 plane of 1000.1 the f32 sums leave
+    E[x^2] - mean^2 below -eps, so without the clamp rsqrt gives NaN; with it
+    the output is finite, as the plain version's is. (Neither is zero: each
+    side's rounding of the mean is scaled by rsqrt(eps), so the two are not
+    held to the gate on such a plane.)"""
+    x = torch.full((1, 2, 37, 41), 1000.1)
+    assert bool(torch.isnan(_k2_schedule(x, None, None, "none", clamp=False)).all())
+    assert bool(torch.isfinite(_k2_schedule(x, None, None, "none")).all())
+    assert bool(torch.isfinite(na.instance_norm_act_plain(x, None, None, "none")).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [1, 7, 1024, 1517, 4096, 4097, 16384, 16388, 33153, 65540,
+                                262144, 462816, 925632, 925696, 1048576])
+def test_k2_plan_covers_the_plane(hw, dtype):
+    """Every plan covers its plane exactly once in slices that start on
+    16-byte boundaries, fits the kernel's shared memory, and takes the
+    cluster route while 8 blocks can hold the plane."""
+    es = torch.empty((), dtype=dtype).element_size()
+    plan = na._plan(hw, es)
+    assert plan.cluster * plan.slice >= hw > (plan.cluster - 1) * plan.slice
+    if plan.route == "two_pass":
+        assert na._cap(-(-hw // 8), es) > na._SMEM and plan.planes_per_block == 1
+        return
+    assert plan.planes_per_block in (1, 2, 4, 8) and 1 <= plan.cluster <= 8
+    assert plan.planes_per_block == 1 or (plan.cluster == 1 and plan.slice == hw)
+    assert plan.planes_per_block * na._cap(plan.slice, es) <= na._SMEM
+    assert plan.cluster == 1 or plan.slice * es % 16 == 0
+
+
+def test_k2_routes_of_the_flagship():
+    """Every decoder norm of the flagship, config 5 and the f32 CLI takes the
+    cluster route; [2, 3, 1024, 1024] takes two_pass."""
+    for c, h in DECODER_NORMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert na.norm_act_route((16, c, h, h), dtype) == "cluster"
+    for dtype in (torch.float32, torch.bfloat16):
+        assert na.norm_act_route((2, 3, 1024, 1024), dtype) == "two_pass"
+
+
+# ---------------------------------------------------------------------------
+# K3 "mma_sync" (csrc/output_head.cu ``output_head_mma_kernel``): act(h + s)
+# staged in bf16 with act_sum's roundings (h + s rounded, then the slope's
+# product rounded), a one-pixel reflected halo, the weights as the wrapper's
+# ``_weights_mma`` packs them (bf16, co padded to 8, C to 16), per 16-channel
+# chunk and per tap the products summed into f32, bias and tanh in f32, each
+# f x f cell summed in row-major order, times 1 / f^2, rounded once. Held to
+# output_head_plain at the bf16 gate; the negative control stages a zero
+# halo and misses the gate on the border.
+# ---------------------------------------------------------------------------
+
+
+def _k3_mma(h, s, weight, bias, act, pool, halo="reflect"):
+    n, c, height, width = h.shape
+    co = weight.shape[0]
+    a = (h.float() + s.float()).to(torch.bfloat16).float()
+    neg = (a * 0.1).to(torch.bfloat16).float() if act == "LeakyReLU" else torch.zeros_like(a)
+    a = torch.where(a >= 0, a, neg)
+    a = F.pad(a, (1, 1, 1, 1), mode=halo) if halo == "reflect" else F.pad(a, (1, 1, 1, 1))
+    c_pad = -(-c // 16) * 16
+    a = F.pad(a, (0, 0, 0, 0, 0, c_pad - c))
+    wm = oh._weights_mma(weight, c_pad).float()
+    acc = torch.zeros(n, 8, height, width)
+    for c0 in range(0, c_pad, 16):
+        for tap in range(9):
+            ky, kx = divmod(tap, 3)
+            acc = acc + torch.einsum("nchw,co->nohw",
+                                     a[:, c0:c0 + 16, ky:ky + height, kx:kx + width],
+                                     wm[tap, c0:c0 + 16])
+    y = torch.tanh(acc[:, :co] + bias.float()[None, :, None, None])
+    total = torch.zeros(n, co, height // pool, width // pool)
+    for i in range(pool):
+        for j in range(pool):
+            total = total + y[:, :, i::pool, j::pool]
+    return (total * (1.0 / (pool * pool))).to(torch.bfloat16)
+
+
+def _k3_case(seed, shape, co):
+    rs = np.random.RandomState(seed)
+    c = shape[1]
+    h = torch.from_numpy((rs.randn(*shape) * 2).astype(np.float32)).to(torch.bfloat16)
+    s = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rs.randn(co, c, 3, 3) / (3 * c ** 0.5)).astype(np.float32))
+    b = torch.from_numpy((rs.randn(co) * 0.1).astype(np.float32))
+    return h, s, w, b
+
+
+@pytest.mark.parametrize("act", ["LeakyReLU", "ReLU"])
+@pytest.mark.parametrize("shape,co,pool", [
+    ((2, 32, 32, 64), 3, 4),   # the flagship head, cut in batch and size
+    ((2, 20, 24, 72), 3, 2), ((1, 37, 16, 64), 4, 1), ((1, 5, 64, 64), 1, 32),
+    ((1, 7, 8, 8), 2, 8),
+])
+def test_k3_mma_schedule_meets_bf16_gate(shape, co, pool, act):
+    h, s, w, b = _k3_case(5, shape, co)
+    assert oh.output_head_route(shape, torch.bfloat16, pool) == "mma_sync"
+    used = _within(_k3_mma(h, s, w, b, act, pool), oh.output_head_plain(h, s, w, b, act, pool),
+                   torch.bfloat16)
+    assert used <= 1.0, used
+
+
+def test_k3_zero_halo_misses_the_gate_at_the_border():
+    """The negative control: a zero halo in place of the reflection leaves
+    the bf16 gate, and only on the image's border pixels."""
+    h, s, w, b = _k3_case(6, (1, 16, 24, 32), 3)
+    want = oh.output_head_plain(h, s, w, b, "LeakyReLU", 1).float()
+    atol, rtol = K2_TOL[torch.bfloat16]
+    out = (_k3_mma(h, s, w, b, "LeakyReLU", 1, halo="zeros").float() - want).abs() > \
+        atol + rtol * want.abs()
+    border = torch.ones(24, 32, dtype=torch.bool)
+    border[1:-1, 1:-1] = False
+    assert bool(out.any()) and not bool((out & ~border).any())
+    assert _within(_k3_mma(h, s, w, b, "LeakyReLU", 1), want, torch.bfloat16) <= 1.0
+
+
+def test_k3_routes():
+    """bf16 with W % 8 == 0, aligned maps and f a power of two up to 32 takes
+    the tensor cores; float32, ragged W, misaligned maps, f = 3 and f = 64
+    keep the CUDA-core kernel."""
+    route, bf = oh.output_head_route, torch.bfloat16
+    assert route((16, 32, 1024, 1024), bf, 4) == "mma_sync"
+    assert all(route((1, 3, 64, 64), bf, f) == "mma_sync" for f in (1, 2, 4, 8, 16, 32))
+    assert route((16, 32, 1024, 1024), torch.float32, 4) == "cuda_cores"
+    assert route((2, 5, 36, 44), bf, 2) == route((1, 3, 48, 48), bf, 3) == "cuda_cores"
+    assert route((1, 3, 128, 192), bf, 64) == "cuda_cores"
+    assert route((1, 3, 16, 64), bf, 1, aligned=False) == "cuda_cores"

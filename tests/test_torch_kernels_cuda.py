@@ -3,7 +3,9 @@ their plain versions on an NVIDIA GPU, on each of their routes (K1: the
 warpgroup kernel in bf16, the split-precision (3xTF32) kernel in f32 and the
 CUDA-core kernel; K5: tensor cores in bf16, split precision in f32 and CUDA
 cores; K4a and K4b: tensor cores and CUDA cores, and K4b's split-precision
-kernel in f32), with each route's choice by dtype, shape and alignment.
+kernel in f32; K2: one read a plane in a group of warps or a thread-block
+cluster, and two passes; K3: tensor cores in bf16 and CUDA cores), with
+each route's choice by dtype, shape and alignment.
 Marked ``cuda``: they skip where torch.cuda.is_available() is False (the
 decision is taken in a fixture, at run time). Run on the card, where JAX need
 not be installed, with
@@ -37,6 +39,9 @@ The f32 sums of y and y^2 that K4a and K4b return are held to rtol 1e-4
 (f32) and 1e-3 (bf16), with an atol of rtol times the largest sum: the two
 sides add the same f32 values in another order.
 """
+
+import ctypes
+import math
 
 import pytest
 import torch
@@ -330,10 +335,103 @@ def test_norm_act_kernel_matches_plain(cuda, dtype, act, affine):
     _assert_close(y, na.instance_norm_act_plain(x, w, b, act), dtype)
 
 
+def _norm_act_edges(dtype):
+    """(plane size hw, route, cluster size, planes a block) at and just past
+    each capacity edge of K2's plan, for the dtype's element size: the small
+    planes' block budget, the largest small plane, each cluster size's 64 KB
+    a block and the largest plane a cluster of 8 holds."""
+    es = torch.empty((), dtype=dtype).element_size()
+    per = 16 // es                            # a slice starts on a 16-byte boundary
+    eight = (48 * 1024 // 8 - 16) // es       # eight small planes a block, at most
+    small = 16 * 1024 // es                   # the largest small plane
+    biggest = 8 * ((226 * 1024 - 16) // 16 * 16) // es
+    return [(eight, "cluster", 1, 8), (eight + 1, "cluster", 1, 4), (small, "cluster", 1, 2),
+            (small + 1, "cluster", 1, 1), (64 * 1024 // es, "cluster", 1, 1),
+            (64 * 1024 // es + per, "cluster", 2, 1), (128 * 1024 // es, "cluster", 2, 1),
+            (128 * 1024 // es + 1, "cluster", 4, 1), (256 * 1024 // es, "cluster", 4, 1),
+            (256 * 1024 // es + per, "cluster", 8, 1), (biggest, "cluster", 8, 1),
+            (biggest + 8 * per, "two_pass", -(-(biggest + 8 * per) // 16384), 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", range(12))
+@pytest.mark.parametrize("offset", [0, 1])
+def test_norm_act_routes_at_capacity_edges(cuda, dtype, edge, offset):
+    """Each route and cluster size at and just past its edge (the plan
+    asserted), on maps that start on a 16-byte boundary (one bulk copy a
+    slice where the plane size keeps slices aligned) and one element off it
+    (the covering pieces, element stores); 15 planes, so the last block of
+    small planes is partly empty."""
+    hw, route, cluster, ppb = _norm_act_edges(dtype)[edge]
+    shape = (3, 5, 1, hw) if ppb > 1 else (1, 3, 1, hw)
+    assert na.norm_act_route(shape, dtype) == route
+    plan = na._plan(hw, torch.empty((), dtype=dtype).element_size())
+    assert (plan.route, plan.cluster, plan.planes_per_block) == (route, cluster, ppb)
+    flat = torch.randn(math.prod(shape) + offset, device="cuda", generator=cuda) * 2 + 1
+    x = flat.to(dtype)[offset:].view(shape)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    w = torch.randn(shape[1], device="cuda", generator=cuda)
+    b = torch.randn(shape[1], device="cuda", generator=cuda)
+    before = na.instance_norm_act.launches
+    y = na.instance_norm_act(x, w, b, "LeakyReLU")
+    torch.cuda.synchronize()
+    assert na.instance_norm_act.launches == before + 1
+    _assert_close(y, na.instance_norm_act_plain(x, w, b, "LeakyReLU"), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["LeakyReLU", "ReLU", "none"])
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("shape", [
+    (2, 7, 33, 33),         # odd hw: small planes, slices off 16-byte boundaries
+    (1, 3, 129, 257),       # odd hw: a cluster of 2 (bf16) or 4 (f32)
+    (2, 3, 512, 512),       # the flagship's largest planes: a cluster of 8
+    (1, 2, 1024, 1024),     # two_pass
+])
+def test_norm_act_kernel_matches_plain_on_each_route(cuda, dtype, act, affine, shape):
+    x = (torch.randn(shape, device="cuda", generator=cuda) * 2 + 1).to(dtype)
+    w = torch.randn(shape[1], device="cuda", generator=cuda) if affine else None
+    b = torch.randn(shape[1], device="cuda", generator=cuda) if affine else None
+    before = na.instance_norm_act.launches
+    y = na.instance_norm_act(x, w, b, act)
+    torch.cuda.synchronize()
+    assert na.instance_norm_act.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    _assert_close(y, na.instance_norm_act_plain(x, w, b, act), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5, 32, 32), (1, 2, 512, 512), (1, 1, 1024, 1024)])
+def test_norm_act_constant_plane_gives_zeros(cuda, dtype, shape):
+    """A plane whose values all equal its mean: var 0 (clamped, never
+    negative), finite zeros on every route."""
+    x = torch.full(shape, 1.5, device="cuda", dtype=dtype)
+    y = na.instance_norm_act(x, None, None, "LeakyReLU")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool((y == 0).all())
+    _assert_close(y, na.instance_norm_act_plain(x, None, None, "LeakyReLU"), dtype)
+
+
+def test_norm_act_routes(cuda):
+    """Every flagship, config-5 and f32 CLI norm takes the cluster route;
+    1024^2 planes take two_pass; other dtypes and ranks raise."""
+    for c, h in [(256, 32), (256, 64), (256, 128), (128, 256), (64, 512), (32, 512)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert na.norm_act_route((16, c, h, h), dtype) == "cluster"
+    assert na.norm_act_route((2, 3, 1024, 1024), torch.bfloat16) == "two_pass"
+    assert na.norm_act_route((2, 3, 1024, 1024), torch.float32) == "two_pass"
+    with pytest.raises(TypeError):
+        na.norm_act_route((1, 2, 8, 8), torch.float16)
+    with pytest.raises(ValueError):
+        na.norm_act_route((2, 8, 8), torch.float32)
+
+
 def test_norm_act_kernel_rejects_non_contiguous(cuda):
     x = torch.randn(2, 4, 8, 8, device="cuda").transpose(2, 3)
     with pytest.raises(ValueError):
         na.instance_norm_act(x, None, None)
+    with pytest.raises(TypeError):
+        na.instance_norm_act(torch.randn(2, 4, 8, 8, device="cuda").half(), None, None)
 
 
 def _head_inputs(gen, shape, co, dtype):
@@ -360,6 +458,54 @@ def test_output_head_kernel_matches_plain(cuda, dtype, shape, co, pool, act):
     assert oh.output_head.launches == before + 1
     assert y.dtype == dtype and y.shape == (shape[0], co, shape[2] // pool, shape[3] // pool)
     _assert_close(y, oh.output_head_plain(h, s, w, b, act, pool), dtype)
+
+
+@pytest.mark.parametrize("act", ["LeakyReLU", "ReLU"])
+@pytest.mark.parametrize("co", [1, 2, 4])
+@pytest.mark.parametrize("shape,pool", [
+    ((2, 20, 24, 64), 1), ((2, 20, 24, 72), 2), ((1, 5, 40, 72), 8), ((2, 20, 96, 64), 32),
+    ((1, 37, 16, 64), 4),
+])
+def test_output_head_mma_route_matches_plain(cuda, shape, pool, co, act):
+    """The tensor-core route at ragged shapes: C off the 16-channel chunk,
+    H off the 16- and 32-row tiles, W = 72 (a 64-column tile and an 8-column
+    one, whose right halo is column W reflected), co of 1, 2 and 4, f of 1,
+    2, 4, 8 and 32 (the 32-row tile)."""
+    h, s, w, b = _head_inputs(cuda, shape, co, torch.bfloat16)
+    assert oh.output_head_route(h.shape, h.dtype, pool) == "mma_sync"
+    before = oh.output_head.launches
+    y = oh.output_head(h, s, w, b, act, pool)
+    torch.cuda.synchronize()
+    assert oh.output_head.launches == before + 1
+    assert y.shape == (shape[0], co, shape[2] // pool, shape[3] // pool)
+    _assert_close(y, oh.output_head_plain(h, s, w, b, act, pool), torch.bfloat16)
+
+
+def test_output_head_routes(cuda):
+    """bf16 with W % 8 == 0, 16-byte aligned maps and f a power of two up to
+    32 takes the tensor cores; float32, other widths, misaligned maps, f = 3
+    and f = 64 take the CUDA cores, and each still matches its plain version."""
+    route = oh.output_head_route
+    bf, f32 = torch.bfloat16, torch.float32
+    assert route((16, 32, 1024, 1024), bf, 4) == "mma_sync"               # the flagship
+    assert route((16, 32, 1024, 1024), f32, 4) == "cuda_cores"
+    assert route((2, 5, 36, 44), bf, 2) == route((1, 3, 48, 48), bf, 3) == "cuda_cores"
+    assert route((1, 3, 128, 192), bf, 64) == "cuda_cores"
+    assert route((1, 3, 16, 64), bf, 1, aligned=False) == "cuda_cores"
+    lib = oh.build.load("output_head")
+    for name, expect in (("mma_sync", 1), ("cuda_cores", 0)):
+        shape = (1, 3, 16, 64)
+        flat = torch.randn(math.prod(shape) + 1, device="cuda", generator=cuda).to(bf)
+        h = flat[1 - expect:][:math.prod(shape)].view(shape)  # 0: one element off 16 bytes
+        s = torch.randn(shape, device="cuda", generator=cuda).to(bf)
+        aligned = h.data_ptr() % 16 == 0 and s.data_ptr() % 16 == 0
+        assert route(shape, bf, 2, aligned) == name
+        assert lib.fmi_output_head_route(1, ctypes.c_void_p(h.data_ptr()),
+                                         ctypes.c_void_p(s.data_ptr()), 64, 2) == expect
+        w = torch.randn(3, 3, 3, 3, device="cuda", generator=cuda) / 5
+        b = torch.randn(3, device="cuda", generator=cuda) * 0.1
+        _assert_close(oh.output_head(h, s, w, b, "ReLU", 2),
+                      oh.output_head_plain(h, s, w, b, "ReLU", 2), bf)
 
 
 def test_output_head_kernel_rejects_bad_input(cuda):
