@@ -12,8 +12,10 @@ fused tail, kernels K4b and K4a, and K3 does not run); and the Stack A GAN
 training step of ``train_reference_fill.py`` at BASELINE config 5 (kernels
 K1, K5 and K2); pSp -> StyleGAN2 inference at BASELINE config 4 (K6, K7a);
 and the pSp training step of ``train_psp.py`` at config 4 (K6 in both
-directions, K7a, K7b). Each path runs with the launch counts set to 0 just before
-it and read just after. Phases:
+directions, K7a, K7b); and the paths that run no TPU kernel: the UNet mask
+detector's training of ``train_mask_detector.py``, the CLIs' reference
+checkpoints and FID with ``test_evaluate.py``. Each path runs with the launch
+counts set to 0 just before it and read just after. Phases:
 
 1. build the CUDA kernels from the sources in the checkout (set-up time);
 2. hold each kernel against its plain PyTorch version on the card, at the
@@ -124,7 +126,30 @@ it and read just after. Phases:
    ``skipped_nonfinite`` 0, the step time (CUDA events, median and quartiles
    of STEP_ROUNDS steps after two warm-up), its peak device memory and a
    ``torch.profiler`` window (device-busy share), which must show K6's
-   fused kernel and not the two-pass one it replaced.
+   fused kernel and not the two-pass one it replaced;
+10. Stack C training (the path of ``train_mask_detector.py``), no TPU
+   kernel: MaskDetector(3, bilinear) at 256^2, batch 16, in float32 (TF32
+   off) and with ``--amp`` (bf16 compute): finite losses, the step time
+   (CUDA events, median and quartiles of STEP_ROUNDS steps after two
+   warm-up) and peak memory; at batch 2 and 64^2 with cuDNN's
+   deterministic algorithms, the card step's gradients, batch statistics
+   and loss in float64 against the same step on the CPU, to phase 7's
+   gate, and its float32 gradients no further from the float64 step than
+   twice the CPU's float32 ones (this step's float32 gradients miss the
+   gate against float64 on any device: PERF.md, PR 14); then
+   ``cli/train_mask_detector.main`` for one epoch on a seeded synthetic
+   tree, its ``--load`` a reference-layout ``.pth`` written from the seeded
+   UNet through UNET_REFERENCE_KEYS, the loaded weights equal to the
+   seeded ones bit for bit;
+11. reference checkpoints and FID, no TPU kernel: the flagship CLI's
+   ``build_models`` with that ``.pth`` as ``--mask_detector_path``
+   (``infer_batch``'s mask equal to the seeded detector's); InceptionV3 at
+   299^2, batch 8, float32, timed, two images' activations against the
+   CPU; ``cli/test_evaluate.main`` on the card over a seeded folder of 16
+   generated and ground-truth images, its ``metrics.csv`` with finite ssim,
+   ms_ssim and fid. Phases 10 and 11 write their data under
+   ``build/chip_smoke_data`` and remove it; K1-K7 launch no time in them
+   (``infer_batch``, the flagship path, launches its own kernels once).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -139,10 +164,12 @@ import contextlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 FLAGSHIP_ENC = dict(type="pluralistic", ngf=32, z_nc=128, img_f=128, L=6, layers=5,
                     norm="none", activation="LeakyReLU", init_type="orthogonal")
@@ -221,6 +248,36 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # phase 7's f32 gradient check: max |kernel path - plain path| <= tol *
 # max |plain| per tensor + floor * the network's largest gradient entry
 GRAD_TOL, GRAD_FLOOR = 1e-3, 1e-5
+
+# Stack C (phase 10): the mask detector's trainer at 256^2, batch 16, as the
+# JAX CLI's checkpoints256_mask_detector data and the flagship detector's
+# input; its gradients, batch statistics and loss on the card against the
+# same step on the CPU at batch 2 and 64^2 (the UNet's widths are fixed, so
+# 64^2 cuts only the CPU's time): f64 to phase 7's per-tensor gate, f32 no
+# further from the f64 step than twice the CPU's f32
+UNET_HW, UNET_BATCH = 256, 16
+UNET_CHECK_HW, UNET_CHECK_BATCH = 64, 2
+# the trainer CLI's epoch: 48 images, 10% for validation, batch 4: 11 steps,
+# each followed by a validation round
+UNET_CLI_IMAGES, UNET_CLI_BATCH = 48, 4
+# phase 11: InceptionV3 at 299^2, batch 8, f32; two images' activations on the
+# card against the CPU, max |card - cpu| <= tol * max |cpu|
+INCEPTION_BATCH, INCEPTION_TOL = 8, 1e-4
+# test_evaluate's folder: 16 generated 256^2 images and their 1024^2 ground
+# truths (the CLI reads them at --gt_scale 0.25)
+EVAL_IMAGES = 16
+# where phases 10 and 11 write their data trees, inside the (ignored) build/
+SMOKE_DATA = "build/chip_smoke_data"
+# the reference layout of the UNet's keys (modules/unet/unet_parts.py):
+# port -> reference, applied in order
+UNET_REFERENCE_KEYS = [
+    (r"^model\.(down\d)\.conv\.", r"model.\1.maxpool_conv.1.double_conv."),
+    (r"^model\.(up\d)\.conv\.", r"model.\1.conv.double_conv."),
+    (r"^model\.inc\.", "model.inc.double_conv."),
+    (r"double_conv\.conv1\.", "double_conv.0."), (r"double_conv\.bn1\.", "double_conv.1."),
+    (r"double_conv\.conv2\.", "double_conv.3."), (r"double_conv\.bn2\.", "double_conv.4."),
+    (r"^model\.outc\.", "model.outc.conv."),
+]
 
 KERNELS = {
     "flash_attention_fwd": dict(
@@ -1983,6 +2040,324 @@ def phase_psp_train(run: Run, seed: int, card: str) -> dict:
     return launches
 
 
+# -- Stack C training, reference checkpoints and FID: no TPU kernel ----------
+
+def _no_launches(run: Run, what: str) -> None:
+    launches = _counts()
+    run.check(not any(launches.values()), f"{what} launches none of K1-K7: {launches}")
+
+
+def unet_reference_state_dict(detector) -> dict:
+    """The reference mask detector's layout (a ``model.``-prefixed UNet of
+    unet_parts.py's Sequential indices) of the port detector's state dict,
+    through UNET_REFERENCE_KEYS; torch's ``num_batches_tracked`` added."""
+    import torch
+
+    out = {}
+    for key, value in detector.state_dict().items():
+        name = key
+        for pat, rep in UNET_REFERENCE_KEYS:
+            name = re.sub(pat, rep, name)
+        out[name] = value.detach().cpu().clone()
+        if name.endswith("running_var"):
+            out[name[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def _unet_batch(gen, n: int, hw: int, device):
+    """Seeded images in [0, 1] and labels of one random rectangle each."""
+    import torch
+
+    image = torch.rand(n, hw, hw, 3, device=device, generator=gen)
+    mask = torch.zeros(n, hw, hw, dtype=torch.long, device=device)
+    corner = torch.randint(0, hw // 2, (n, 2), device=device, generator=gen).tolist()
+    for i, (y, x) in enumerate(corner):
+        mask[i, y:y + hw // 2, x:x + hw // 4] = 1
+    return {"image": image, "mask": mask}
+
+
+def _write_unet_tree(root, n: int, hw: int, seed: int) -> tuple[str, str]:
+    """``<id>_surgical.jpg`` images and ``<id>.npy`` masks, the layout of
+    the JAX CLI's images_masked / binary_map folders."""
+    import numpy as np
+    from PIL import Image
+
+    img_dir, mask_dir = root / "images_masked", root / "binary_map"
+    img_dir.mkdir(parents=True)
+    mask_dir.mkdir()
+    rs = np.random.RandomState(seed)
+    for i in range(n):
+        img = rs.randint(0, 256, (hw, hw, 3)).astype(np.uint8)
+        mask = np.zeros((hw, hw), np.uint8)
+        y, x = rs.randint(0, hw // 2, 2)
+        mask[y:y + hw // 2, x:x + hw // 4] = 1
+        img[mask.astype(bool)] = (80, 120, 200)
+        Image.fromarray(img).save(img_dir / f"{i:06d}_surgical.jpg")
+        np.save(mask_dir / f"{i:06d}.npy", mask)
+    return str(img_dir), str(mask_dir)
+
+
+def phase_unet_train(run: Run, seed: int, card: str, workdir) -> tuple[str, dict]:
+    """Stack C (the path of ``train_mask_detector.py``): MaskDetector(3,
+    bilinear) at 256^2, batch 16, in f32 and with ``--amp``: finite losses,
+    the step time and peak memory; at batch 2 and 64^2 the card step's
+    gradients, batch statistics and loss against the CPU's (f64 to the
+    gate, f32 no further from f64 than twice the CPU's f32); the
+    trainer CLI for one epoch from a reference ``--load`` written from the
+    seeded UNet. Returns that file and the seeded detector's state dict."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.cli import train_mask_detector as cli
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+    from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
+    from face_mask_inpaint_tpu_torch.train.optim import adam
+    from face_mask_inpaint_tpu_torch.train.unet import make_unet_train_step
+
+    t_phase = time.perf_counter()
+    data = torch.Generator(device="cuda").manual_seed(seed + 21)
+    # (a) full width, batch 16, f32 and bf16 compute (--amp)
+    for amp in (False, True):
+        dtype = torch.bfloat16 if amp else torch.float32
+        model = MaskDetector(dtype=dtype, generator=torch.Generator().manual_seed(seed)).cuda()
+        step = make_unet_train_step(model, adam(model.parameters(), 1e-5))
+        batches = [_unet_batch(data, UNET_BATCH, UNET_HW, "cuda") for _ in range(3)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, times = [], []
+        for i in range(2 + STEP_ROUNDS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(float(step(batches[i % len(batches)])["loss"]))
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(start.elapsed_time(end))
+        _no_launches(run, f"Stack C step ({'--amp' if amp else 'f32'})")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        q = statistics.quantiles(times, n=4)
+        run.check(all(math.isfinite(x) for x in losses),
+                  f"Stack C losses finite ({'--amp' if amp else 'f32'}): "
+                  f"{', '.join(f'{x:.4f}' for x in losses)}")
+        print(f"[unet] Stack C step, MaskDetector(3, bilinear) {UNET_HW}^2 batch {UNET_BATCH} "
+              f"{'bf16 compute (--amp)' if amp else 'f32 (TF32 off)'}, {STEP_ROUNDS} steps after "
+              f"2 warm-up: median {statistics.median(times):.2f} ms, quartiles {q[0]:.2f}-"
+              f"{q[2]:.2f}, range {min(times):.2f}-{max(times):.2f} "
+              f"({UNET_BATCH / statistics.median(times) * 1e3:.1f} images/s); peak device "
+              f"memory {peak:.2f} GiB, on {card}", flush=True)
+        del model, step, batches
+        torch.cuda.empty_cache()
+
+    # (b) the card's step against the same step on the CPU, batch 2 at 64^2,
+    # cuDNN's deterministic algorithms. This step's f32 gradients are
+    # ill-conditioned at init: the CPU's and the card's f32 steps miss phase
+    # 7's gate against the f64 step by 17x and 5x here, 40x both at 256^2,
+    # in some weight gradients (tools/unet_f32_drift.py). So the gate holds
+    # the card's f64 step against the CPU's f64 step (the same function),
+    # and the card's f32 step is held to be no further from the f64 step
+    # than twice the CPU's f32 step is
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        batch = _unet_batch(torch.Generator().manual_seed(seed + 22), UNET_CHECK_BATCH,
+                            UNET_CHECK_HW, "cpu")
+        results = {}
+        for device, dtype in (("cpu", torch.float64), ("cuda", torch.float64),
+                              ("cpu", torch.float32), ("cuda", torch.float32)):
+            model = MaskDetector(dtype=dtype, generator=torch.Generator().manual_seed(seed))
+            model = model.to(device, dtype)
+            loss = make_unet_train_step(model, adam(model.parameters(), 1e-5))(
+                {k: v.to(device, dtype) if v.is_floating_point() else v.to(device)
+                 for k, v in batch.items()})["loss"]
+            results[(device, dtype)] = (
+                float(loss), {n: p.grad.detach().cpu().double()
+                              for n, p in model.named_parameters()},
+                {n: b.detach().cpu().double() for n, b in model.named_buffers()})
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+    def used(got, want):
+        """The largest per-tensor share of phase 7's tolerance."""
+        floor = GRAD_FLOOR * max(float(w.abs().max()) for w in want.values())
+        return max(float((got[k] - w).abs().max()) / (GRAD_TOL * float(w.abs().max()) + floor)
+                   for k, w in want.items())
+
+    ref, card = results[("cpu", torch.float64)], results[("cuda", torch.float64)]
+    for part, idx in (("gradients", 1), ("batch statistics", 2)):
+        u = used(card[idx], ref[idx])
+        run.check(u <= 1.0, f"Stack C f64 step, batch {UNET_CHECK_BATCH} at {UNET_CHECK_HW}^2: "
+                            f"card vs CPU {part} ({len(ref[idx])} tensors): max_abs_err uses at "
+                            f"most {u:.3f} of its tolerance ({GRAD_TOL} * max|cpu| + "
+                            f"{GRAD_FLOOR} * the largest entry)")
+    run.check(abs(card[0] - ref[0]) <= GRAD_TOL * abs(ref[0]),
+              f"Stack C f64 loss, batch {UNET_CHECK_BATCH}: card {card[0]:.9f}, CPU {ref[0]:.9f}")
+    card32 = used(results[("cuda", torch.float32)][1], ref[1])
+    cpu32 = used(results[("cpu", torch.float32)][1], ref[1])
+    run.check(card32 <= 2 * cpu32, f"Stack C f32 step: the card's gradients use {card32:.3f} "
+                                   f"of the tolerance against the f64 step, the CPU's f32 "
+                                   f"{cpu32:.3f} (at most twice that)")
+
+    # (c) the trainer CLI: --load of a reference .pth, then one epoch
+    seeded = MaskDetector(generator=torch.Generator().manual_seed(seed))
+    ref_path = workdir / "mask_detector.pth"
+    torch.save(unet_reference_state_dict(seeded), ref_path)
+    img_dir, mask_dir = _write_unet_tree(workdir / "unet_tree", UNET_CLI_IMAGES, UNET_HW, seed)
+    flags = ["--device", "cuda", "--seed", str(seed), "--dir_img", img_dir,
+             "--dir_mask", mask_dir, "--batch-size", str(UNET_CLI_BATCH),
+             "--load", str(ref_path)]
+    reset_launch_counts()
+    loaded = cli.main([*flags, "--epochs", "0", "--dir_checkpoint", str(workdir / "ckpt0")])
+    same = all(torch.equal(v.cpu(), seeded.state_dict()[k])
+               for k, v in loaded.model.state_dict().items())
+    run.check(same, "train_mask_detector --load of the reference .pth gives the seeded UNet's "
+                    "weights bit for bit")
+    t0 = time.perf_counter()
+    trainer = cli.main([*flags, "--epochs", "1", "--dir_checkpoint", str(workdir / "ckpt")])
+    wall = time.perf_counter() - t0
+    _no_launches(run, "train_mask_detector")
+    recs = [json.loads(x) for x in (workdir / "ckpt" / "logs" / "metrics.jsonl")
+            .read_text().splitlines()]
+    losses = [r["train loss"] for r in recs if "train loss" in r]
+    dice = [r["validation Dice"] for r in recs if "validation Dice" in r]
+    n_train = UNET_CLI_IMAGES - UNET_CLI_IMAGES // 10
+    run.check(trainer.step == n_train // UNET_CLI_BATCH and len(losses) == trainer.step
+              and all(math.isfinite(x) for x in losses) and len(dice) == trainer.step
+              and all(0.0 <= d <= 1.0 for d in dice)
+              and (workdir / "ckpt" / "unet_checkpoint_epoch1").is_file(),
+              f"train_mask_detector one epoch: {trainer.step} steps, losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, validation Dice {dice[-1]:.4f}, "
+              f"checkpoint written")
+    print(f"[unet] train_mask_detector.main, one epoch of {n_train} images at batch "
+          f"{UNET_CLI_BATCH} with a validation round each step: {wall:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del loaded, trainer
+    torch.cuda.empty_cache()
+    return str(ref_path), seeded.state_dict()
+
+
+def _inception_reference_state_dict(model) -> dict:
+    """The torchvision ``inception_v3`` layout of the port model's state
+    dict: the same module names, with the keys the port does not keep
+    (``num_batches_tracked``, the ``fc`` head) added."""
+    import torch
+
+    out = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    for k in list(out):
+        if k.endswith("running_var"):
+            out[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    out["fc.weight"] = torch.zeros(1000, 2048)
+    out["fc.bias"] = torch.zeros(1000)
+    return out
+
+
+def phase_reference_fid(run: Run, seed: int, card: str, workdir, det_path: str,
+                        det_state: dict):
+    """Reference checkpoints and FID: the flagship CLI's build_models with a
+    reference ``--mask_detector_path`` (its infer_batch mask against the
+    seeded detector's); InceptionV3 at 299^2, batch 8, f32, timed, two
+    images against the CPU; ``cli/test_evaluate.main`` on the card over a
+    seeded folder of generated and ground-truth images."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from face_mask_inpaint_tpu_torch.cli import picnet_inference as picnet_cli
+    from face_mask_inpaint_tpu_torch.cli import test_evaluate as eval_cli
+    from face_mask_inpaint_tpu_torch.evaluations.fid import InceptionV3Features, get_activations
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+    from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
+
+    t_phase = time.perf_counter()
+    # (a) the flagship CLI reads the reference mask detector
+    reset_launch_counts()
+    args = picnet_cli.get_args(["--device", "cuda", "--seed", str(seed), "--decoder_img_f",
+                                "256", "--mask_detector_path", det_path, "--pt_ckpt_path", "",
+                                "--out_size", str(HW)])
+    detector, generator = picnet_cli.build_models(args, picnet_cli.resolve_device(args.device))
+    _no_launches(run, "picnet_inference.build_models with a reference mask detector")
+    loaded = all(torch.equal(v.cpu(), det_state[k]) for k, v in detector.state_dict().items())
+    seeded = MaskDetector().cuda()
+    seeded.load_state_dict(det_state, strict=True)
+    data = torch.Generator(device="cuda").manual_seed(seed + 31)
+    src = torch.rand(2, HW, HW, 3, device="cuda", generator=data)
+    ref = torch.rand(2, HW, HW, 3, device="cuda", generator=data)
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        reset_launch_counts()
+        _, mask = picnet_cli.make_infer_batch(detector, generator)(
+            src, ref, torch.Generator(device="cuda").manual_seed(seed))
+        flagship = _counts()
+        with torch.no_grad():
+            want = seeded.predict_mask(src)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    run.check(loaded and torch.equal(mask, want) and 0 < float(want.mean()) < 1,
+              f"picnet_inference.build_models: the reference .pth gives the seeded detector's "
+              f"weights, and infer_batch's mask equals the seeded detector's (mask mean "
+              f"{float(want.mean()):.4f}); infer_batch's own flagship launches {flagship}")
+    run.check(flagship == PER_FORWARD, f"that infer_batch launches the flagship's kernels "
+                                       f"once: {flagship}")
+    del detector, generator, seeded
+    torch.cuda.empty_cache()
+
+    # (b) InceptionV3: batch 8 timed, two images against the CPU
+    reset_launch_counts()
+    cpu_net = InceptionV3Features(torch.Generator().manual_seed(seed))
+    net = InceptionV3Features(torch.Generator().manual_seed(seed)).cuda()
+    images = torch.rand(INCEPTION_BATCH, 299, 299, 3, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(seed + 32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ms = _time_ms(lambda: net(images), 10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = get_activations(images[:2], 2, net)
+    want = get_activations(images[:2].cpu(), 2, cpu_net)
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    run.check(err <= INCEPTION_TOL * scale, f"InceptionV3 f32 (TF32 off), two images at "
+                                            f"299^2: card vs CPU max_abs_err {err:.3e} <= "
+                                            f"{INCEPTION_TOL} * {scale:.4f}")
+    _no_launches(run, "InceptionV3")
+    print(f"[fid] InceptionV3 forward, f32 (TF32 off) batch {INCEPTION_BATCH} at 299^2: "
+          f"median {ms:.2f} ms ({INCEPTION_BATCH / ms * 1e3:.1f} images/s), peak device memory "
+          f"{peak:.2f} GiB, on {card}", flush=True)
+    inception_path = workdir / "inception_v3.pth"
+    torch.save(_inception_reference_state_dict(cpu_net), inception_path)
+    del net, cpu_net, images
+    torch.cuda.empty_cache()
+
+    # (c) test_evaluate over a seeded folder
+    rs = np.random.RandomState(seed + 33)
+    gt_dir, gen_dir = workdir / "eval" / "images", workdir / "eval" / "test_results" / "run"
+    gt_dir.mkdir(parents=True)
+    gen_dir.mkdir(parents=True)
+    for i in range(EVAL_IMAGES):
+        base = rs.randint(0, 256, (HW, HW, 3)).astype(np.uint8)
+        Image.fromarray(base).resize((4 * HW, 4 * HW), Image.BICUBIC).save(
+            gt_dir / f"{i:06d}.jpg")
+        noisy = np.clip(base.astype(int) + rs.randint(-40, 40, base.shape), 0, 255)
+        Image.fromarray(noisy.astype(np.uint8)).save(gen_dir / f"gen_{i:06d}.jpg")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eval_cli.main(["--device", "cuda", "--data_root", str(workdir / "eval"),
+                             "--test_folder", str(gen_dir), "--inception_weights",
+                             str(inception_path)])
+    wall = time.perf_counter() - t0
+    _no_launches(run, "test_evaluate")
+    rows = (gen_dir / "metrics.csv").read_text().splitlines()
+    names, values = rows[0].split(","), [float(v) for v in rows[1].split(",")]
+    run.check(sorted(names) == ["fid", "ms_ssim", "ssim"] and all(map(math.isfinite, values))
+              and values == [results[n][0] for n in names],
+              f"test_evaluate metrics.csv: {dict(zip(names, values))}")
+    print(f"[fid] test_evaluate.main over {EVAL_IMAGES} images (ssim, ms_ssim, fid; the "
+          f"Fréchet distance of 2048-d statistics on the host): {wall:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s, on {card}", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2016,6 +2391,14 @@ def main(argv=None) -> int:
     phase_psp_timing(run, args.seed, PSP_ROUNDS, smi)
     phase_stackb_backward(run, args.seed, timings)
     psp_train_launches = phase_psp_train(run, args.seed, smi)
+    workdir = Path(SMOKE_DATA)
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        det_path, det_state = phase_unet_train(run, args.seed, smi, workdir)
+        phase_reference_fid(run, args.seed, smi, workdir, det_path, det_state)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:", file=sys.stderr)

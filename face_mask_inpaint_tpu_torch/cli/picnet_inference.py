@@ -9,9 +9,16 @@ generation, SSIM/MS-SSIM against the raw ground truth. Writes
 ``test_results/<run>/gen_<id>.jpg`` (and ``mask_<id>.jpg`` with
 ``--save_src_mask 1``) and ``metrics.csv`` with the dataset means.
 
-Checkpoints: a ``.pt`` holding this port's own state_dict loads; a missing
-path means random weights from ``--seed``. Orbax directories and ``.pth``
-conversion, the DRN encoder and ``--old_model`` are not ported yet and raise.
+Checkpoints go through the CLIs' loader (convert.py), which tells a file by
+its content: the port's own state_dict loads strictly; a reference
+checkpoint (``.pth`` or ``.pt``, as the JAX CLI reads both) converts as
+``PICNet_inference.py:98-131`` does it. The detector's variables are
+replaced whole by ``convert_unet`` (parameters and batch statistics); the
+generator merges ``convert_picnet_module``'s parameters by key and shape and
+keeps its own spectral ``u``/``v``, as the JAX CLI drops the checkpoint's. A
+missing path means random weights from ``--seed``; an Orbax directory and
+any other file raise. The DRN encoder and ``--old_model`` are not ported yet
+and raise.
 ``--use_best_reference 1`` takes each image's best-SSIM reference, scored on
 ``--device`` (or read from the dataset's cached map). ``--device`` defaults
 to cuda and fails when CUDA is absent; ``--device cpu`` runs on the CPU.
@@ -35,12 +42,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from face_mask_inpaint_tpu_torch.convert import load_checkpoint, read_checkpoint
 from face_mask_inpaint_tpu_torch.data.dataset import ReferenceDataset
 from face_mask_inpaint_tpu_torch.data.loader import DataLoader
 from face_mask_inpaint_tpu_torch.evaluations.ssim import ms_ssim, ssim
 from face_mask_inpaint_tpu_torch.models.reference_fill import ReferenceFill
 from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
+from face_mask_inpaint_tpu_torch.tools.convert_torch import convert_picnet_module, convert_unet
 from face_mask_inpaint_tpu_torch.utils.images import mask2im, tensor2im
+from face_mask_inpaint_tpu_torch.utils.metrics_logger import write_metrics_csv
 from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
 
 __all__ = ["get_args", "process_params", "build_models", "make_infer_batch", "main"]
@@ -114,33 +124,25 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _load_state(model: torch.nn.Module, path: str, what: str) -> None:
-    if not path:
-        return
-    p = Path(path)
-    if p.is_file() and p.suffix == ".pt":
-        model.load_state_dict(torch.load(p, map_location="cpu"), strict=True)
-        return
-    if p.exists():
-        raise NotImplementedError(
-            f"{what} checkpoint {path}: only a .pt of this port's state_dict loads; "
-            "orbax directories and .pth conversion are not ported yet")
-    logging.warning('%s checkpoint %s not found; using random init', what, path)
-
-
 def build_models(args, device: torch.device):
     """MaskDetector and ReferenceFill with weights from ``--seed`` or the
     checkpoints, on ``device``, in eval mode."""
     if args.old_model or args.encoder_type != 'pluralistic':
         raise NotImplementedError("--old_model and the DRN encoder are not ported yet")
+    det_state = read_checkpoint(args.mask_detector_path, 'mask detector')
+    gen_state = read_checkpoint(args.pt_ckpt_path, 'generator')
     encoder_params, decoder_params = process_params(args)
     decoder_params["packed_convt"] = os.environ.get("FMI_PACKED_CONVT") == "1"
     weights = torch.Generator().manual_seed(args.seed)
     detector = MaskDetector(n_channels=3, bilinear=True, generator=weights)
     generator = ReferenceFill(encoder_params, decoder_params, use_att=bool(args.use_att),
                               out_size=(args.out_size, args.out_size), generator=weights)
-    _load_state(detector, args.mask_detector_path, 'mask detector')
-    _load_state(generator, args.pt_ckpt_path, 'generator')
+    if det_state is not None:
+        load_checkpoint(detector, det_state, convert_unet, 'mask detector',
+                        args.mask_detector_path)
+    if gen_state is not None:
+        load_checkpoint(generator, gen_state, convert_picnet_module, 'generator',
+                        args.pt_ckpt_path, merge=('params',))
     return detector.to(device), generator.to(device)
 
 
@@ -159,8 +161,6 @@ def make_infer_batch(detector: MaskDetector, generator: ReferenceFill):
 
 
 def main(argv=None):
-    import pandas as pd
-
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format='%(levelname)s: %(message)s')
     device = resolve_device(args.device)
@@ -205,9 +205,7 @@ def main(argv=None):
 
     profiler.close()
     means = np.array(eval_results).mean(0)
-    df = pd.DataFrame({'ssim': [means[0]], 'ms_ssim': [means[1]]})
-    print(df)
-    df.to_csv(out_dir / 'metrics.csv', index=False)
+    write_metrics_csv(out_dir / 'metrics.csv', {'ssim': [means[0]], 'ms_ssim': [means[1]]})
 
 
 if __name__ == '__main__':

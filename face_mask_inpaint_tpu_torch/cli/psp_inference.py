@@ -12,10 +12,15 @@ the raw ground truth. Writes ``test_results/<run>/gen_<id>.jpg`` (and
 ``mask_<id>.jpg`` with ``--save_src_mask 1``) and ``metrics.csv`` with the
 dataset means.
 
-Checkpoints: a ``.pt`` holding this port's own state_dict loads strictly; a
-missing path warns and uses random weights from ``--seed``; a reference
-``.pth`` (or any other existing path) raises, as its key map is not ported
-yet. ``--split_jit`` is accepted for script compatibility and has no effect:
+Checkpoints go through the CLIs' loader (convert.py), which reads each file
+before a model is built and tells it by its content: the port's own
+state_dict loads strictly; a reference ``mask_detector.pth`` converts with
+``convert_unet`` and replaces the detector's variables; a reference pSp
+checkpoint (``.pt`` or ``.pth``) converts with ``convert_psp`` and merges by
+key and shape, parameters, batch statistics, noises and the latent average,
+as ``psp_inference.py:107-127`` does; a missing path warns and uses random
+weights from ``--seed``; an Orbax directory or any other file raises.
+``--split_jit`` is accepted for script compatibility and has no effect:
 there is no jit under eager PyTorch. ``--device`` defaults to cuda and fails
 when CUDA is absent; ``--device cpu`` runs on the CPU. The models are built
 on ``--device``, their random weights drawn there.
@@ -35,16 +40,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from face_mask_inpaint_tpu_torch.cli.picnet_inference import _load_state, resolve_device
+from face_mask_inpaint_tpu_torch.cli.picnet_inference import resolve_device
+from face_mask_inpaint_tpu_torch.convert import load_checkpoint, read_checkpoint
 from face_mask_inpaint_tpu_torch.data.dataset import ReferenceDataset
 from face_mask_inpaint_tpu_torch.data.loader import DataLoader
 from face_mask_inpaint_tpu_torch.evaluations.ssim import ms_ssim, ssim
 from face_mask_inpaint_tpu_torch.models.psp import PSP
 from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
+from face_mask_inpaint_tpu_torch.nn.layers import init_weights
+from face_mask_inpaint_tpu_torch.tools.convert_torch import convert_psp, convert_unet
 from face_mask_inpaint_tpu_torch.utils.images import mask2im, tensor2im
+from face_mask_inpaint_tpu_torch.utils.metrics_logger import write_metrics_csv
 from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
 
-__all__ = ["get_args", "check_checkpoint", "build_models", "make_infer_batch", "main"]
+__all__ = ["get_args", "build_models", "make_infer_batch", "main"]
 
 
 def get_args(argv=None):
@@ -93,34 +102,30 @@ def get_args(argv=None):
     return args
 
 
-def check_checkpoint(path: str, what: str) -> None:
-    """Raise, before anything is built, for a checkpoint that would not load:
-    an existing path that is not a ``.pt`` file (a reference ``.pth``, an
-    orbax directory)."""
-    p = Path(path) if path else None
-    if p is not None and p.exists() and not (p.is_file() and p.suffix == ".pt"):
-        raise NotImplementedError(
-            f"{what} checkpoint {path}: only a .pt of this port's state_dict loads; the "
-            "reference .pth key map and orbax directories are not ported yet")
-
-
 def build_models(args, device: torch.device):
     """MaskDetector and PSP with weights from ``--seed`` (drawn on
-    ``device``) or the checkpoints, on ``device``, in eval mode. A pSp
-    checkpoint sets every weight (it loads strictly), so none is drawn for
-    it."""
-    check_checkpoint(args.mask_detector_path, 'mask detector')
-    check_checkpoint(args.pt_ckpt_path, 'pSp')
+    ``device``) or the checkpoints, on ``device``, in eval mode. The
+    checkpoints are read first, so a file that does not load raises before
+    anything is built; the port's own pSp state dict sets every weight, so
+    none is drawn for it."""
+    det_state = read_checkpoint(args.mask_detector_path, 'mask detector')
+    psp_state = read_checkpoint(args.pt_ckpt_path, 'pSp')
     weights = torch.Generator(device=device).manual_seed(args.seed)
     with torch.device(device):
         detector = MaskDetector(n_channels=3, bilinear=True, generator=weights)
         psp = PSP(encoder_type=args.encoder_type, output_size=args.output_size,
                   start_from_latent_avg=bool(args.start_from_latent_avg),
                   learn_in_w=bool(args.learn_in_w), use_attention=bool(args.use_attention),
-                  generator=weights,
-                  init=not (args.pt_ckpt_path and Path(args.pt_ckpt_path).is_file()))
-    _load_state(detector, args.mask_detector_path, 'mask detector')
-    _load_state(psp, args.pt_ckpt_path, 'pSp')
+                  generator=weights, init=False)
+        if psp_state is None or set(psp_state) != set(psp.state_dict()):
+            init_weights(psp, weights)
+    if det_state is not None:
+        load_checkpoint(detector, det_state, convert_unet, 'mask detector',
+                        args.mask_detector_path)
+    if psp_state is not None:
+        load_checkpoint(psp, psp_state, lambda sd: convert_psp(sd, args.output_size), 'pSp',
+                        args.pt_ckpt_path, merge=('params', 'batch_stats', 'noises',
+                                                  'latent_avg'))
     return detector, psp.eval()
 
 
@@ -141,8 +146,6 @@ def make_infer_batch(detector: MaskDetector, psp: PSP, use_ref: bool):
 
 
 def main(argv=None):
-    import pandas as pd
-
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format='%(levelname)s: %(message)s')
     device = resolve_device(args.device)
@@ -185,9 +188,7 @@ def main(argv=None):
 
     profiler.close()
     means = np.array(eval_results).mean(0)
-    df = pd.DataFrame({'ssim': [means[0]], 'ms_ssim': [means[1]]})
-    print(df)
-    df.to_csv(out_dir / 'metrics.csv', index=False)
+    write_metrics_csv(out_dir / 'metrics.csv', {'ssim': [means[0]], 'ms_ssim': [means[1]]})
 
 
 if __name__ == '__main__':

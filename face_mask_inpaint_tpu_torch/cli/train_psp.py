@@ -21,12 +21,26 @@ metrics.jsonl`` with the JAX trainer's keys.
 cpu`` runs on the CPU. ``--seed`` seeds the weights (drawn on ``--device``),
 the shuffle and the noise. Training is float32, as the JAX trainer is.
 Without weight files the nets start from the JAX initialisers'
-distributions. ``--pt_ckpt_path`` loads a ``.pt`` of this port's PSP
-state_dict; ``--vgg_weights`` a torchvision ``vgg16`` ``.pth``. A reference
-``.pth`` for ``--pt_ckpt_path``, and any existing file for
-``--stylegan_weights``, ``--irse50_weights``, ``--alexnet_weights`` or
-``--lpips_lin_weights``, raises: those key maps wait for ROADMAP.md queue 1,
-item 3. ``--eval_options fid`` raises too (queue 1, item 6).
+distributions. The weight files go through the CLIs' loader (convert.py),
+as ``train_psp.py:122-158`` and ``:203-226`` read them:
+
+- ``--pt_ckpt_path``: the port's own PSP state_dict loads strictly; a
+  reference pSp checkpoint converts with ``convert_psp`` and merges by key
+  and shape;
+- otherwise ``--stylegan_weights``: the ``g_ema.`` keys (or the whole dict)
+  convert with ``convert_stylegan2_generator`` and merge into the decoder
+  and its noises;
+- ``--irse50_weights``: the identity loss's ArcFace backbone, through
+  ``convert_irse_backbone``;
+- ``--alexnet_weights`` with ``--lpips_lin_weights``: LPIPS(alex), through
+  ``convert_lpips_alex``;
+- ``--vgg_weights``: a torchvision ``vgg16``.
+
+An Orbax directory, or a file that holds no state dict of its net, raises.
+``--eval_options fid`` accumulates the InceptionV3 activations of the
+ground truth and of (gen + 1) / 2 over the validation round into one
+Fréchet distance, with ``--inception_weights`` (a torchvision
+``inception_v3``) or, without them, a random InceptionV3 from ``--seed``.
 """
 
 from __future__ import annotations
@@ -38,16 +52,18 @@ from pathlib import Path
 
 import torch
 
-from face_mask_inpaint_tpu_torch.cli.psp_inference import check_checkpoint
 from face_mask_inpaint_tpu_torch.cli.train_reference_fill import load_vgg, resolve_device
-from face_mask_inpaint_tpu_torch.convert import jax_leading_dims
+from face_mask_inpaint_tpu_torch.convert import jax_leading_dims, load_checkpoint, read_checkpoint
 from face_mask_inpaint_tpu_torch.data.loader import get_reference_dataloader
+from face_mask_inpaint_tpu_torch.evaluations.fid import FIDAccumulator, build_inception
 from face_mask_inpaint_tpu_torch.evaluations.ssim import ms_ssim, ssim
 from face_mask_inpaint_tpu_torch.losses.id_loss import make_backbone
 from face_mask_inpaint_tpu_torch.losses.lpips import LPIPSNet
 from face_mask_inpaint_tpu_torch.losses.psp_loss import PSPLossConfig
 from face_mask_inpaint_tpu_torch.models.psp import PSP
 from face_mask_inpaint_tpu_torch.nn.layers import init_weights
+from face_mask_inpaint_tpu_torch.tools.convert_torch import (
+    convert_irse_backbone, convert_lpips_alex, convert_psp, convert_stylegan2_generator)
 from face_mask_inpaint_tpu_torch.train import checkpoint as ckpt
 from face_mask_inpaint_tpu_torch.train.optim import (
     PlateauTracker, adam, ranger, set_learning_rate)
@@ -57,10 +73,6 @@ from face_mask_inpaint_tpu_torch.utils.metrics_logger import MetricsLogger, hist
 from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
 
 __all__ = ["get_args", "loss_config", "build_models", "Trainer", "train_net", "main"]
-
-_REFERENCE_WEIGHTS = ("is a reference weight file; its key map is not ported yet "
-                      "(ROADMAP.md queue 1, item 3: the loose ends)")
-
 
 def get_args(argv=None):
     parser = argparse.ArgumentParser()
@@ -139,19 +151,6 @@ def get_args(argv=None):
     return args
 
 
-def check_options(args) -> None:
-    """Raise, before anything is built, for the options that are not ported."""
-    if 'fid' in set(args.eval_options):
-        raise NotImplementedError("--eval_options fid: the InceptionV3 features are not "
-                                  "ported yet (ROADMAP.md queue 1, item 6: Remainder)")
-    check_checkpoint(args.pt_ckpt_path or '', 'pSp')
-    for flag in ('stylegan_weights', 'irse50_weights', 'alexnet_weights',
-                 'lpips_lin_weights'):
-        path = getattr(args, flag)
-        if path and Path(path).exists():
-            raise NotImplementedError(f"--{flag} {path} {_REFERENCE_WEIGHTS}")
-
-
 def loss_config(args) -> PSPLossConfig:
     return PSPLossConfig(
         id_lambda=args.id_lambda, lpips_lambda=args.lpips_lambda, l2_lambda=args.l2_lambda,
@@ -160,22 +159,47 @@ def loss_config(args) -> PSPLossConfig:
         w_norm_lambda=args.w_norm_lambda, start_from_latent_avg=args.start_from_latent_avg)
 
 
+def _g_ema(sd: dict) -> dict:
+    """The generator of a StyleGAN2 file: its ``g_ema.`` keys, or the whole
+    dict (train_psp.py:141-143)."""
+    g = {k[len('g_ema.'):]: v for k, v in sd.items() if k.startswith('g_ema.')}
+    return g or sd
+
+
 def build_models(args, cfg: PSPLossConfig, device: torch.device):
-    """(psp, nets): PSP with weights from ``--seed`` drawn on ``device`` (or
-    a ``.pt`` of its state_dict), its latent average when
-    ``--start_from_latent_avg`` finds it zero, and the loss nets the active
-    lambdas need, frozen, in eval mode."""
+    """(psp, nets): PSP with weights from ``--seed`` drawn on ``device``,
+    then ``--pt_ckpt_path`` or ``--stylegan_weights``, its latent average
+    when ``--start_from_latent_avg`` finds it zero, and the loss nets the
+    active lambdas need, from their weight files or ``--seed``, frozen, in
+    eval mode. Every weight file is read before anything is built."""
+    psp_state = read_checkpoint(args.pt_ckpt_path, 'pSp')
+    sg_state = read_checkpoint(args.stylegan_weights, 'StyleGAN2') if psp_state is None else None
+    lpips_files = args.alexnet_weights and args.lpips_lin_weights and (cfg.lpips_lambda > 0
+                                                                       or cfg.lpips_lambda_ref > 0)
+    alex_state = read_checkpoint(args.alexnet_weights, 'AlexNet') if lpips_files else None
+    lin_state = read_checkpoint(args.lpips_lin_weights, 'LPIPS lin') if lpips_files else None
+    irse_state = read_checkpoint(args.irse50_weights, 'ir_se50') if cfg.id_lambda > 0 else None
     weights = torch.Generator(device=device).manual_seed(args.seed)
-    ckpt_file = args.pt_ckpt_path and Path(args.pt_ckpt_path).is_file()
     with torch.device(device):
         psp = PSP(encoder_type=args.encoder_type, output_size=args.output_size,
                   start_from_latent_avg=args.start_from_latent_avg,
                   learn_in_w=args.learn_in_w, use_attention=args.use_attention,
-                  generator=weights, init=not ckpt_file)
-        if ckpt_file:
-            psp.load_state_dict(torch.load(args.pt_ckpt_path, map_location=device),
-                                strict=True)
+                  generator=weights, init=False)
+        if psp_state is None or set(psp_state) != set(psp.state_dict()):
+            init_weights(psp, weights)
+        if psp_state is not None:
+            load_checkpoint(psp, psp_state, lambda sd: convert_psp(sd, args.output_size),
+                            'pSp', args.pt_ckpt_path,
+                            merge=('params', 'batch_stats', 'noises', 'latent_avg'))
             logging.info('Loaded pSp from checkpoint: %s', args.pt_ckpt_path)
+        elif sg_state is not None:
+            def decoder_vars(sd):
+                conv = convert_stylegan2_generator(_g_ema(sd), args.output_size)
+                return {'params': {'decoder': conv['params']},
+                        'noises': {'decoder': conv.get('noises', {})}}
+            load_checkpoint(psp, sg_state, decoder_vars, 'StyleGAN2 decoder',
+                            args.stylegan_weights, merge=('params', 'noises'))
+            logging.info('Loaded decoder weights from %s', args.stylegan_weights)
         else:
             logging.warning('No pretrained pSp weights; using random init')
         if args.start_from_latent_avg and not bool(psp.latent_avg.any()):
@@ -184,10 +208,20 @@ def build_models(args, cfg: PSPLossConfig, device: torch.device):
         nets = {}
         if cfg.lpips_lambda > 0 or cfg.lpips_lambda_ref > 0:
             nets['lpips'] = init_weights(LPIPSNet('alex'), weights).eval()
-            logging.warning('LPIPS running with random weights')
+            if alex_state is not None and lin_state is not None:
+                lin_sd = {k: v.numpy() for k, v in lin_state.items()}
+                load_checkpoint(nets['lpips'], alex_state,
+                                lambda sd: {'params': convert_lpips_alex(sd, lin_sd)},
+                                'LPIPS(alex)', args.alexnet_weights)
+            else:
+                logging.warning('LPIPS running with random weights')
         if cfg.id_lambda > 0:
-            nets['facenet'] = init_weights(make_backbone(), weights)
-            logging.warning('No pretrained ir_se50 weights; using random init')
+            nets['facenet'] = init_weights(make_backbone(), weights).eval()
+            if irse_state is not None:
+                load_checkpoint(nets['facenet'], irse_state, convert_irse_backbone,
+                                'ir_se50', args.irse50_weights)
+            else:
+                logging.warning('No pretrained ir_se50 weights; using random init')
     if cfg.style_lambda > 0 or cfg.cx_lambda > 0:
         nets['vgg'] = load_vgg(args.vgg_weights, torch.Generator().manual_seed(args.seed)
                                ).to(device).eval()
@@ -227,6 +261,12 @@ class Trainer:
                                               randomize_noise=args.randomize_noise)
         self.eval_step = make_psp_eval_step(self.psp, self.cfg, self.nets,
                                             use_ref=args.use_ref)
+        self.inception = None
+        if 'fid' in set(args.eval_options):
+            self.inception = build_inception(
+                args.inception_weights, device, torch.Generator().manual_seed(args.seed),
+                'fid eval uses a randomly initialized InceptionV3 (--inception_weights '
+                'unset); values are relative only')
 
     def state_dict(self) -> dict:
         return {'model': self.psp.state_dict(), 'opt': self.optimizer.state_dict(),
@@ -243,8 +283,10 @@ class Trainer:
 
 def evaluate(trainer: Trainer, val_loader, eval_options: set) -> dict:
     """Mean validation loss (and SSIM, MS-SSIM of (gen + 1) / 2 against the
-    raw ground truth) over the val loader."""
+    raw ground truth) over the val loader; with 'fid', one Fréchet distance
+    of the whole round's activations."""
     metrics = {'validation loss': 0.0}
+    fid = FIDAccumulator(trainer.inception) if 'fid' in eval_options else None
     n = 0
     for batch in val_loader:
         out = trainer.eval_step(_to_device(batch, trainer.device))
@@ -255,8 +297,13 @@ def evaluate(trainer: Trainer, val_loader, eval_options: set) -> dict:
             metrics['ssim'] = metrics.get('ssim', 0.0) + float(ssim(gt, gen01))
         if 'ms_ssim' in eval_options and gen01.shape[1] > 160:
             metrics['ms_ssim'] = metrics.get('ms_ssim', 0.0) + float(ms_ssim(gt, gen01))
+        if fid is not None:
+            fid.add(gt, gen01)
         n += 1
-    return {k: v / max(n, 1) for k, v in metrics.items()}
+    metrics = {k: v / max(n, 1) for k, v in metrics.items()}
+    if fid is not None and fid.gt:
+        metrics['fid'] = fid.value()
+    return metrics
 
 
 def _drop_style(named) -> list:
@@ -318,7 +365,6 @@ def train_net(trainer: Trainer, train_loader, val_loader, args):
 def main(argv=None):
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format='%(levelname)s: %(message)s')
-    check_options(args)
     device = resolve_device(args.device)
     logging.info('Using device %s', device)
     trainer = Trainer(args, device)

@@ -18,10 +18,16 @@ cpu`` runs on the CPU. ``--seed`` seeds the weights, the shuffle and the
 latent noise. ``--compute_dtype bfloat16`` (the default) is bf16-mixed:
 float32 parameters, optimizer state and loss reductions, bfloat16 compute.
 ``--vgg_weights`` loads a torchvision ``vgg16`` ``.pth``; without it the VGG
-losses use random features, with a warning. ``--pt_ckpt_path`` is logged and
-not loaded, as in the JAX CLI (the reference's warm start is a no-op).
-``--eval_options fid`` and ``--encoder_type drn`` raise: their modules wait
-for ROADMAP.md queue 1, item 6.
+losses use random features, with a warning. ``--pt_ckpt_path`` names a
+directory of reference ``latest_net_{G,E,D}.pth``: each file present is read
+and converted with ``convert_picnet_module`` and nothing is loaded, as
+``train_reference_fill.py:161-178`` does on purpose (the reference's warm
+start is a no-op). ``--eval_options fid`` accumulates the InceptionV3
+activations of the ground truth and the generated images over the
+validation round into one Fréchet distance, with ``--inception_weights`` (a
+torchvision ``inception_v3``) or, without them, a random InceptionV3 from
+``--seed``. ``--encoder_type drn`` raises: the DRN encoder waits for
+ROADMAP.md queue 1, item 6.
 """
 
 from __future__ import annotations
@@ -33,20 +39,23 @@ from pathlib import Path
 
 import torch
 
-from face_mask_inpaint_tpu_torch.convert import vgg16_state_dict_from_torchvision
+from face_mask_inpaint_tpu_torch.convert import read_checkpoint, vgg16_state_dict_from_torchvision
 from face_mask_inpaint_tpu_torch.data.loader import get_reference_dataloader
+from face_mask_inpaint_tpu_torch.evaluations.fid import FIDAccumulator, build_inception
 from face_mask_inpaint_tpu_torch.evaluations.ssim import ms_ssim, ssim
 from face_mask_inpaint_tpu_torch.losses.vgg import VGG16Features
 from face_mask_inpaint_tpu_torch.models.picnet import define_d
 from face_mask_inpaint_tpu_torch.models.reference_fill import ReferenceFill
 from face_mask_inpaint_tpu_torch.nn.layers import init_weights
+from face_mask_inpaint_tpu_torch.tools.convert_torch import convert_picnet_module
 from face_mask_inpaint_tpu_torch.train import checkpoint as ckpt
 from face_mask_inpaint_tpu_torch.train.gan import make_gan_eval_step, make_gan_train_step
 from face_mask_inpaint_tpu_torch.train.optim import PlateauTracker, adam, set_learning_rate
 from face_mask_inpaint_tpu_torch.utils.metrics_logger import MetricsLogger, histogram_summary
 from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
 
-__all__ = ["get_args", "process_params", "build_models", "Trainer", "main"]
+__all__ = ["get_args", "process_params", "build_models", "read_picnet_checkpoints", "Trainer",
+           "main"]
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md queue 1, item 6: Remainder)"
 
@@ -177,6 +186,24 @@ def build_models(args, device: torch.device):
             vgg.to(device).eval())
 
 
+def read_picnet_checkpoints(path: str) -> list[str]:
+    """The reference's warm start (train_reference_fill.py:107-140, JAX
+    :161-178): each ``latest_net_{G,E,D}.pth`` under ``path`` is read and
+    converted, and nothing is loaded, since the reference's shape-matched
+    partial load copies the current tensors. Returns the files converted."""
+    done = []
+    for name in ('G', 'E', 'D'):
+        file = os.path.join(path, f'latest_net_{name}.pth') if path else ''
+        if not os.path.isfile(file):
+            continue
+        logging.info('Converting PICNet checkpoint %s (not loaded: the reference\'s '
+                     'warm start is a no-op)', file)
+        state = read_checkpoint(file, f'PICNet {name}')
+        convert_picnet_module({k: v.numpy() for k, v in state.items()})
+        done.append(file)
+    return done
+
+
 def _to_device(batch: dict, device: torch.device) -> dict:
     b = {k: batch[k].to(device, non_blocking=True)
          for k in ("src_img", "gt_img", "ref_img")}
@@ -203,6 +230,12 @@ class Trainer:
         self.train_step = make_gan_train_step(self.generator, self.discriminator, self.vgg,
                                               self.g_opt, self.d_opt)
         self.eval_step = make_gan_eval_step(self.generator, self.discriminator, self.vgg)
+        self.inception = None
+        if 'fid' in set(args.eval_options):
+            self.inception = build_inception(
+                args.inception_weights, device, torch.Generator().manual_seed(args.seed),
+                'fid eval uses a randomly initialized InceptionV3 (--inception_weights '
+                'unset); values are relative only')
 
     def state_dicts(self) -> tuple[dict, dict]:
         g = {'model': self.generator.state_dict(), 'opt': self.g_opt.state_dict(),
@@ -230,8 +263,10 @@ class Trainer:
 
 def evaluate(trainer: Trainer, val_loader, eval_options: set, step: int):
     """Mean val losses (and SSIM, MS-SSIM) over the val loader, with noise
-    from a generator seeded by the step, and the first sample pair."""
+    from a generator seeded by the step, and the first sample pair; with
+    'fid', one Fréchet distance of the whole round's activations."""
     metrics = {'D validation loss': 0.0, 'G validation loss': 0.0}
+    fid = FIDAccumulator(trainer.inception) if 'fid' in eval_options else None
     noise = torch.Generator(device=trainer.device).manual_seed(step)
     n, sample = 0, None
     for batch in val_loader:
@@ -246,8 +281,13 @@ def evaluate(trainer: Trainer, val_loader, eval_options: set, step: int):
             metrics['ssim'] = metrics.get('ssim', 0.0) + float(ssim(gt, gen))
         if 'ms_ssim' in eval_options and gen.shape[1] > 160:
             metrics['ms_ssim'] = metrics.get('ms_ssim', 0.0) + float(ms_ssim(gt, gen))
+        if fid is not None:
+            fid.add(gt, gen)
         n += 1
-    return {k: v / max(n, 1) for k, v in metrics.items()}, sample
+    metrics = {k: v / max(n, 1) for k, v in metrics.items()}
+    if fid is not None and fid.gt:
+        metrics['fid'] = fid.value()
+    return metrics, sample
 
 
 def train_net(trainer: Trainer, train_loader, val_loader, args):
@@ -259,9 +299,7 @@ def train_net(trainer: Trainer, train_loader, val_loader, args):
     n_train = len(train_loader.dataset)
     logging.info('Starting training: epochs=%d batch=%d lr=%g train=%d', args.epochs,
                  args.batch_size, args.learning_rate, n_train)
-    if args.pt_ckpt_path:
-        logging.info('PICNet checkpoint %s noted and not loaded: the reference\'s '
-                     'shape-matched warm start is a no-op', args.pt_ckpt_path)
+    read_picnet_checkpoints(args.pt_ckpt_path)
     if args.mask_detector_path:
         logging.info('Mask detector checkpoint noted at %s (training uses GT masks, as '
                      'the reference does)', args.mask_detector_path)
@@ -320,9 +358,6 @@ def train_net(trainer: Trainer, train_loader, val_loader, args):
 def main(argv=None):
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format='%(levelname)s: %(message)s')
-    if 'fid' in set(args.eval_options):
-        raise NotImplementedError("--eval_options fid: the InceptionV3 features "
-                                  + _NOT_PORTED)
     device = resolve_device(args.device)
     logging.info('Using device %s', device)
     trainer = Trainer(args, device)

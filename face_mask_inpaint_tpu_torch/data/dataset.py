@@ -1,7 +1,9 @@
-"""CelebA / CelebA-HQ reference dataset.
+"""CelebA / CelebA-HQ datasets.
 
-Port of face_mask_inpaint_tpu/data/dataset.py ``ReferenceDataset`` with the
-same on-disk conventions: image id = filename stem before '_', source
+Port of face_mask_inpaint_tpu/data/dataset.py: ``BasicDataset``, the
+(image, mask) pairs of the mask-detector trainer (``<id>_surgical.jpg``
+with ``<id><mask_suffix>.npy``), and ``ReferenceDataset``, with the same
+on-disk conventions: image id = filename stem before '_', source
 ``<id>_surgical.jpg``, ground truth and references ``<id>.jpg``, mask
 ``<id>.npy``; identities with fewer than two images are dropped; the
 reference is a random other image of the same identity or, with
@@ -27,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["ReferenceDataset"]
+__all__ = ["BasicDataset", "ReferenceDataset"]
 
 log = logging.getLogger(__name__)
 
@@ -61,6 +63,34 @@ def _preprocess(pil_img, scale: float, is_mask: bool) -> np.ndarray:
     if arr.ndim == 2:
         arr = arr[..., None]
     return (arr / 255.0).astype(np.float32)
+
+
+class BasicDataset(torch.utils.data.Dataset):
+    """(image, mask) pairs for mask-detector training (dataloader.py:49-119):
+    ids in ``listdir`` order, as the JAX package lists them."""
+
+    def __init__(self, images_dir, masks_dir, scale: float = 1.0, mask_suffix: str = ""):
+        if not 0 < scale <= 1:
+            raise ValueError("Scale must be between 0 and 1")
+        self.images_dir, self.masks_dir = Path(images_dir), Path(masks_dir)
+        self.scale, self.mask_suffix = scale, mask_suffix
+        self.ids = [splitext(f)[0].split("_")[0] for f in listdir(images_dir)
+                    if not f.startswith(".")]
+        if not self.ids:
+            raise RuntimeError(f"No input file found in {images_dir}")
+        log.info("Creating dataset with %d examples", len(self.ids))
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def __getitem__(self, idx: int) -> dict:
+        name = self.ids[idx]
+        mask = _load(self.masks_dir / f"{name}{self.mask_suffix}.npy")
+        img = _load(self.images_dir / f"{name}_surgical.jpg")
+        if img.size != mask.size:
+            raise ValueError(f"Image and mask {name} should be the same size")
+        return {"image": _preprocess(img, self.scale, is_mask=False),
+                "mask": _preprocess(mask, self.scale, is_mask=True)}
 
 
 class ReferenceDataset(torch.utils.data.Dataset):

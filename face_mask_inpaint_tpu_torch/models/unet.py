@@ -3,7 +3,10 @@
 Port of face_mask_inpaint_tpu/models/unet.py (dense execution): the classic
 4-down/4-up UNet, bilinear (align_corners=True) or transposed-conv
 upsampling, odd-size padding before the skip concat ``[skip, upsampled]``,
-and a 1x1 head. Eval mode only (BatchNorm on running statistics).
+and a 1x1 head. Built in eval mode (BatchNorm on running statistics);
+``train()`` runs its BatchNorm layers on the batch's statistics and moves the
+running ones, with the JAX package's flax semantics (nn/layers.py), for the
+Stack C trainer (train/unet.py).
 """
 
 from __future__ import annotations

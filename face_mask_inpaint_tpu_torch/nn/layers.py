@@ -137,10 +137,11 @@ class _SpectralMixin:
 
 
 class Conv2d(nn.Module, _SpectralMixin):
-    """Conv2d with torch padding semantics and optional spectral norm."""
+    """Conv2d with torch padding semantics and optional spectral norm;
+    ``kernel_size`` and ``padding`` are an int or an (h, w) pair."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 stride: int = 1, padding: int = 0, dilation: int = 1,
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
+                 stride: int = 1, padding=0, dilation: int = 1,
                  groups: int = 1, bias: bool = True, use_spect: bool = False,
                  init_type: str = "lecun_normal"):
         super().__init__()
@@ -148,11 +149,11 @@ class Conv2d(nn.Module, _SpectralMixin):
         self.dilation, self.groups = dilation, groups
         self.use_spect = use_spect
         self.init_type = init_type
-        k = kernel_size
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, k, k))
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kh, kw))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         if use_spect:
-            self._init_spectral(k * k * (in_channels // groups), out_channels)
+            self._init_spectral(kh * kw * (in_channels // groups), out_channels)
 
     def reset_parameters(self, generator=None) -> None:
         with torch.no_grad():
@@ -233,9 +234,10 @@ class BatchNorm2d(nn.Module):
     Eval mode normalizes with the running statistics. Training mode is the
     JAX package's ``BatchNorm2d``, a ``flax.linen.BatchNorm(momentum=0.9)``
     (layers.py:406-429), not torch's: it normalizes with the batch mean and
-    the biased batch variance E[x^2] - E[x]^2 (clipped at 0), both in f32,
-    and moves each running statistic 0.1 of the way to the batch's, the
-    variance being the same biased one (torch would store the unbiased).
+    the biased batch variance E[x^2] - E[x]^2 (clipped at 0), both in f32
+    (f64 for an f64 input), and moves each running statistic 0.1 of the way
+    to the batch's, the variance being the same biased one (torch would
+    store the unbiased).
     """
 
     momentum = 0.1
@@ -262,12 +264,12 @@ class BatchNorm2d(nn.Module):
                                 self.bias.to(x.dtype), False, 0.0, self.eps)
         dims = [d for d in range(x.dim()) if d != 1]
         shape = [1, -1] + [1] * (x.dim() - 2)
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = x32.mean(dim=dims)
         var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean, 0.0)
         with torch.no_grad():
-            self.running_mean.lerp_(mean.detach(), self.momentum)
-            self.running_var.lerp_(var.detach(), self.momentum)
+            self.running_mean.lerp_(mean.detach().to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.detach().to(self.running_var.dtype), self.momentum)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)

@@ -4,12 +4,16 @@ Port of face_mask_inpaint_tpu/utils/metrics_logger.py. The reference logs
 per-step scalars, periodic weight and gradient histograms and image samples
 to wandb (train_reference_fill.py:283-291, :352-357, :372-398); here the same
 keys go to ``<run_dir>/metrics.jsonl`` (arrays as their moments), and to
-wandb when it is importable and enabled.
+wandb when it is importable and enabled. ``write_metrics_csv`` writes the
+inference and evaluation CLIs' ``metrics.csv`` with the ``csv`` module, in
+the layout of the JAX CLIs' ``pandas.DataFrame.to_csv(index=False)``.
 """
 
 from __future__ import annotations
 
+import csv
 import json
+import math
 import time
 from pathlib import Path
 from typing import Any, Optional
@@ -17,7 +21,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-__all__ = ["MetricsLogger", "histogram_summary"]
+__all__ = ["MetricsLogger", "histogram_summary", "write_metrics_csv"]
 
 
 def _host(v):
@@ -113,3 +117,24 @@ class MetricsLogger:
         self._fh.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+def write_metrics_csv(path, columns: dict[str, list]) -> None:
+    """``columns`` (name -> one value per row) as a CSV with a header line:
+    each float as its shortest round-trip repr and NaN as an empty field, as
+    pandas writes them. The table is printed too."""
+    names = list(columns)
+    n_rows = max((len(v) for v in columns.values()), default=0)
+
+    def field(v):
+        v = float(v)
+        return "" if math.isnan(v) else repr(v)
+
+    rows = [[field(columns[k][i]) for k in names] for i in range(n_rows)]
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(names)
+        writer.writerows(rows)
+    print("  ".join(names))
+    for row in rows:
+        print("  ".join(v or "NaN" for v in row))

@@ -2,8 +2,9 @@
 synthetic 1024^2 CelebA-HQ-like tree (the data are scaled by 0.25 and the
 output pooled to 256^2, so the ground truth matches the output's size, as in
 tests/test_cli.py::test_psp_inference_cli), gradio_serve's selftest, and the
-checkpoint rules (a missing path warns and uses random weights, a reference
-.pth raises before anything is built, a .pt loads strictly)."""
+checkpoint rules (a missing path warns and uses random weights, a file that
+is no checkpoint raises before anything is built, the port's own .pt loads
+strictly)."""
 
 import logging
 import math
@@ -56,12 +57,21 @@ def test_psp_inference_cli_cpu(tree, tmp_path, monkeypatch, caplog):
     assert math.isfinite(float(csv[1].split(",")[0]))
 
 
-def test_psp_reference_pth_raises_before_building(tree, tmp_path):
+def test_psp_reference_pth_raises_before_building(tree, tmp_path, monkeypatch):
+    """A file that is no checkpoint raises with the loader's message, naming
+    the path, before any model is built (reference .pth files now load:
+    tests/test_torch_reference_ckpt_psp.py)."""
     ckpt = tmp_path / "psp_ffhq_encode.pth"
     ckpt.write_bytes(b"not a port checkpoint")
     args = cli.get_args(_flags(tree, ckpt))
-    with pytest.raises(NotImplementedError, match=".pth key map"):
+
+    def built(**kw):
+        raise AssertionError("a model was built before the checkpoint was read")
+
+    monkeypatch.setattr(cli, "PSP", built)
+    with pytest.raises(ValueError, match="is not a PyTorch checkpoint") as info:
         cli.build_models(args, torch.device("cpu"))
+    assert str(ckpt) in str(info.value)
 
 
 def test_psp_pt_checkpoint_loads_strictly(tmp_path, monkeypatch):

@@ -4,9 +4,9 @@ tests/test_cli.py's train_psp case (output 64, --use_ref,
 --start_from_latent_avg, L2 only) and the W+ backbone encoder: one epoch, its checkpoint and
 metrics.jsonl, and --resume from it; the CLI's own defaults (decoder
 frozen, no latent average, LPIPS with the logged style and contextual
-terms) at batch 1, so that the validation rounds run; and the options that
-raise. The CLI's PSP is patched to the small test
-configuration (num_layers=4, decoder_base_channels=32), a test seam, not a
+terms) at batch 1, so that the validation rounds run; the weight files and
+fid, which load, and the options that still raise. The CLI's PSP is
+patched to the small test configuration (num_layers=4, decoder_base_channels=32), a test seam, not a
 flag. The tree holds one identity of two images (one for training, one
 for validation): the IR-SE encoder's backward at 256^2 is most of a CPU
 step.
@@ -15,6 +15,7 @@ step.
 import json
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -124,18 +125,89 @@ def test_train_psp_cli_defaults(tree, tmp_path):
     assert len(vals) == 1 and vals[0]["validation loss"] > 0 and 0 < vals[0]["ssim"] < 1
 
 
-def test_train_psp_cli_rejects_unported_options(tree, tmp_path):
+def test_train_psp_cli_rejects_unported_options(tree, tmp_path, monkeypatch):
+    """The options that used to raise now load, through the CLIs' loader:
+    --pt_ckpt_path (a reference pSp file: encoder trunk, the small decoder's
+    g_ema layout, latent_avg; merged by key and shape), --stylegan_weights
+    (a nested g_ema file, merged into the decoder and its noises),
+    --irse50_weights (the identity loss's backbone) and --alexnet_weights
+    with --lpips_lin_weights (LPIPS), each tensor as the converter gives
+    it; --eval_options fid builds a random InceptionV3 and accumulates the
+    two validation batches into one Fréchet distance (recorded here: a
+    2048-dimensional sqrtm takes about 30 s on this CPU). A directory and
+    --device's default still raise."""
+    from face_mask_inpaint_tpu_torch import convert
+    from face_mask_inpaint_tpu_torch.data.dataset import ReferenceDataset
+    from face_mask_inpaint_tpu_torch.data.loader import DataLoader
+    from face_mask_inpaint_tpu_torch.evaluations import fid
+    from face_mask_inpaint_tpu_torch.models.stylegan2 import Generator
+    from face_mask_inpaint_tpu_torch.tools import convert_torch as tct
+
+    from tests import test_converter_numeric as tcn
+    from tests.test_torch_reference_ckpt import _lin_sd, _np_sd, g_ema_sd
+
+    def save(sd, name):
+        path = tmp_path / name
+        torch.save(sd, path)
+        return str(path)
+
+    def tensors(sd):
+        return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+    def assert_loaded(module, variables):
+        want = convert.state_dict_from_jax(module, variables)
+        got = module.state_dict()
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+
     base = [*_base(tree, tmp_path), *TEST_CLI]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        cli.main([*base, "--eval_options", "ssim", "fid"])
-    weights = tmp_path / "reference.pth"
-    weights.write_bytes(b"a reference checkpoint")
-    with pytest.raises(NotImplementedError, match=".pth key map"):
-        cli.main([*base, "--pt_ckpt_path", str(weights)])
-    for flag in ("--stylegan_weights", "--irse50_weights", "--alexnet_weights",
-                 "--lpips_lin_weights"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3"):
-            cli.main([*base, flag, str(weights)])
+    cfg = cli.loss_config(cli.get_args(base))
+    g_ema = g_ema_sd(Generator(64, base_channels=32), 1)
+    torch.manual_seed(2)
+    irse = _np_sd(tcn._TorchIRSE50().eval())
+    torch.manual_seed(3)
+    alex = _np_sd(tcn._torch_alex_features(), "features.")
+    lin = _lin_sd(5, (64, 192, 384, 256, 256), 4)
+    latent_avg = np.random.RandomState(5).randn(10, 512).astype(np.float32)
+    psp_sd = {f"encoder.{k}": v for k, v in irse.items() if not k.startswith("output_layer")}
+    psp_sd.update({f"decoder.{k}": v for k, v in g_ema.items()}, latent_avg=latent_avg)
+
+    args = cli.get_args([*base, "--pt_ckpt_path", save(tensors(psp_sd), "psp.pth")])
+    psp, _ = cli.build_models(args, cfg, torch.device("cpu"))
+    conv = tct.convert_psp(psp_sd, 64)
+    assert_loaded(psp.decoder, {"params": conv["params"]["decoder"],
+                                "noises": conv["noises"]["decoder"]})
+    assert torch.equal(psp.latent_avg, torch.from_numpy(latent_avg))
+
+    args = cli.get_args([*base, "--id_lambda", "0.1", "--lpips_lambda", "0.8",
+                         "--stylegan_weights", save({"g_ema": tensors(g_ema)}, "sg2.pt"),
+                         "--irse50_weights", save(tensors(irse), "ir_se50.pth"),
+                         "--alexnet_weights", save(tensors(alex), "alexnet.pth"),
+                         "--lpips_lin_weights", save(tensors(lin), "alex_lin.pth")])
+    cfg = cli.loss_config(args)
+    psp, nets = cli.build_models(args, cfg, torch.device("cpu"))
+    assert_loaded(psp.decoder, tct.convert_stylegan2_generator(g_ema, 64))
+    assert_loaded(nets["facenet"], tct.convert_irse_backbone(irse))
+    assert_loaded(nets["lpips"], {"params": tct.convert_lpips_alex(alex, lin)})
+
+    seen = []
+
+    def distance(act1, act2):
+        seen.append((act1.shape, act2.shape))
+        return float(np.abs(act1.mean(0) - act2.mean(0)).sum())
+
+    monkeypatch.setattr(fid, "frechet_from_activations", distance)
+    args = cli.get_args([*base, "--eval_options", "ssim", "fid"])
+    trainer = cli.Trainer(args, torch.device("cpu"))
+    assert isinstance(trainer.inception, fid.InceptionV3Features)
+    val = DataLoader(ReferenceDataset(args.src_img_path, args.ref_img_path, args.mask_path,
+                                      args.identity_file_path, apply_transform=True,
+                                      use_ssim=True), 1)
+    metrics = cli.evaluate(trainer, val, {"ssim", "fid"})
+    assert seen == [((2, 2048), (2, 2048))] and math.isfinite(metrics["fid"])
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3c"):
+        cli.main([*base, "--pt_ckpt_path", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(base[2:])  # --device defaults to cuda

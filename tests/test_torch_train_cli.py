@@ -65,11 +65,38 @@ def test_train_reference_fill_cli_cpu(tree, tmp_path):
     assert g_state["step"] == 3 and "decoder.out2.conv1.conv.u" in g_state["model"]
 
 
-def test_train_cli_rejects_unported_options(tree, tmp_path):
+def test_train_cli_rejects_unported_options(tree, tmp_path, monkeypatch, caplog):
+    """--eval_options fid now runs: a random InceptionV3 from --seed with
+    the JAX CLI's warning, the activations of the two validation batches
+    (one image each) accumulated into one Fréchet distance. The distance is
+    recorded here (a 2048-dimensional sqrtm takes about 30 s on this CPU;
+    tests/test_torch_fid.py holds it against JAX's). --encoder_type drn
+    still raises."""
+    import logging
+
+    from face_mask_inpaint_tpu_torch.data.loader import get_reference_dataloader
+    from face_mask_inpaint_tpu_torch.evaluations import fid
+
     base = ["--device", "cpu", "--data_root", str(tree["root"]),
-            "--checkpoint_path", str(tmp_path), *TINY]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        cli.main([*base, "--eval_options", "ssim", "fid"])
+            "--checkpoint_path", str(tmp_path), "--compute_dtype", "float32", *TINY]
+    args = cli.get_args([*base, "--eval_options", "ssim", "fid", "--batch_size", "1"])
+    with caplog.at_level(logging.WARNING):
+        trainer = cli.Trainer(args, torch.device("cpu"))
+    assert any("randomly initialized InceptionV3" in r.getMessage() for r in caplog.records)
+    seen = []
+
+    def distance(act1, act2):
+        seen.append((act1.shape, act2.shape))
+        return float(np.abs(act1.mean(0) - act2.mean(0)).sum())
+
+    monkeypatch.setattr(fid, "frechet_from_activations", distance)
+    _, val_loader = get_reference_dataloader(
+        args.src_img_path, args.ref_img_path, args.mask_path, args.identity_file_path, 1,
+        val_amount=0.1)
+    assert len(val_loader) == 2
+    metrics, _ = cli.evaluate(trainer, val_loader, {"ssim", "fid"}, 1)
+    assert seen == [((2, 2048), (2, 2048))]
+    assert math.isfinite(metrics["fid"]) and metrics["fid"] > 0 and 0 < metrics["ssim"] < 1
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
         cli.main([*base, "--encoder_type", "drn"])
 
