@@ -149,7 +149,27 @@ counts set to 0 just before it and read just after. Phases:
    generated and ground-truth images, its ``metrics.csv`` with finite ssim,
    ms_ssim and fid. Phases 10 and 11 write their data under
    ``build/chip_smoke_data`` and remove it; K1-K7 launch no time in them
-   (``infer_batch``, the flagship path, launches its own kernels once).
+   (``infer_batch``, the flagship path, launches its own kernels once);
+12. Stack A's other encoders: config 3 with two DRN-C-42 encoders
+   (``--encoder_type drn``) and the old-model path (``--old_model 1``:
+   218x178, no z, no fused pool) through the inference CLI's
+   ``infer_batch``: the launches of one forward (DRN: K1 once, K2 ten
+   times, K3 once; old model: K1 once, K2 ten times, K3 never), the
+   float32 output (DRN at batch 4, the old model at batch 16) against the
+   plain versions to phase 3's gate, bfloat16 at batch 16 timed (CUDA
+   events, median and quartiles) with its peak memory; K1 at the old
+   model's 108 x 88 = 9,504 tokens in both types at phase 2's gates;
+   ``cli/picnet_inference.main --device cuda`` with each flag on a seeded
+   CelebA-layout tree under ``build/chip_smoke_data`` (image sizes,
+   finite ``metrics.csv``); the config-5 trainer with ``--encoder_type
+   drn``: a bf16 batch-16 step (launches K1 once, K5 once, K2 ten times;
+   finite losses; the DRN's running statistics moved; step time, peak
+   memory), and at batch 2 in float32 the kernel path's D gradients to
+   phase 7's gate and its G gradients within three times the plain path's
+   own drift under a 1e-6 move of the source (the DRN's f32 gradients at
+   init are ill-conditioned: PERF.md, section 6); AutoAttention's ``pre``
+   branch at 128^2, C = 64 + 64 (K1's CUDA-core route) against its plain
+   version, and a CoordConv ResBlock, card against CPU.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -278,6 +298,23 @@ UNET_REFERENCE_KEYS = [
     (r"double_conv\.conv2\.", "double_conv.3."), (r"double_conv\.bn2\.", "double_conv.4."),
     (r"^model\.outc\.", "model.outc.conv."),
 ]
+
+# phase 12, Stack A's other encoders: BASELINE config 3 with two DRN-C-42
+# encoders (``--encoder_type drn``, a 1x1 head to img_f = 128) and the
+# flagship decoder, which gets no z; and the old-model path
+# (``--old_model 1``): the pluralistic flagship decoding without z from a
+# 218x178 input (27x22 features, K1 at 108 x 88 = 9,504 tokens) to 864x704,
+# resized to 218x178 with no fused pool, so no K3
+DRN_ENC = dict(type="drn", img_f=128, init_type="orthogonal")
+OLD_MODEL_HW = (218, 178)
+OLD_MODEL_TOKENS = 108 * 88
+DRN_PER_FORWARD = dict(PER_FORWARD)
+OLD_MODEL_PER_FORWARD = dict(PER_FORWARD, output_head=0)
+DRN_PER_STEP = dict(PER_STEP)
+# timed forwards of phase 12, after one warm-up
+DRN_ROUNDS = 5
+# phase 12's CLI runs: a seeded CelebA-layout tree of 2 identities x 4 images
+CLI_IDENTITIES, CLI_PER_IDENTITY = 2, 4
 
 KERNELS = {
     "flash_attention_fwd": dict(
@@ -901,7 +938,9 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
                   f"{a['lib']:.3f} ms (no prologue, no stats)", flush=True)
 
 
-def _models(seed: int, dtype):
+def _models(seed: int, dtype, enc=None, out_size=None):
+    """The detector and ReferenceFill on the card (the flagship's encoders
+    unless ``enc`` names others) with the decoder attention's gamma at one."""
     import torch
 
     from face_mask_inpaint_tpu_torch.models.reference_fill import ReferenceFill
@@ -909,8 +948,8 @@ def _models(seed: int, dtype):
 
     weights = torch.Generator().manual_seed(seed)
     detector = MaskDetector(dtype=dtype, generator=weights)
-    model = ReferenceFill(FLAGSHIP_ENC, FLAGSHIP_DEC, use_att=True, out_size=(HW, HW),
-                          dtype=dtype, generator=weights)
+    model = ReferenceFill(enc or FLAGSHIP_ENC, FLAGSHIP_DEC, use_att=True,
+                          out_size=out_size or (HW, HW), dtype=dtype, generator=weights)
     # gamma starts at zero; at one the attention term reaches the image
     with torch.no_grad():
         model.decoder.attn1.gamma.fill_(1.0)
@@ -1294,19 +1333,19 @@ def _train_batch(gen, n: int):
     return batch
 
 
-def _trainer(seed: int, dtype: str, batch: int):
+def _trainer(seed: int, dtype: str, batch: int, *flags: str):
     """The trainer CLI's own models, optimizers and step at BASELINE config 5
     (the flagship widths, define_d(ndf=32, img_f=128, layers=5), VGG16 with
-    random weights, Adam at 1e-4, lsgan), on the card; the decoder
-    attention's gamma, zero at init, set from the seed so the attention's
-    gradients are not zero."""
+    random weights, Adam at 1e-4, lsgan), with ``flags`` added, on the card;
+    the decoder attention's gamma, zero at init, set from the seed so the
+    attention's gradients are not zero."""
     import torch
 
     from face_mask_inpaint_tpu_torch.cli import train_reference_fill as cli
 
     args = cli.get_args(["--device", "cuda", "--seed", str(seed), "--batch_size", str(batch),
                          "--learning_rate", "1e-4", "--decoder_img_f", "256",
-                         "--compute_dtype", dtype, "--out_size", str(HW)])
+                         "--compute_dtype", dtype, "--out_size", str(HW), *flags])
     trainer = cli.Trainer(args, cli.resolve_device(args.device))
     gamma = torch.rand(1, generator=torch.Generator().manual_seed(seed)) + 0.5
     with torch.no_grad():
@@ -2358,6 +2397,346 @@ def phase_reference_fid(run: Run, seed: int, card: str, workdir, det_path: str,
           f"{time.perf_counter() - t_phase:.1f} s, on {card}", flush=True)
 
 
+# -- Stack A's other encoders: the DRN encoder and the old-model path --------
+
+def _write_celeba_tree(root, seed: int) -> None:
+    """A seeded tree in CelebA's layout at 256^2: ``<id>.jpg`` ground truths
+    and references, ``<id>_surgical.jpg`` sources with the mask painted in,
+    ``<id>.npy`` masks and the identity file (the ReferenceDataset layout)."""
+    import numpy as np
+    from PIL import Image
+
+    src_dir, ref_dir = root / "img_align_celeba_masked1", root / "img_align_celeba"
+    mask_dir = root / "binary_map"
+    for d in (src_dir, ref_dir, mask_dir):
+        d.mkdir(parents=True)
+    rs = np.random.RandomState(seed)
+    lines, n = [], 0
+    for ident in range(1, CLI_IDENTITIES + 1):
+        base = rs.randint(0, 200, (HW, HW, 3))
+        for _ in range(CLI_PER_IDENTITY):
+            n += 1
+            gt = np.clip(base + rs.randint(-20, 20, (HW, HW, 3)), 0, 255).astype(np.uint8)
+            mask = np.zeros((HW, HW), np.uint8)
+            mask[HW // 2:HW // 2 + HW // 3, HW // 4:3 * HW // 4] = 1
+            src = gt.copy()
+            src[mask.astype(bool)] = (80, 120, 200)
+            Image.fromarray(gt).save(ref_dir / f"{n:06d}.jpg")
+            Image.fromarray(src).save(src_dir / f"{n:06d}_surgical.jpg")
+            np.save(mask_dir / f"{n:06d}.npy", mask)
+            lines.append(f"{n:06d}.jpg {ident}")
+    (root / "identity_CelebA.txt").write_text("\n".join(lines) + "\n")
+
+
+def _forward_check(run: Run, name: str, forward, want_launches: dict, shape, card: str,
+                   gate: bool):
+    """One forward with the counts reset (its launches against
+    ``want_launches``), its output's shape, range and finiteness, then the
+    same forward on the plain versions: max |kernel - plain| <= 1e-3 of
+    the plain path's largest entry where ``gate`` (the flagship output gate
+    of phase 3, in float32), printed otherwise. Returns the output."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+
+    reset_launch_counts()
+    out = forward()
+    torch.cuda.synchronize()
+    launches = _counts()
+    print(f"[other encoders] {name}: launches in one forward: {launches}", flush=True)
+    run.check(launches == want_launches, f"{name} launches {want_launches}: {launches}")
+    run.check(tuple(out.shape) == shape and bool(torch.isfinite(out.float()).all())
+              and float(out.abs().max()) <= 1.0,
+              f"{name} output {tuple(out.shape)}, finite, within [-1, 1]")
+    with plain_versions():
+        want = forward()
+    err, scale = float((out.float() - want.float()).abs().max()), float(want.abs().max())
+    if gate:
+        run.check(err <= 1e-3 * scale, f"{name}: kernel path vs plain versions max_abs_err "
+                                       f"{err:.3e} (tol 1e-3 * {scale:.4f})")
+    else:
+        print(f"[other encoders] {name}: kernel path vs plain versions max_abs_err {err:.3e} "
+              f"of {scale:.4f} (bf16 outputs are rounded to 2^-8 near 1: not gated; the "
+              f"float32 forward is)", flush=True)
+    return out
+
+
+def _time_forward(name: str, forward, batch: int, card: str) -> None:
+    """CUDA-event times of DRN_ROUNDS forwards after one warm-up (median,
+    quartiles) and the peak device memory of one."""
+    import torch
+
+    forward()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DRN_ROUNDS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    q = statistics.quantiles(times, n=4)
+    print(f"[time] {name}, batch {batch}: median {statistics.median(times):.2f} ms, quartiles "
+          f"{q[0]:.2f}-{q[2]:.2f}, range {min(times):.2f}-{max(times):.2f} "
+          f"({batch / statistics.median(times) * 1e3:.2f} images/s); peak device memory "
+          f"{peak:.2f} GiB, on {card}", flush=True)
+
+
+def _phase_other_inference(run: Run, seed: int, card: str) -> None:
+    """Config 3 with the DRN encoders (f32 batch 4 gated against the plain
+    versions, bf16 batch 16 timed) and the old-model path (batch 16, f32
+    gated, bf16 timed), each through the CLI's ``infer_batch``; K1 at the
+    old model's 9,504 tokens in both types."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.cli import picnet_inference as cli
+    from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
+
+    data = torch.Generator(device="cuda").manual_seed(seed + 41)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname, gate = str(dtype).split(".")[-1], dtype == torch.float32
+        for old_model in (False, True):
+            batch = 16 if old_model or not gate else 4
+            src = torch.rand(batch, HW, HW, 3, device="cuda", generator=data)
+            ref = torch.rand(batch, HW, HW, 3, device="cuda", generator=data)
+            noise = torch.Generator(device="cuda").manual_seed(seed + 1)
+            detector, model = (_models(seed, dtype, out_size=OLD_MODEL_HW) if old_model
+                               else _models(seed, dtype, DRN_ENC))
+            infer = cli.make_infer_batch(detector, model, old_model)
+            forward = lambda: infer(src, ref, noise)[0]  # noqa: E731
+            if old_model:
+                name, want, shape = "old-model", OLD_MODEL_PER_FORWARD, (batch, *OLD_MODEL_HW, 3)
+            else:
+                name, want, shape = "DRN flagship", DRN_PER_FORWARD, (batch, HW, HW, 3)
+            _forward_check(run, f"{name} {dname} batch {batch}", forward, want, shape, card,
+                           gate)
+            if not gate:
+                _time_forward(f"{name} forward (detector + ReferenceFill"
+                              f"{', no_prior at 218x178' if old_model else ', DRN-C-42 encoders'}"
+                              f") {dname}", forward, batch, card)
+            del detector, model, infer, src, ref
+            torch.cuda.empty_cache()
+
+        batch = 16
+        q = (torch.randn(batch, OLD_MODEL_TOKENS, 64, device="cuda", generator=data) / 4
+             ).to(dtype)
+        vs = [torch.randn(batch, OLD_MODEL_TOKENS, 256, device="cuda", generator=data).to(dtype)]
+        outs, lse = fa.flash_attention(q, vs, with_lse=True)
+        torch.cuda.synchronize()
+        refs, lse_ref = fa.flash_attention_plain(q, vs, with_lse=True)
+        ok, err = _close(outs[0], refs[0], dname)
+        lse_err = float((lse - lse_ref).abs().max())
+        route, want_route = fa.flash_attention_route(q, vs), _route_k1(dname, 64, 256)
+        run.check(ok and lse_err <= LSE_ATOL and route == want_route,
+                  f"K1 old-model N={batch} L={OLD_MODEL_TOKENS} d=64 C=[256] {dname} ({route}, "
+                  f"want {want_route}): max_abs_err {err:.3e} lse_err {lse_err:.3e} (tol atol "
+                  f"{TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|, lse {LSE_ATOL})")
+        ms = _time_ms(lambda: fa.flash_attention(q, vs), 5)
+        print(f"[time] K1 at the old model's {OLD_MODEL_TOKENS} tokens, batch {batch} {dname} "
+              f"({route}): {ms:.3f} ms, on {card}", flush=True)
+        del q, vs, outs, refs
+        torch.cuda.empty_cache()
+
+
+def _phase_other_cli(run: Run, seed: int, card: str, workdir) -> None:
+    """``cli/picnet_inference.main --device cuda`` with ``--encoder_type drn``
+    and with ``--old_model 1`` on a seeded CelebA-layout tree."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from face_mask_inpaint_tpu_torch.cli import picnet_inference as cli
+
+    workdir = workdir.resolve()  # the CLI runs from inside it
+    root = workdir / "celeba"
+    _write_celeba_tree(root, seed + 42)
+    here = os.getcwd()
+    os.chdir(workdir)  # the CLI writes test_results/<run> under the working directory
+    try:
+        for flags, size in ((["--encoder_type", "drn"], (HW, HW)),
+                            (["--old_model", "1"], OLD_MODEL_HW)):
+            run_name = flags[0].strip("-")
+            t0 = time.perf_counter()
+            cli.main(["--device", "cuda", "--seed", str(seed), "--data_root", str(root),
+                      "--batch_size", "4", "--decoder_img_f", "256", "--mask_detector_path", "",
+                      "--pt_ckpt_path", f"missing/{run_name}/model.pt", "--out_size", str(HW),
+                      *flags])
+            wall = time.perf_counter() - t0
+            out_dir = workdir / "test_results" / run_name
+            images = sorted(out_dir.glob("gen_*.jpg"))
+            sizes = {Image.open(p).size for p in images}
+            rows = (out_dir / "metrics.csv").read_text().splitlines()
+            values = [float(v) if v else math.nan for v in rows[1].split(",")]
+            run.check(len(images) == CLI_IDENTITIES * CLI_PER_IDENTITY
+                      and sizes == {(size[1], size[0])} and all(np.isfinite(values)),
+                      f"picnet_inference {' '.join(flags)} on the card: {len(images)} images of "
+                      f"{sizes}, metrics {dict(zip(rows[0].split(','), values))}")
+            print(f"[other encoders] picnet_inference {' '.join(flags)}: {wall:.1f} s, on "
+                  f"{card}", flush=True)
+    finally:
+        os.chdir(here)
+
+
+def _phase_other_train(run: Run, seed: int, card: str) -> None:
+    """The config-5 GAN step with the DRN encoders: bf16 batch 16 (launches,
+    finite losses, the running statistics moved, step time, peak memory);
+    f32 batch 2, the kernel path's gradients against the plain path's."""
+    import copy
+
+    import torch
+
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+
+    batch = 16
+    trainer = _trainer(seed, "bfloat16", batch, "--encoder_type", "drn")
+    data = torch.Generator(device="cuda").manual_seed(seed + 43)
+    batches = [_train_batch(data, batch) for _ in range(3)]
+    bn = trainer.generator.src_encoder.layer8.block0.bn2
+    before = (bn.running_mean.clone(), bn.running_var.clone())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    metrics = trainer.train_step(batches[0], noise=trainer.noise)
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = {k: float(v) for k, v in metrics.items()}
+    moved = not (torch.equal(bn.running_mean, before[0]) or torch.equal(bn.running_var, before[1]))
+    print(f"[other encoders] DRN config-5 step: launches {launches}; losses {losses}", flush=True)
+    run.check(launches == DRN_PER_STEP, f"DRN config-5 step launches {DRN_PER_STEP}: {launches}")
+    run.check(all(math.isfinite(v) for v in losses.values()) and moved,
+              f"DRN config-5 step: losses finite, the DRN's running statistics moved: {moved}")
+    times = []
+    for i in range(2 + STEP_ROUNDS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(batches[i % len(batches)], noise=trainer.noise)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    q = statistics.quantiles(times, n=4)
+    print(f"[time] DRN config-5 step, bf16 batch {batch}, {STEP_ROUNDS} steps after 2 warm-up: "
+          f"median {statistics.median(times):.2f} ms, quartiles {q[0]:.2f}-{q[2]:.2f}, range "
+          f"{min(times):.2f}-{max(times):.2f} ({batch / statistics.median(times) * 1e3:.2f} "
+          f"images/s); peak device memory of the first step {peak:.2f} GiB, on {card}",
+          flush=True)
+    del trainer, batches, metrics
+    torch.cuda.empty_cache()
+
+    # f32 batch 2: the kernel path against the plain path, and the plain
+    # path against itself with the source image moved by 1e-6 of itself
+    # (the step's own f32 drift: its BatchNorm gradients are ill-conditioned)
+    trainer = _trainer(seed, "float32", 2, "--encoder_type", "drn")
+    b = _train_batch(data, 2)
+    start = copy.deepcopy((trainer.generator.state_dict(), trainer.discriminator.state_dict()))
+    got = trainer.train_step(b, return_grads=True)
+    results = []
+    for batch_in in (b, dict(b, src_img=b["src_img"] * (1.0 + 1e-6 * torch.randn(
+            b["src_img"].shape, device="cuda", generator=data)))):
+        trainer.generator.load_state_dict(start[0])
+        trainer.discriminator.load_state_dict(start[1])
+        with plain_versions():
+            results.append(trainer.train_step(batch_in, return_grads=True))
+    want, drift = results
+
+    def used(a, ref):
+        floor = GRAD_FLOOR * max(float(w.abs().max()) for w in ref.values())
+        return {k: float((a[k] - w).abs().max()) / (GRAD_TOL * float(w.abs().max()) + floor)
+                for k, w in ref.items()}
+
+    d_used = max(used(got["d_grads"], want["d_grads"]).values())
+    run.check(d_used <= 1.0, f"DRN config-5 f32 step, batch 2: kernel path vs plain path, "
+                             f"d_grads: max_abs_err uses at most {d_used:.3f} of its tolerance "
+                             f"({GRAD_TOL} * max|plain| + {GRAD_FLOOR} * the largest entry)")
+    g_used, g_drift = used(got["g_grads"], want["g_grads"]), used(drift["g_grads"],
+                                                                  want["g_grads"])
+    within = sum(u <= 1.0 for u in g_used.values())
+    err = math.sqrt(sum(float((got["g_grads"][k] - w).square().sum())
+                        for k, w in want["g_grads"].items()))
+    own = math.sqrt(sum(float((drift["g_grads"][k] - w).square().sum())
+                        for k, w in want["g_grads"].items()))
+    norm = math.sqrt(sum(float(w.square().sum()) for w in want["g_grads"].values()))
+    print(f"[other encoders] DRN f32 step g_grads: {within} of {len(g_used)} tensors within "
+          f"phase 7's per-tensor gate; worst share kernel vs plain {max(g_used.values()):.3f}, "
+          f"plain vs plain with the source moved by 1e-6: {max(g_drift.values()):.3f} "
+          f"({sum(u <= 1.0 for u in g_drift.values())} within)", flush=True)
+    run.check(err <= 3 * own, f"DRN config-5 f32 step, batch 2: kernel path vs plain path, "
+                              f"g_grads L2 {err / norm:.3e} of the gradient's, at most three "
+                              f"times the plain path's own drift under a 1e-6 move of the "
+                              f"source ({own / norm:.3e})")
+    loss_err = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-12)
+                   for k in ("G_loss", "D_loss"))
+    run.check(loss_err <= 1e-4, f"DRN config-5 f32 step, batch 2: G and D losses of the kernel "
+                                f"path within {loss_err:.2e} of the plain path's (tol 1e-4)")
+    del trainer, got, want, drift
+    torch.cuda.empty_cache()
+
+
+def _phase_pre_and_coord(run: Run, seed: int) -> None:
+    """AutoAttention's long-term branch at 128^2, C = 64 (d = 16: K1's
+    CUDA-core route, C + C_pre = 128 value channels in one call) against its
+    plain version; a CoordConv ResBlock on the card against the CPU."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+    from face_mask_inpaint_tpu_torch.nn.blocks import AutoAttention, ResBlock
+    from face_mask_inpaint_tpu_torch.nn.layers import init_weights
+
+    data = torch.Generator(device="cuda").manual_seed(seed + 44)
+    attn = init_weights(AutoAttention(64, 64, norm="instance"),
+                        torch.Generator().manual_seed(seed)).cuda().eval()
+    with torch.no_grad():
+        attn.gamma.fill_(1.0)
+        attn.alpha.fill_(1.0)
+    x = torch.randn(2, 64, 128, 128, device="cuda", generator=data)
+    pre = torch.randn(2, 64, 128, 128, device="cuda", generator=data)
+    mask = torch.zeros(2, 1, 128, 128, device="cuda")
+    mask[:, :, 40:100, 30:90] = 1.0
+    q = torch.randn(2, 128 * 128, 16, device="cuda")
+    route = fa.flash_attention_route(q, [torch.empty(2, 128 * 128, 64, device="cuda")] * 2)
+    with torch.no_grad():
+        reset_launch_counts()
+        out = attn(x, pre, mask)
+        torch.cuda.synchronize()
+        launches = _counts()
+        with plain_versions():
+            want = attn(x, pre, mask)
+    err, scale = float((out - want).abs().max()), float(want.abs().max())
+    run.check(route == "cuda_cores" and launches["flash_attention_fwd"] == 1
+              and launches["instance_norm_act"] == 2 and err <= 1e-3 * scale,
+              f"AutoAttention with pre, 128^2, C = 64 + 64, f32: K1 on its {route} route "
+              f"({launches['flash_attention_fwd']} launch), K2 x{launches['instance_norm_act']}; "
+              f"vs plain versions max_abs_err {err:.3e} (tol 1e-3 * {scale:.4f})")
+    block = init_weights(ResBlock(64, 64, 64, norm="instance", use_spect=True, use_coord=True),
+                         torch.Generator().manual_seed(seed)).eval()
+    x_cpu = torch.randn(2, 64, 64, 64, generator=torch.Generator().manual_seed(seed + 45))
+    with torch.no_grad():
+        want = block(x_cpu)
+        got = block.cuda()(x_cpu.cuda()).cpu()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    run.check(err <= 1e-4 * scale, f"CoordConv ResBlock (64 + 2 coordinate channels, 64^2, "
+                                   f"f32): card vs CPU max_abs_err {err:.3e} (tol 1e-4 * "
+                                   f"{scale:.4f})")
+
+
+def phase_other_encoders(run: Run, seed: int, card: str, workdir) -> None:
+    """Phase 12: Stack A's DRN encoder and old-model path (inference, the
+    CLI, the GAN step), AutoAttention's pre branch and CoordConv."""
+    t_phase = time.perf_counter()
+    _phase_other_inference(run, seed, card)
+    _phase_other_cli(run, seed, card, workdir)
+    _phase_other_train(run, seed, card)
+    _phase_pre_and_coord(run, seed)
+    print(f"[other encoders] phase 12: {time.perf_counter() - t_phase:.1f} s, on {card}",
+          flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2397,6 +2776,7 @@ def main(argv=None) -> int:
     try:
         det_path, det_state = phase_unet_train(run, args.seed, smi, workdir)
         phase_reference_fid(run, args.seed, smi, workdir, det_path, det_state)
+        phase_other_encoders(run, args.seed, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)

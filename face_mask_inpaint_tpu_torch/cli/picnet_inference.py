@@ -17,8 +17,14 @@ replaced whole by ``convert_unet`` (parameters and batch statistics); the
 generator merges ``convert_picnet_module``'s parameters by key and shape and
 keeps its own spectral ``u``/``v``, as the JAX CLI drops the checkpoint's. A
 missing path means random weights from ``--seed``; an Orbax directory and
-any other file raise. The DRN encoder and ``--old_model`` are not ported yet
-and raise.
+any other file raise.
+``--encoder_type drn`` builds ReferenceFill with two DRN-C-42 encoders and a
+decoder without its latent branch. ``--old_model 1`` is the reference's
+CelebA-aligned path (``PICNet_inference.py:143-199``): after the mask is
+predicted, the source, the reference and the mask are resized bilinearly to
+218x178, the generator decodes without z (``no_prior``) and returns 218x178
+images, and the ground truth is resized the same way before SSIM and
+MS-SSIM.
 ``--use_best_reference 1`` takes each image's best-SSIM reference, scored on
 ``--device`` (or read from the dataset's cached map). ``--device`` defaults
 to cuda and fails when CUDA is absent; ``--device cpu`` runs on the CPU.
@@ -48,12 +54,15 @@ from face_mask_inpaint_tpu_torch.data.loader import DataLoader
 from face_mask_inpaint_tpu_torch.evaluations.ssim import ms_ssim, ssim
 from face_mask_inpaint_tpu_torch.models.reference_fill import ReferenceFill
 from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
+from face_mask_inpaint_tpu_torch.ops.resize import scale_img
 from face_mask_inpaint_tpu_torch.tools.convert_torch import convert_picnet_module, convert_unet
 from face_mask_inpaint_tpu_torch.utils.images import mask2im, tensor2im
 from face_mask_inpaint_tpu_torch.utils.metrics_logger import write_metrics_csv
 from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
 
 __all__ = ["get_args", "process_params", "build_models", "make_infer_batch", "main"]
+
+OLD_MODEL_SIZE = (218, 178)  # CelebA's aligned size, PICNet_inference.py:145
 
 
 def get_args(argv=None):
@@ -127,16 +136,15 @@ def resolve_device(name: str) -> torch.device:
 def build_models(args, device: torch.device):
     """MaskDetector and ReferenceFill with weights from ``--seed`` or the
     checkpoints, on ``device``, in eval mode."""
-    if args.old_model or args.encoder_type != 'pluralistic':
-        raise NotImplementedError("--old_model and the DRN encoder are not ported yet")
     det_state = read_checkpoint(args.mask_detector_path, 'mask detector')
     gen_state = read_checkpoint(args.pt_ckpt_path, 'generator')
     encoder_params, decoder_params = process_params(args)
     decoder_params["packed_convt"] = os.environ.get("FMI_PACKED_CONVT") == "1"
     weights = torch.Generator().manual_seed(args.seed)
     detector = MaskDetector(n_channels=3, bilinear=True, generator=weights)
+    out_size = OLD_MODEL_SIZE if args.old_model else (args.out_size, args.out_size)
     generator = ReferenceFill(encoder_params, decoder_params, use_att=bool(args.use_att),
-                              out_size=(args.out_size, args.out_size), generator=weights)
+                              out_size=out_size, generator=weights)
     if det_state is not None:
         load_checkpoint(detector, det_state, convert_unet, 'mask detector',
                         args.mask_detector_path)
@@ -146,16 +154,26 @@ def build_models(args, device: torch.device):
     return detector.to(device), generator.to(device)
 
 
-def make_infer_batch(detector: MaskDetector, generator: ReferenceFill):
+def _scale_nhwc(x: torch.Tensor, size) -> torch.Tensor:
+    return scale_img(x.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1)
+
+
+def make_infer_batch(detector: MaskDetector, generator: ReferenceFill,
+                     old_model: bool = False):
     """The per-batch step: ``infer_batch(src, ref, noise)`` with src/ref
     [N, H, W, 3] in [0, 1] on the models' device and ``noise`` a
     torch.Generator on that device; returns (images [N, out, out, 3] in
-    [-1, 1], masks [N, H, W])."""
+    [-1, 1], masks [N, H, W]). With ``old_model`` the images, the mask and
+    the output are 218x178 and the generator runs ``no_prior``
+    (``PICNet_inference.py:167-176``)."""
 
     @torch.no_grad()
     def infer_batch(src: torch.Tensor, ref: torch.Tensor, noise: torch.Generator):
         src_mask = detector.predict_mask(src)
-        return generator(src, ref, src_mask, generator=noise), src_mask
+        if old_model:
+            src, ref = _scale_nhwc(src, OLD_MODEL_SIZE), _scale_nhwc(ref, OLD_MODEL_SIZE)
+            src_mask = scale_img(src_mask[:, None], OLD_MODEL_SIZE)[:, 0]
+        return generator(src, ref, src_mask, generator=noise, no_prior=old_model), src_mask
 
     return infer_batch
 
@@ -166,7 +184,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     logging.info('Using device %s', device)
     detector, generator = build_models(args, device)
-    infer_batch = make_infer_batch(detector, generator)
+    infer_batch = make_infer_batch(detector, generator, bool(args.old_model))
 
     dataset = ReferenceDataset(args.src_img_path, args.ref_img_path, args.mask_path,
                                args.identity_file_path, apply_transform=False,
@@ -189,6 +207,8 @@ def main(argv=None):
         ref = batch['ref_img'].to(device, non_blocking=True)
         gen, src_mask = infer_batch(src, ref, noise)
         gt = batch['raw_gt_img'].to(device)
+        if args.old_model:
+            gt = _scale_nhwc(gt, OLD_MODEL_SIZE)
         s = float(ssim(gt, gen))
         ms = float(ms_ssim(gt, gen)) if gen.shape[1] > 160 else math.nan
         eval_results.append([s, ms])

@@ -26,8 +26,11 @@ start is a no-op). ``--eval_options fid`` accumulates the InceptionV3
 activations of the ground truth and the generated images over the
 validation round into one Fréchet distance, with ``--inception_weights`` (a
 torchvision ``inception_v3``) or, without them, a random InceptionV3 from
-``--seed``. ``--encoder_type drn`` raises: the DRN encoder waits for
-ROADMAP.md queue 1, item 6.
+``--seed``. ``--encoder_type drn`` trains ReferenceFill with two DRN-C-42
+encoders (their BatchNorm on the batch statistics, the running ones moved
+once a step, as the JAX step moves them) and a decoder without its latent
+branch; it clears ``--pt_ckpt_path``, as ``train_reference_fill.py:128-129``
+does.
 """
 
 from __future__ import annotations
@@ -56,9 +59,6 @@ from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profi
 
 __all__ = ["get_args", "process_params", "build_models", "read_picnet_checkpoints", "Trainer",
            "main"]
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1, item 6: Remainder)"
-
 
 def get_args(argv=None):
     parser = argparse.ArgumentParser()
@@ -171,9 +171,6 @@ def load_vgg(path: str, generator: torch.Generator) -> VGG16Features:
 def build_models(args, device: torch.device):
     """(generator, discriminator, vgg) with weights from ``--seed``, on
     ``device``, G and D in training mode."""
-    if args.encoder_type != 'pluralistic':
-        raise NotImplementedError(f"--encoder_type {args.encoder_type}: the DRN encoder "
-                                  + _NOT_PORTED)
     encoder_params, decoder_params, disc_params = process_params(args)
     dtype = getattr(torch, args.compute_dtype)
     weights = torch.Generator().manual_seed(args.seed)

@@ -66,6 +66,7 @@ from face_mask_inpaint_tpu_torch.evaluations.fid import InceptionV3Features
 
 from face_mask_inpaint_tpu_torch.losses.lpips import LPIPSNet
 from face_mask_inpaint_tpu_torch.losses.vgg import VGG16Features
+from face_mask_inpaint_tpu_torch.models.drn import DRN
 from face_mask_inpaint_tpu_torch.models.irse import Backbone, GradualStyleEncoder
 from face_mask_inpaint_tpu_torch.models.picnet import PatchDiscriminator, ResDiscriminator
 from face_mask_inpaint_tpu_torch.models.psp import PSP
@@ -76,8 +77,8 @@ from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
 from face_mask_inpaint_tpu_torch.nn.layers import BatchNorm2d, Conv2d, ConvTranspose2d, Dense
 
 __all__ = ["state_dict_from_jax", "convert_mask_detector", "convert_reference_fill",
-           "convert_discriminator", "convert_vgg16", "vgg16_state_dict_from_torchvision",
-           "convert_stylegan2_generator", "convert_gradual_style_encoder", "convert_psp",
+           "convert_drn", "convert_discriminator", "convert_vgg16",
+           "vgg16_state_dict_from_torchvision", "convert_stylegan2_generator", "convert_gradual_style_encoder", "convert_psp",
            "convert_lpips", "convert_backbone", "convert_inception", "jax_leading_dims",
            "merge_from_jax", "read_checkpoint", "load_checkpoint"]
 
@@ -216,9 +217,18 @@ def convert_mask_detector(model: MaskDetector, variables: dict) -> dict[str, tor
 
 
 def convert_reference_fill(model: ReferenceFill, variables: dict) -> dict[str, torch.Tensor]:
-    """JAX ``ReferenceFill`` variables (params + spectral) -> state_dict."""
+    """JAX ``ReferenceFill`` variables (params + spectral, and batch_stats
+    with the DRN encoder) -> state_dict."""
     if not isinstance(model, ReferenceFill):
         raise TypeError(f"expected a ReferenceFill, got {type(model).__name__}")
+    return state_dict_from_jax(model, variables)
+
+
+def convert_drn(model: DRN, variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``DRN`` variables (params + batch_stats), or the tree of
+    ``tools/convert_torch.convert_drn_c``, -> state_dict."""
+    if not isinstance(model, DRN):
+        raise TypeError(f"expected a DRN, got {type(model).__name__}")
     return state_dict_from_jax(model, variables)
 
 

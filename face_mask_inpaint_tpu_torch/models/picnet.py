@@ -113,7 +113,8 @@ class ResGenerator(nn.Module):
     The K3 pair and the fused tail run in eval mode only: their kernels have
     no backward, and the JAX generator takes both only when ``not train``
     (``use_packed_output_kernel(train)``, ``use_packed_convt_kernel(train)``).
-    In training mode every block runs its dense, differentiable path."""
+    In training mode every block runs its dense, differentiable path. Under
+    ``use_coord`` no block packs, so neither runs (JAX picnet.py:224, :261)."""
 
     def __init__(self, input_nc: int, z_channels: Optional[int] = None,
                  output_nc: int = 3, ngf: int = 64, z_nc: int = 512,
@@ -127,6 +128,7 @@ class ResGenerator(nn.Module):
         kw = dict(activation=activation, use_spect=use_spect, init_type=init_type)
         self.layers, self.L, self.use_attn = layers, L, use_attn
         self.norm, self.pack_threshold, self.packed_convt = norm, pack_threshold, packed_convt
+        self.use_coord = use_coord
         ch = ngf * min(2 ** (layers - 1), img_f // ngf)
         if z_channels is not None:
             if input_nc != ch:
@@ -168,7 +170,7 @@ class ResGenerator(nn.Module):
         head = getattr(self, f"out{last}")
         pair = (not self.training and isinstance(fuse_pool, int) and head.pair_ok()
                 and not (last == 1 and self.use_attn))
-        packable = self.norm in ("instance", "none")
+        packable = self.norm in ("instance", "none") and not self.use_coord
         r, stats, pre_activated = 1, None, False  # r: the JAX space-to-depth factor
         for i in range(self.layers):
             dec = getattr(self, f"decoder{i}")

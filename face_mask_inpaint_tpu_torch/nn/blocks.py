@@ -18,6 +18,10 @@ leading activation, and the head runs ``pre_activated``. Not ported, because
 their outputs equal the dense math computed here: the space-to-depth packing
 of the decoder tail and the conv->avg-pool fold (``fuse_avgpool2``: conv then
 ``avg_pool2d`` here).
+
+CoordConv (``use_coord``) appends coordinate channels to a conv's input.
+Under it the fused forms are off (K3's pair head, the fused tail), as the
+JAX blocks turn theirs off, and the dense forms run.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from face_mask_inpaint_tpu_torch.ops.attention import attention_apply
 from face_mask_inpaint_tpu_torch.ops.conv import pixel_shuffle
 from face_mask_inpaint_tpu_torch.ops.resize import avg_pool2d, reflection_pad2d
 
-__all__ = ["CoordConvWrap", "ResBlock", "ResBlockEncoderOptimized",
+__all__ = ["add_coords", "AddCoords", "CoordConvWrap", "ResBlock", "ResBlockEncoderOptimized",
            "ResBlockDecoder", "Output", "AutoAttention", "ExampleGuidedAttention"]
 
 
@@ -65,22 +69,47 @@ def _unflat(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return t.transpose(1, 2).reshape(t.shape[0], t.shape[2], h, w)
 
 
+def add_coords(x: torch.Tensor, with_r: bool = False) -> torch.Tensor:
+    """AddCoords (base_function.py:152-184) on NCHW: append the row and column
+    coordinates, each evenly spaced over [-1, 1], and with ``with_r`` their
+    radius, as channels."""
+    n, _, h, w = x.shape
+    hh = torch.linspace(-1.0, 1.0, h, device=x.device).to(x.dtype).view(1, 1, h, 1)
+    ww = torch.linspace(-1.0, 1.0, w, device=x.device).to(x.dtype).view(1, 1, 1, w)
+    hh, ww = hh.expand(n, 1, h, w), ww.expand(n, 1, h, w)
+    feats = [x, hh, ww]
+    if with_r:
+        feats.append(torch.sqrt(hh ** 2 + ww ** 2))
+    return torch.cat(feats, dim=1)
+
+
+class AddCoords(nn.Module):
+    def __init__(self, with_r: bool = False):
+        super().__init__()
+        self.with_r = with_r
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return add_coords(x, self.with_r)
+
+
 class CoordConvWrap(nn.Module):
     """coord_conv factory (base_function.py:136-146): a (spectral-norm) conv
-    named ``conv``. CoordConv itself waits: ``use_coord`` is off on the path
-    this package runs."""
+    named ``conv``; with ``use_coord`` the coordinates (2 channels, 3 with
+    ``with_r``) are appended to its input first."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, bias: bool = True,
-                 use_spect: bool = False, use_coord: bool = False,
+                 use_spect: bool = False, use_coord: bool = False, with_r: bool = False,
                  init_type: str = "lecun_normal"):
         super().__init__()
-        if use_coord:
-            raise NotImplementedError("CoordConv is not ported yet")
-        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride, padding,
+        self.use_coord, self.with_r = use_coord, with_r
+        extra = (3 if with_r else 2) if use_coord else 0
+        self.conv = Conv2d(in_channels + extra, out_channels, kernel_size, stride, padding,
                            bias=bias, use_spect=use_spect, init_type=init_type)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_coord:
+            x = add_coords(x, self.with_r)
         return self.conv(x)
 
 
@@ -147,11 +176,14 @@ class ResBlockDecoder(nn.Module):
 
     def __init__(self, input_nc: int, output_nc: int, hidden_nc: Optional[int] = None,
                  norm: str = "instance", activation: str = "LeakyReLU",
-                 use_spect: bool = False, init_type: str = "lecun_normal"):
+                 use_spect: bool = False, use_coord: bool = False,
+                 init_type: str = "lecun_normal"):
         super().__init__()
         hidden_nc = output_nc if hidden_nc is None else hidden_nc
         kw = dict(use_spect=use_spect, init_type=init_type)
-        self.activation = activation
+        # the reference block's convs take no coordinates; like the JAX
+        # block, use_coord only turns its fused tail off
+        self.activation, self.use_coord = activation, use_coord
         self.act = Activation(activation)
         self.norm1 = _norm_act_module(norm, activation, input_nc)
         self.conv1 = Conv2d(input_nc, hidden_nc, 3, padding=1, **kw)
@@ -161,10 +193,10 @@ class ResBlockDecoder(nn.Module):
 
     def fused_ok(self) -> bool:
         """Whether the block can run as its fused tail (JAX nn/blocks.py:277-284:
-        instance norm or none, a (Leaky)ReLU; CoordConv is not ported)."""
+        instance norm or none, a (Leaky)ReLU, no CoordConv)."""
         norms_ok = all(m is None or isinstance(m, InstanceNorm2d)
                        for m in (self.norm1, self.norm2))
-        return norms_ok and self.activation in dc.ACTS
+        return norms_ok and self.activation in dc.ACTS and not self.use_coord
 
     def forward(self, x: torch.Tensor, return_pair: bool = False, fused: bool = False,
                 in_stats=None, want_stats: bool = False, fuse_act: Optional[str] = None):
@@ -269,30 +301,55 @@ class Output(nn.Module):
 
 
 class AutoAttention(nn.Module):
-    """Self-attention (Auto_Attn, base_function.py:401-448) without the
-    long-term ``pre`` branch, which the decoder never feeds on this path.
+    """Short- and long-term self-attention (Auto_Attn, base_function.py:401-448).
 
     out = gamma * A(x) + x with A(x)[i] = sum_j softmax_j(q_i . q_j) x[j] and
     q a 1x1 projection to C/4 channels. Above ``block_threshold`` tokens the
     map streams through kernel K1.
+
+    With ``pre_channels`` the module also has the long-term branch (JAX
+    nn/blocks.py:678-702): ``pre`` [N, C_pre, H, W] is a second value set of
+    the same map (K1 then runs with C + C_pre value channels), the context
+    flow alpha * (1 - mask) * A(pre) + mask * pre joins ``out`` on the
+    channels, and the ResBlock ``model`` (spectral norm, this module's norm)
+    maps the pair back to C channels. gamma and alpha start at zero.
     """
 
-    def __init__(self, in_channels: int, block_threshold: int = 4096,
+    def __init__(self, in_channels: int, pre_channels: Optional[int] = None,
+                 norm: str = "none", block_threshold: int = 4096,
                  init_type: str = "lecun_normal"):
         super().__init__()
         self.block_threshold = block_threshold
         self.query_conv = Conv2d(in_channels, in_channels // 4, 1, init_type=init_type)
         self.gamma = nn.Parameter(torch.empty(1))
+        self.alpha = self.model = None
+        if pre_channels is not None:
+            self.alpha = nn.Parameter(torch.empty(1))
+            self.model = ResBlock(in_channels + pre_channels, in_channels, in_channels,
+                                  norm=norm, use_spect=True, init_type=init_type)
 
     def reset_parameters(self, generator=None) -> None:
         with torch.no_grad():
             self.gamma.zero_()
+            if self.alpha is not None:
+                self.alpha.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pre: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: [N, C, H, W]; ``pre`` [N, C_pre, H, W] and ``mask`` [N, 1, H, W]
+        (or broadcastable) feed the long-term branch."""
         _, _, h, w = x.shape
-        (att,) = attention_apply(_flat(self.query_conv(x)), [_flat(x)],
-                                 block_threshold=self.block_threshold)
-        return self.gamma.to(x.dtype) * _unflat(att, h, w) + x
+        if (pre is None) != (self.model is None):
+            raise ValueError("pre is given exactly when the module has pre_channels")
+        values = [_flat(x)] + ([_flat(pre)] if pre is not None else [])
+        outs = attention_apply(_flat(self.query_conv(x)), values,
+                               block_threshold=self.block_threshold)
+        out = self.gamma.to(x.dtype) * _unflat(outs[0], h, w) + x
+        if pre is not None:
+            context_flow = (self.alpha.to(x.dtype) * (1.0 - mask) * _unflat(outs[1], h, w)
+                            + mask * pre)
+            out = self.model(torch.cat([out, context_flow], dim=1))
+        return out
 
 
 class ExampleGuidedAttention(nn.Module):

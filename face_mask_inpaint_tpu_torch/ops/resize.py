@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["bilinear_resize", "scale_img", "adaptive_avg_pool2d",
+__all__ = ["bilinear_resize", "scale_img", "adaptive_avg_pool2d", "nearest_resize",
            "reflection_pad2d", "avg_pool2d", "max_pool2d"]
 
 
@@ -41,6 +41,15 @@ def adaptive_avg_pool2d(x: torch.Tensor, output_size) -> torch.Tensor:
     if tuple(x.shape[2:]) == size:
         return x
     return F.adaptive_avg_pool2d(x, size)
+
+
+def nearest_resize(x: torch.Tensor, size) -> torch.Tensor:
+    """``F.interpolate(mode='nearest')`` (source index floor(i * in / out));
+    identity when the size matches."""
+    size = _size2(size)
+    if tuple(x.shape[2:]) == size:
+        return x
+    return F.interpolate(x, size=size, mode="nearest")
 
 
 def reflection_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -1,16 +1,15 @@
 """Reference PyTorch checkpoints -> JAX-layout variable trees, in numpy.
 
-The port's own copy of the JAX package's ``tools/convert_torch.py`` (every
-converter but the DRN one, which waits for the DRN slice): the same numpy
-code, so that given the same state dict it returns a tree equal leaf for
-leaf. ``face_mask_inpaint_tpu_torch.convert`` then maps each tree onto the
+The port's own copy of the JAX package's ``tools/convert_torch.py``: the
+same numpy code, so that given the same state dict it returns a tree equal
+leaf for leaf. ``face_mask_inpaint_tpu_torch.convert`` then maps each tree onto the
 port's modules with the rules of ``state_dict_from_jax``.
 
 Covers the pretrained assets the reference depends on: torchvision VGG16
 (VGGLoss) and InceptionV3 (FID), the LPIPS trunks and lin heads, ArcFace
 ir_se50 (IDLoss and the pSp encoder backbone), StyleGAN2 FFHQ g_ema, the
-reference's own UNet/MaskDetector, PICNet latest_net_{G,E,D} and pSp
-combined checkpoints.
+reference's own UNet/MaskDetector, PICNet latest_net_{G,E,D}, the DRN-C
+encoder and pSp combined checkpoints.
 
 Layout transforms:
 - conv OIHW            -> HWIO: transpose(2, 3, 1, 0)
@@ -45,6 +44,7 @@ __all__ = [
     "convert_gradual_style_encoder",
     "convert_stylegan2_generator",
     "convert_picnet_module",
+    "convert_drn_c",
     "convert_inception_v3",
     "convert_psp",
 ]
@@ -573,6 +573,45 @@ def _is_wrapped(path: list[str]) -> bool:
     return path[-1] in ("conv1", "conv2", "bypass") and not (
         len(path) > 1 and path[-2].startswith("decoder")
     )
+
+
+# ---------------------------------------------------------------------------
+# DRN-C (alternative ReferenceFill encoder; pretrained at dl.yf.io, drn.py:15)
+# ---------------------------------------------------------------------------
+
+def convert_drn_c(sd: dict, layers=(1, 1, 3, 4, 6, 3, 1, 1)) -> dict:
+    """drn_c_* state dict -> models/drn.DRN variables (arch 'C', BasicBlock).
+
+    The replaced 1x1 'fc' head (modules/model.py:50-55) converts when present.
+    """
+    params: dict[str, Any] = {
+        "conv1": plain_conv(sd, "conv1"),
+        "bn1": {"bn": bn(sd, "bn1")},
+    }
+
+    def basic_block(prefix):
+        blk = {
+            "conv1": plain_conv(sd, f"{prefix}.conv1"),
+            "bn1": {"bn": bn(sd, f"{prefix}.bn1")},
+            "conv2": plain_conv(sd, f"{prefix}.conv2"),
+            "bn2": {"bn": bn(sd, f"{prefix}.bn2")},
+        }
+        if f"{prefix}.downsample.0.weight" in sd:
+            blk["downsample_conv"] = plain_conv(sd, f"{prefix}.downsample.0")
+            blk["downsample_bn"] = {"bn": bn(sd, f"{prefix}.downsample.1")}
+        return blk
+
+    for li, n_blocks in enumerate(layers, start=1):
+        if n_blocks == 0:
+            continue
+        group = {}
+        for bi in range(n_blocks):
+            group[f"block{bi}"] = basic_block(f"layer{li}.{bi}")
+        params[f"layer{li}"] = group
+    if "fc.weight" in sd and sd["fc.weight"].ndim == 4:
+        params["fc"] = plain_conv(sd, "fc")
+    params, stats = _split_bn(params)
+    return {"params": params, "batch_stats": stats}
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,12 @@ NCHW in the generator's compute dtype. bf16-mixed training is a bfloat16
 ``ReferenceFill.dtype`` with float32 parameters, optimizer state and loss
 reductions. The sampling noise comes from an explicit ``torch.Generator`` or
 is passed in (``eps_q``/``eps_p``, NHWC like the encoders' mu).
+
+With the DRN encoder the generator has BatchNorm layers. The train step
+applies G once, in training mode, so they normalize with the batch's
+statistics and move the running ones once a step, as the JAX step's one
+apply with ``mutable=["spectral", "batch_stats"]`` does; the eval step runs
+them on the running statistics.
 """
 
 from __future__ import annotations

@@ -90,9 +90,20 @@ def test_cuda_device_fails_loudly_without_cuda():
 
 
 def test_unported_options_raise(tree):
-    args = cli.get_args(["--data_root", str(tree["root"]), "--old_model", "1", *WIDTHS])
-    with pytest.raises(NotImplementedError):
-        cli.build_models(args, torch.device("cpu"))
+    """--old_model 1, which raised before it was ported, now builds the
+    generator for 218x178 and an infer_batch that resizes the images and
+    the mask to 218x178 and decodes without z (no_prior). Five encoder
+    layers: 13x11 features, so the decoder's attention sees 52x44 tokens."""
+    args = cli.get_args(["--data_root", str(tree["root"]), "--old_model", "1", *WIDTHS,
+                         "--encoder_layers", "5"])
+    detector, generator = cli.build_models(args, torch.device("cpu"))
+    assert generator.out_size == (218, 178)
+    data = torch.Generator().manual_seed(0)
+    src, ref = (torch.rand(2, 64, 64, 3, generator=data) for _ in range(2))
+    gen, mask = cli.make_infer_batch(detector, generator, old_model=True)(
+        src, ref, torch.Generator().manual_seed(1))
+    assert gen.shape == (2, 218, 178, 3) and mask.shape == (2, 218, 178)
+    assert bool(torch.isfinite(gen).all()) and float(gen.abs().max()) <= 1.0
 
 
 def test_picnet_inference_cli_packed_convt_cpu(tree, tmp_path, monkeypatch):

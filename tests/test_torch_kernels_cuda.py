@@ -115,6 +115,24 @@ def test_flash_attention_wgmma_route_matches_plain(cuda, l, widths):
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
 
 
+# the old-model decode's attention: 108 x 88 = 9,504 tokens (a multiple of
+# no query or key tile) at the flagship decoder's d = 64, C = 256, on the
+# warpgroup route in bf16 and the split-precision route in f32 (the CLI's)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_old_model_tokens_matches_plain(cuda, dtype):
+    q = (torch.randn(2, 108 * 88, 64, device="cuda", generator=cuda) / 4).to(dtype)
+    vs = [torch.randn(2, 108 * 88, 256, device="cuda", generator=cuda).to(dtype)]
+    assert fa.flash_attention_route(q, vs) == ("wgmma" if dtype == torch.bfloat16
+                                               else "tf32x3")
+    before = fa.flash_attention.launches
+    outs, lse = fa.flash_attention(q, vs, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    refs, lse_ref = fa.flash_attention_plain(q, vs, with_lse=True)
+    _assert_close(outs[0], refs[0], dtype)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
 # f32 at d in {32, 64} with C <= 256: the split-precision (3xTF32) kernel, at
 # L of one key, under and just over one 128-row query block, and ragged over
 # many key tiles; C of the flagship (256), of Stack A's two values (200 +
@@ -398,6 +416,23 @@ def test_norm_act_kernel_matches_plain_on_each_route(cuda, dtype, act, affine, s
     assert na.instance_norm_act.launches == before + 1
     assert y.dtype == dtype and y.shape == x.shape
     _assert_close(y, na.instance_norm_act_plain(x, w, b, act), dtype)
+
+
+# the old-model decode (PICNet_inference.py --old_model 1: a 218x178 input,
+# 27x22 features): its ten norms on planes of 27x22 up to 432x352, none a
+# power of two, and the 864x704 of its output size
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(27, 22), (54, 44), (108, 88), (216, 176), (432, 352),
+                                (864, 704)])
+def test_norm_act_old_model_planes_match_plain(cuda, dtype, hw):
+    x = (torch.randn(2, 4, *hw, device="cuda", generator=cuda) * 2 + 1).to(dtype)
+    w = torch.randn(4, device="cuda", generator=cuda)
+    b = torch.randn(4, device="cuda", generator=cuda)
+    before = na.instance_norm_act.launches
+    y = na.instance_norm_act(x, w, b, "LeakyReLU")
+    torch.cuda.synchronize()
+    assert na.instance_norm_act.launches == before + 1
+    _assert_close(y, na.instance_norm_act_plain(x, w, b, "LeakyReLU"), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -70,8 +70,10 @@ def test_train_cli_rejects_unported_options(tree, tmp_path, monkeypatch, caplog)
     the JAX CLI's warning, the activations of the two validation batches
     (one image each) accumulated into one Fréchet distance. The distance is
     recorded here (a 2048-dimensional sqrtm takes about 30 s on this CPU;
-    tests/test_torch_fid.py holds it against JAX's). --encoder_type drn
-    still raises."""
+    tests/test_torch_fid.py holds it against JAX's). --encoder_type drn,
+    which raised before it was ported, now trains: one epoch at batch 4
+    (three steps) with finite losses, the DRN encoders' running statistics
+    moved and --pt_ckpt_path cleared, as the JAX CLI clears it."""
     import logging
 
     from face_mask_inpaint_tpu_torch.data.loader import get_reference_dataloader
@@ -97,8 +99,16 @@ def test_train_cli_rejects_unported_options(tree, tmp_path, monkeypatch, caplog)
     metrics, _ = cli.evaluate(trainer, val_loader, {"ssim", "fid"}, 1)
     assert seen == [((2, 2048), (2, 2048))]
     assert math.isfinite(metrics["fid"]) and metrics["fid"] > 0 and 0 < metrics["ssim"] < 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        cli.main([*base, "--encoder_type", "drn"])
+    drn = cli.main([*base, "--encoder_type", "drn", "--epochs", "1", "--batch_size", "4",
+                    "--run_name", "drn", "--pt_ckpt_path", str(tmp_path / "picnet")])
+    assert drn.step == 3 and not hasattr(drn.generator.decoder, "generator")
+    assert cli.get_args([*base, "--encoder_type", "drn", "--pt_ckpt_path", "x"]).pt_ckpt_path == ""
+    stats = drn.generator.src_encoder.layer8.block0.bn2.running_mean
+    assert float(stats.abs().max()) > 0  # moved from its zero init
+    recs = [json.loads(line) for line in (tmp_path / "drn" / "metrics.jsonl").read_text()
+            .splitlines()]
+    assert all(math.isfinite(r["G loss"]) and math.isfinite(r["D loss"])
+               for r in recs if "G loss" in r)
 
 
 def _state_equal(a, b, what):
