@@ -157,7 +157,9 @@ counts set to 0 just before it and read just after. Phases:
    times, K3 once; old model: K1 once, K2 ten times, K3 never), the
    float32 output (DRN at batch 4, the old model at batch 16) against the
    plain versions to phase 3's gate, bfloat16 at batch 16 timed (CUDA
-   events, median and quartiles) with its peak memory; K1 at the old
+   events, median and quartiles) with its peak memory, its first 4 images
+   no further from the float32 plain path than BF16_VS_F32 times the
+   bfloat16 plain path is; K1 at the old
    model's 108 x 88 = 9,504 tokens in both types at phase 2's gates;
    ``cli/picnet_inference.main --device cuda`` with each flag on a seeded
    CelebA-layout tree under ``build/chip_smoke_data`` (image sizes,
@@ -169,7 +171,24 @@ counts set to 0 just before it and read just after. Phases:
    own drift under a 1e-6 move of the source (the DRN's f32 gradients at
    init are ill-conditioned: PERF.md, section 6); AutoAttention's ``pre``
    branch at 128^2, C = 64 + 64 (K1's CUDA-core route) against its plain
-   version, and a CoordConv ResBlock, card against CPU.
+   version, the flagship decoder fed ``f_e`` and ``mask`` (K1 once, K2
+   twelve times) against its plain versions, and a CoordConv ResBlock, card
+   against CPU;
+13. data parallel (``tools/dp_check.py``): the config-5 GAN step (bf16 and
+   f32, global batch 16), the config-4 pSp step (f32, global batch 8) and the
+   Stack C UNet step (f32, 256^2, global batch 16), each built by its CLI's
+   ``Trainer`` on two gloo ranks that share the card, one step after a
+   warm-up: each rank's launches (config 5: K1 once, K5 once, K2 ten times;
+   config 4: K6 16 + 16, K7a 17, K7b 17; the UNet none), the ranks'
+   parameters equal, the metrics, the gradients and the parameter update
+   against the one-process step on the same global batch (DP_TOL,
+   DP_DRIFT), a negative control (the step with one sync cut misses the
+   gradient gate), the step times side by side (two processes share one card: the times measure the
+   collectives' cost through gloo, not scaling); one NCCL rank (a
+   collective, the UNet step with its group against without); and
+   ``cli/train_mask_detector`` under ``torch.distributed.run
+   --nproc_per_node 2`` for one epoch on phase 10's tree, only rank 0
+   writing its files.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -315,6 +334,36 @@ DRN_PER_STEP = dict(PER_STEP)
 DRN_ROUNDS = 5
 # phase 12's CLI runs: a seeded CelebA-layout tree of 2 identities x 4 images
 CLI_IDENTITIES, CLI_PER_IDENTITY = 2, 4
+# phase 12's bf16 outputs (batch 16, the first 4 held): the bf16 kernel
+# path's max and mean |difference| from the f32 plain path each at most this
+# multiple of the bf16 plain path's, so a kernel fault that shows only in
+# bf16 cannot pass unseen (the max alone sits on the pixels where bf16
+# rounding is amplified most, on both paths alike)
+BF16_VS_F32 = 2.0
+# phase 13, data parallel: each trainer's step on two gloo ranks sharing the
+# card (tools/dp_check.py), against the one-process step on the same global
+# batch (config 5 in bf16 and in f32). Metrics within the JAX data-parallel
+# tests' tolerance (rtol 2e-4, atol 1e-5) plus three times the step's own
+# drift under a rounding-sized move of the source (1e-6 of itself in f32,
+# 2^-8 in bf16); the two-rank
+# parameter update within three times that drift's distance (L2) from the
+# one-process update, as phase 12 holds the DRN's ill-conditioned f32
+# gradients, and the gradients averaged over the ranks (before Adam, whose
+# first step is about +-lr whatever a gradient's size, turns each sign flip
+# near zero into a full step) within three times theirs; every rank's
+# parameters equal to rank 0's. A negative control per trainer but the bf16
+# GAN, the step with one sync cut (tools/dp_check.py's CUT), must miss the
+# gradient gate.
+# Launches per rank
+DP_WORLD, DP_TOL, DP_DRIFT = 2, (2e-4, 1e-5), 3.0
+DP_PER_STEP = {"gan": PER_STEP, "gan_f32": PER_STEP, "psp": PSP_PER_STEP,
+               "unet": {k: 0 for k in PER_STEP}}
+# bf16 rounds each rank's weight gradients before the ranks average them:
+# the bf16 step's gradient gate takes the larger of the drift and bf16's
+# resolution on them (2^-8 of their L2), and it has no control (a noise cut
+# moves its gradients less than that; config 5's control runs in f32)
+DP_GRAD_FLOOR = {"gan": 2.0 ** -8}
+DP_TIMEOUT = 400
 
 KERNELS = {
     "flash_attention_fwd": dict(
@@ -957,23 +1006,9 @@ def _models(seed: int, dtype, enc=None, out_size=None):
 
 
 def _counts():
-    from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
-    from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
-    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
-    from face_mask_inpaint_tpu_torch.kernels import norm_act as na
-    from face_mask_inpaint_tpu_torch.kernels import output_head as oh
-    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+    from face_mask_inpaint_tpu_torch.kernels import launch_counts
 
-    return {"flash_attention_fwd": fa.flash_attention.launches,
-            "flash_attention_bwd": fa.flash_attention_bwd.launches,
-            "instance_norm_act": na.instance_norm_act.launches,
-            "output_head": oh.output_head.launches,
-            "conv3x3_stats": dc.conv3x3_stats.launches,
-            "convt_pair": dc.convt_pair.launches,
-            "upfirdn2d": fir.upfirdn2d.launches,
-            "upfirdn2d_bwd": fir.upfirdn2d_bwd.launches,
-            "fused_leaky_relu": act.fused_leaky_relu.launches,
-            "fused_leaky_relu_bwd": act.fused_leaky_relu_bwd.launches}
+    return launch_counts()
 
 
 @contextlib.contextmanager
@@ -2434,7 +2469,8 @@ def _forward_check(run: Run, name: str, forward, want_launches: dict, shape, car
     ``want_launches``), its output's shape, range and finiteness, then the
     same forward on the plain versions: max |kernel - plain| <= 1e-3 of
     the plain path's largest entry where ``gate`` (the flagship output gate
-    of phase 3, in float32), printed otherwise. Returns the output."""
+    of phase 3, in float32), printed otherwise. Returns the output and the
+    plain versions' output."""
     import torch
 
     from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
@@ -2456,9 +2492,9 @@ def _forward_check(run: Run, name: str, forward, want_launches: dict, shape, car
                                        f"{err:.3e} (tol 1e-3 * {scale:.4f})")
     else:
         print(f"[other encoders] {name}: kernel path vs plain versions max_abs_err {err:.3e} "
-              f"of {scale:.4f} (bf16 outputs are rounded to 2^-8 near 1: not gated; the "
-              f"float32 forward is)", flush=True)
-    return out
+              f"of {scale:.4f} (bf16 outputs are rounded to 2^-8 near 1: gated against the "
+              f"float32 plain path below)", flush=True)
+    return out, want
 
 
 def _time_forward(name: str, forward, batch: int, card: str) -> None:
@@ -2488,8 +2524,10 @@ def _time_forward(name: str, forward, batch: int, card: str) -> None:
 def _phase_other_inference(run: Run, seed: int, card: str) -> None:
     """Config 3 with the DRN encoders (f32 batch 4 gated against the plain
     versions, bf16 batch 16 timed) and the old-model path (batch 16, f32
-    gated, bf16 timed), each through the CLI's ``infer_batch``; K1 at the
-    old model's 9,504 tokens in both types."""
+    gated, bf16 timed), each through the CLI's ``infer_batch``; the bf16
+    outputs' first 4 images held to the f32 plain path's, within
+    BF16_VS_F32 times the bf16 plain path's own distance from it (neither
+    path draws noise); K1 at the old model's 9,504 tokens in both types."""
     import torch
 
     from face_mask_inpaint_tpu_torch.cli import picnet_inference as cli
@@ -2511,9 +2549,13 @@ def _phase_other_inference(run: Run, seed: int, card: str) -> None:
                 name, want, shape = "old-model", OLD_MODEL_PER_FORWARD, (batch, *OLD_MODEL_HW, 3)
             else:
                 name, want, shape = "DRN flagship", DRN_PER_FORWARD, (batch, HW, HW, 3)
-            _forward_check(run, f"{name} {dname} batch {batch}", forward, want, shape, card,
-                           gate)
+            out, plain = _forward_check(run, f"{name} {dname} batch {batch}", forward, want,
+                                        shape, card, gate)
             if not gate:
+                with torch.no_grad():
+                    mask = detector.predict_mask(src[:4]).float()
+                _bf16_vs_f32(run, f"{name} bf16", seed, old_model, src[:4], ref[:4], mask,
+                             out[:4], plain[:4])
                 _time_forward(f"{name} forward (detector + ReferenceFill"
                               f"{', no_prior at 218x178' if old_model else ', DRN-C-42 encoders'}"
                               f") {dname}", forward, batch, card)
@@ -2539,6 +2581,41 @@ def _phase_other_inference(run: Run, seed: int, card: str) -> None:
               f"({route}): {ms:.3f} ms, on {card}", flush=True)
         del q, vs, outs, refs
         torch.cuda.empty_cache()
+
+
+class _FixedMask:
+    """A detector that hands over a mask already predicted."""
+
+    def __init__(self, mask):
+        self.mask = mask
+
+    def predict_mask(self, src):
+        return self.mask
+
+
+def _bf16_vs_f32(run: Run, name: str, seed: int, old_model: bool, src, ref, mask, out,
+                 plain) -> None:
+    """The bf16 kernel path's output against the f32 plain path's on the
+    same 4 images and the bf16 detector's mask: at most BF16_VS_F32 times as
+    far as the bf16 plain path's."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.cli import picnet_inference as cli
+
+    detector, model = (_models(seed, torch.float32, out_size=OLD_MODEL_HW) if old_model
+                       else _models(seed, torch.float32, DRN_ENC))
+    with plain_versions():
+        want = cli.make_infer_batch(_FixedMask(mask), model, old_model)(
+            src, ref, torch.Generator(device="cuda").manual_seed(seed + 1))[0].float()
+    dk, dp = (out.float() - want).abs(), (plain.float() - want).abs()
+    err_k, err_p = float(dk.max()), float(dp.max())
+    mean_k, mean_p = float(dk.mean()), float(dp.mean())
+    run.check(err_k <= BF16_VS_F32 * err_p and mean_k <= BF16_VS_F32 * mean_p,
+              f"{name}: |kernel path - f32 plain| max {err_k:.3e}, mean {mean_k:.3e}, within "
+              f"{BF16_VS_F32} x the bf16 plain path's {err_p:.3e}, {mean_p:.3e} (ratios "
+              f"{err_k / max(err_p, 1e-30):.3f}, {mean_k / max(mean_p, 1e-30):.3f})")
+    del detector, model
+    torch.cuda.empty_cache()
 
 
 def _phase_other_cli(run: Run, seed: int, card: str, workdir) -> None:
@@ -2680,11 +2757,14 @@ def _phase_other_train(run: Run, seed: int, card: str) -> None:
 def _phase_pre_and_coord(run: Run, seed: int) -> None:
     """AutoAttention's long-term branch at 128^2, C = 64 (d = 16: K1's
     CUDA-core route, C + C_pre = 128 value channels in one call) against its
-    plain version; a CoordConv ResBlock on the card against the CPU."""
+    plain version; the flagship decoder with ``f_e`` and ``mask`` feeding
+    that branch, against its plain versions; a CoordConv ResBlock on the card
+    against the CPU."""
     import torch
 
     from face_mask_inpaint_tpu_torch.kernels import flash_attention as fa
     from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+    from face_mask_inpaint_tpu_torch.models.picnet import define_g
     from face_mask_inpaint_tpu_torch.nn.blocks import AutoAttention, ResBlock
     from face_mask_inpaint_tpu_torch.nn.layers import init_weights
 
@@ -2713,6 +2793,35 @@ def _phase_pre_and_coord(run: Run, seed: int) -> None:
               f"AutoAttention with pre, 128^2, C = 64 + 64, f32: K1 on its {route} route "
               f"({launches['flash_attention_fwd']} launch), K2 x{launches['instance_norm_act']}; "
               f"vs plain versions max_abs_err {err:.3e} (tol 1e-3 * {scale:.4f})")
+    # the flagship decoder (f32, batch 2, from 32^2 features with z) with
+    # f_e [2, 64, 128^2] and a mask at the attention's 128^2: K1 once (C =
+    # 256 + 64 value channels), K2 on the ten decoder norms and the pre
+    # ResBlock's two
+    gen = init_weights(define_g(**FLAGSHIP_DEC, input_nc=256, z_channels=256,
+                                attn_pre_channels=64),
+                       torch.Generator().manual_seed(seed)).cuda().eval()
+    with torch.no_grad():
+        gen.attn1.gamma.fill_(1.0)
+        gen.attn1.alpha.fill_(1.0)
+    enc = torch.randn(2, 256, 32, 32, device="cuda", generator=data)
+    z = torch.randn(2, 256, 32, 32, device="cuda", generator=data)
+    f_e = torch.randn(2, 64, 128, 128, device="cuda", generator=data)
+    with torch.no_grad():
+        reset_launch_counts()
+        out = gen(enc, z=z, f_e=f_e, mask=mask)
+        torch.cuda.synchronize()
+        launches = _counts()
+        with plain_versions():
+            want = gen(enc, z=z, f_e=f_e, mask=mask)
+    err, scale = float((out - want).abs().max()), float(want.abs().max())
+    run.check(launches["flash_attention_fwd"] == 1 and launches["instance_norm_act"] == 12
+              and tuple(out.shape) == (2, 3, 1024, 1024) and err <= 1e-3 * scale,
+              f"ResGenerator with f_e and mask (flagship decoder, 128^2 attention, C = 256 + "
+              f"64, f32): K1 x{launches['flash_attention_fwd']}, K2 "
+              f"x{launches['instance_norm_act']}; vs plain versions max_abs_err {err:.3e} (tol "
+              f"1e-3 * {scale:.4f})")
+    del gen, enc, z, f_e, out, want
+    torch.cuda.empty_cache()
     block = init_weights(ResBlock(64, 64, 64, norm="instance", use_spect=True, use_coord=True),
                          torch.Generator().manual_seed(seed)).eval()
     x_cpu = torch.randn(2, 64, 64, 64, generator=torch.Generator().manual_seed(seed + 45))
@@ -2735,6 +2844,110 @@ def phase_other_encoders(run: Run, seed: int, card: str, workdir) -> None:
     _phase_pre_and_coord(run, seed)
     print(f"[other encoders] phase 12: {time.perf_counter() - t_phase:.1f} s, on {card}",
           flush=True)
+
+
+def _dp_metrics_ok(got: dict, one: dict, drift: dict) -> tuple[bool, float]:
+    """Every metric within DP_TOL plus DP_DRIFT times its own drift; and
+    the largest share of that tolerance used."""
+    rtol, atol = DP_TOL
+    worst = 0.0
+    for k, v in one.items():
+        tol = atol + rtol * abs(v) + DP_DRIFT * abs(drift[k] - v)
+        share = abs(got[k] - v) / tol
+        worst = max(worst, share if math.isfinite(share) else math.inf)
+    return set(got) == set(one) and worst <= 1.0, worst
+
+
+def phase_data_parallel(run: Run, seed: int, card: str, workdir) -> None:
+    """Phase 13: each trainer's step on two gloo ranks sharing the card
+    against the one-process step (tools/dp_check.py), one NCCL rank, and
+    ``cli/train_mask_detector`` under ``torch.distributed.run`` with two
+    ranks on phase 10's tree, only rank 0 writing."""
+    import os
+
+    from face_mask_inpaint_tpu_torch.tools import dp_check
+
+    t_phase = time.perf_counter()
+    out = workdir / "dp_check"
+    print(f"[dp] {DP_WORLD} ranks share the one card over gloo: the two-rank step times "
+          f"measure the collectives' cost through gloo, not scaling; on {card}", flush=True)
+    for name in DP_PER_STEP:
+        t0 = time.perf_counter()
+        r = dp_check.run(name, DP_WORLD, seed, str(out), DP_TIMEOUT)
+        ranks = r["ranks"]
+        launches = [x["launches"] for x in ranks]
+        run.check(all(x == DP_PER_STEP[name] for x in launches),
+                  f"{name} two-rank step: each rank launches {DP_PER_STEP[name]}: {launches}")
+        run.check(all(x["backend"] == "gloo" and x["replica_gap"] == 0.0 for x in ranks),
+                  f"{name} two-rank step: gloo, every rank's parameters and buffers equal rank "
+                  f"0's after the step: gaps {[x['replica_gap'] for x in ranks]}")
+        ok, worst = _dp_metrics_ok(r["metrics"], r["one_metrics"], r["drift_metrics"])
+        run.check(ok, f"{name} two-rank step vs one-process step, metrics: at most {worst:.3f} "
+                      f"of the tolerance (rtol {DP_TOL[0]}, atol {DP_TOL[1]} + {DP_DRIFT} x the "
+                      f"drift): two-rank {r['metrics']}, one-process {r['one_metrics']}")
+        run.check(r["update_norm"] > 0 and r["dp_distance"] <= DP_DRIFT * r["drift_distance"],
+                  f"{name} two-rank step vs one-process step, parameter update ({r['n_params']} "
+                  f"trained): L2 distance {r['dp_distance']:.4e} within {DP_DRIFT} x the drift's "
+                  f"{r['drift_distance']:.4e} (the update's L2 {r['update_norm']:.4e})")
+        floor = max(r["drift_grad_distance"], DP_GRAD_FLOOR.get(name, 0.0) * r["grad_norm"])
+        run.check(r["grad_norm"] > 0 and r["dp_grad_distance"] <= DP_DRIFT * floor,
+                  f"{name} two-rank step vs one-process step, gradients averaged over the ranks "
+                  f"before the optimizers step: L2 distance {r['dp_grad_distance']:.4e} within "
+                  f"{DP_DRIFT} x {floor:.4e} (the drift's {r['drift_grad_distance']:.4e}; the "
+                  f"gradients' L2 {r['grad_norm']:.4e})")
+        if r["cut"] is not None:
+            _, cut_worst = _dp_metrics_ok(r["cut_metrics"], r["one_metrics"],
+                                          r["drift_metrics"])
+            run.check(r["cut_grad_distance"] > DP_DRIFT * floor,
+                      f"{name} negative control, the two-rank step with its {r['cut']} sync "
+                      f"cut misses the gradient gate: L2 distance {r['cut_grad_distance']:.4e} "
+                      f"over {DP_DRIFT} x {floor:.4e} (its update {r['cut_distance']:.4e} "
+                      f"against the drift's {r['drift_distance']:.4e}, its metrics at "
+                      f"{cut_worst:.3f} of their tolerance)")
+        rank_ms = ", ".join(f"{x['seconds'] * 1e3:.2f}" for x in ranks)
+        print(f"[time] {name} step, global batch {dp_check.TRAINERS[name]}: two ranks sharing "
+              f"the card over gloo {rank_ms} ms "
+              f"(each rank's host wall to the end of its device work, after one warm-up), one "
+              f"process {r['one_seconds'] * 1e3:.2f} ms; rank 0's peak device memory "
+              f"{r['peak_gib']:.2f} GiB; {time.perf_counter() - t0:.1f} s with start-up, on "
+              f"{card}", flush=True)
+
+    r = dp_check.nccl_check(seed, str(out))
+    run.check(r["all_reduce"] == [0.0, 1.0, 2.0, 3.0]
+              and r["used"] <= 1.0 and abs(r["loss_group"] - r["loss_none"])
+              <= DP_TOL[1] + DP_TOL[0] * abs(r["loss_none"]),
+              f"one NCCL rank: all-reduce and broadcast {r['all_reduce']}; the UNet step with "
+              f"its group vs without: loss {r['loss_group']:.6f} / {r['loss_none']:.6f}, state "
+              f"at most {r['used']:.3f} of the tolerance")
+
+    tree = (workdir / "unet_tree").resolve()
+    ckpt_dir = (workdir / "dp_cli").resolve()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(DP_WORLD), "-m", "face_mask_inpaint_tpu_torch.cli.train_mask_detector",
+           "--device", "cuda", "--seed", str(seed), "--dir_img", str(tree / "images_masked"),
+           "--dir_mask", str(tree / "binary_map"), "--batch-size", str(UNET_CLI_BATCH),
+           "--epochs", "1", "--dir_checkpoint", str(ckpt_dir)]
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path.cwd().resolve()), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_TIMEOUT, env=env)
+    wall = time.perf_counter() - t0
+    files = sorted(str(p.relative_to(ckpt_dir)) for p in ckpt_dir.rglob("*") if p.is_file())
+    recs = ([json.loads(x) for x in (ckpt_dir / "logs" / "metrics.jsonl").read_text()
+             .splitlines()] if (ckpt_dir / "logs" / "metrics.jsonl").is_file() else [])
+    steps = [x["step"] for x in recs if "train loss" in x]
+    n_steps = (UNET_CLI_IMAGES - UNET_CLI_IMAGES // 10) // UNET_CLI_BATCH
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n", file=sys.stderr)
+    run.check(proc.returncode == 0 and files == ["logs/metrics.jsonl", "unet_checkpoint_epoch1"]
+              and steps == list(range(1, n_steps + 1))
+              and sum("_config" in x for x in recs) == 1
+              and all(math.isfinite(x["train loss"]) for x in recs if "train loss" in x),
+              f"train_mask_detector under torch.distributed.run, {DP_WORLD} ranks, global batch "
+              f"{UNET_CLI_BATCH}: rc {proc.returncode}, files {files}, one record a step "
+              f"({len(steps)} of {n_steps}) and one config record: only rank 0 wrote")
+    print(f"[dp] torch.distributed.run of train_mask_detector, one epoch: {wall:.1f} s; phase "
+          f"13 {time.perf_counter() - t_phase:.1f} s, on {card}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -2777,6 +2990,7 @@ def main(argv=None) -> int:
         det_path, det_state = phase_unet_train(run, args.seed, smi, workdir)
         phase_reference_fid(run, args.seed, smi, workdir, det_path, det_state)
         phase_other_encoders(run, args.seed, smi, workdir)
+        phase_data_parallel(run, args.seed, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)

@@ -1,8 +1,10 @@
 """Train the UNet mask detector (Stack C): the port of
-``train_mask_detector.py`` with its flags and defaults, on one device.
+``train_mask_detector.py`` with its flags and defaults.
 
     python -m face_mask_inpaint_tpu_torch.cli.train_mask_detector \\
         --dir_img <images_masked> --dir_mask <binary_map> [--device cuda]
+    python -m torch.distributed.run --standalone --nproc_per_node W \\
+        -m face_mask_inpaint_tpu_torch.cli.train_mask_detector ...
 
 Cross-entropy plus multiclass Dice, Adam (train/unet.py); the split of
 ``--validation`` percent of the images, the train loader shuffled from
@@ -23,8 +25,15 @@ reference ``mask_detector.pth``/``.pt`` converted with ``convert_unet``
 ``--amp`` runs the model in bfloat16 over float32 parameters, as the JAX CLI
 builds it (``dtype=bfloat16``). ``--device`` defaults to cuda and fails when
 CUDA is absent; ``--device cpu`` runs on the CPU. ``--seed`` seeds the
-weights and the shuffle. One device: data parallel waits for the DDP item
-(ROADMAP.md queue 1, item 6).
+weights and the shuffle.
+
+Under ``torch.distributed.run`` the W ranks train data parallel, as the JAX
+trainer does over its mesh (parallel/dist.py): the global batch is
+``--batch-size`` rounded to ``max(b, W) // W * W``, each rank takes its
+slice of it and the step computes the one-process step on the global batch
+(BatchNorm's moments, the Dice's sums and the gradients over the ranks).
+Every rank builds the weights from ``--seed`` and reads ``--load``; rank
+0's are then broadcast. Only rank 0 validates, logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -37,16 +46,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from face_mask_inpaint_tpu_torch.cli.picnet_inference import resolve_device
 from face_mask_inpaint_tpu_torch.convert import load_checkpoint, read_checkpoint
 from face_mask_inpaint_tpu_torch.data.dataset import BasicDataset
 from face_mask_inpaint_tpu_torch.data.loader import DataLoader, split_dataset
 from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
+from face_mask_inpaint_tpu_torch.parallel import dist as pdist
 from face_mask_inpaint_tpu_torch.tools.convert_torch import convert_unet
 from face_mask_inpaint_tpu_torch.train import checkpoint as ckpt
 from face_mask_inpaint_tpu_torch.train.optim import adam
 from face_mask_inpaint_tpu_torch.train.unet import make_unet_eval_step, make_unet_train_step
-from face_mask_inpaint_tpu_torch.utils.metrics_logger import MetricsLogger
+from face_mask_inpaint_tpu_torch.utils.metrics_logger import MetricsLogger, NullLogger
 from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
 
 __all__ = ["get_args", "build_model", "Trainer", "train_net", "main"]
@@ -96,14 +105,16 @@ def build_model(args, device: torch.device) -> MaskDetector:
 
 
 class Trainer:
-    """The model, Adam and the step: what a checkpoint holds."""
+    """The model, Adam and the step: what a checkpoint holds. ``dist`` is
+    this rank's data-parallel environment, or the device of a run on one rank."""
 
-    def __init__(self, args, device: torch.device):
-        self.device = device
+    def __init__(self, args, dist: pdist.DistEnv | torch.device):
+        self.dist = dist if isinstance(dist, pdist.DistEnv) else pdist.DistEnv(dist)
+        self.device = device = self.dist.device
         self.model = build_model(args, device)
         self.optimizer = adam(self.model.parameters(), args.lr)
         self.step = 0
-        self.train_step = make_unet_train_step(self.model, self.optimizer)
+        self.train_step = make_unet_train_step(self.model, self.optimizer, self.dist.group)
         self.eval_step = make_unet_eval_step(self.model)
 
     def state_dict(self) -> dict:
@@ -135,35 +146,40 @@ def _to_device(batch: dict, device: torch.device) -> dict:
             "mask": (batch["mask"] > 0).long().to(device, non_blocking=True)}
 
 
-def make_loaders(args):
+def make_loaders(args, rank: int = 0, world_size: int = 1):
     """(train loader, val loader, n_train, n_val) over BasicDataset with the
-    JAX CLI's split (train_mask_detector.py:69-84)."""
+    JAX CLI's split (train_mask_detector.py:69-84); ``args.batch_size`` is
+    the global batch, of which the train loader hands rank ``rank`` its
+    slice."""
     dataset = BasicDataset(args.dir_img, args.dir_mask, args.scale)
     n_val = int(len(dataset) * args.val / 100)
     n_train = len(dataset) - n_val
     train_idx, val_idx = split_dataset(len(dataset), n_val / len(dataset))
     pin = str(args.device).startswith("cuda")
     train_loader = DataLoader(torch.utils.data.Subset(dataset, train_idx), args.batch_size,
-                              shuffle=True, drop_last=True, seed=args.seed, pin_memory=pin)
+                              shuffle=True, drop_last=True, seed=args.seed, pin_memory=pin,
+                              rank=rank, world_size=world_size)
     val_loader = DataLoader(torch.utils.data.Subset(dataset, val_idx), args.batch_size,
                             shuffle=False, drop_last=True, pin_memory=pin)
     return train_loader, val_loader, n_train, n_val
 
 
 def train_net(trainer: Trainer, args, save_checkpoint: bool = True) -> Trainer:
-    train_loader, val_loader, n_train, n_val = make_loaders(args)
-    logger = MetricsLogger(Path(args.dir_checkpoint) / "logs", "Mask Detector",
-                           config=vars(args), use_wandb=bool(args.use_wandb))
+    dist = trainer.dist
+    train_loader, val_loader, n_train, n_val = make_loaders(args, dist.rank, dist.world_size)
+    logger = (MetricsLogger(Path(args.dir_checkpoint) / "logs", "Mask Detector",
+                            config=vars(args), use_wandb=bool(args.use_wandb))
+              if dist.is_main else NullLogger())
     logging.info("Starting training: epochs=%d batch=%d lr=%g train=%d val=%d scale=%g "
-                 "device=%s amp=%s", args.epochs, args.batch_size, args.lr, n_train, n_val,
-                 args.scale, trainer.device, args.amp)
+                 "device=%s amp=%s ranks=%d", args.epochs, args.batch_size, args.lr, n_train,
+                 n_val, args.scale, trainer.device, args.amp, dist.world_size)
 
     def evaluate() -> float:
         scores = [float(trainer.eval_step(_to_device(b, trainer.device))["dice"])
                   for b in val_loader]
         return float(np.mean(scores)) if scores else 0.0
 
-    profiler = ProfileWindow(args.profile_dir, args.profile_steps)
+    profiler = ProfileWindow(args.profile_dir if dist.is_main else "", args.profile_steps)
     # the JAX CLI's plateau tracking ('max', patience 2): its scale is
     # logged as the learning rate and never reaches the optimizer
     # (train_mask_detector.py:127-146)
@@ -176,7 +192,7 @@ def train_net(trainer: Trainer, args, save_checkpoint: bool = True) -> Trainer:
                 loss = float(trainer.train_step(_to_device(batch, trainer.device))["loss"])
                 trainer.step += 1
                 logger.log({"train loss": loss, "epoch": epoch}, step=trainer.step)
-                if division_step > 0 and trainer.step % division_step == 0:
+                if division_step > 0 and trainer.step % division_step == 0 and dist.is_main:
                     val_score = evaluate()
                     if val_score > best + 1e-4:
                         best, patience_left = val_score, 2
@@ -188,13 +204,14 @@ def train_net(trainer: Trainer, args, save_checkpoint: bool = True) -> Trainer:
                     logging.info("Validation Dice score: %s", val_score)
                     logger.log({"validation Dice": val_score,
                                 "learning rate": args.lr * lr_scale}, step=trainer.step)
-            if save_checkpoint:
+            if save_checkpoint and dist.is_main:
                 path = ckpt.save_state(args.dir_checkpoint, "unet", epoch + 1,
                                        trainer.state_dict())
                 logging.info("Checkpoint %d saved to %s!", epoch + 1, path)
     except KeyboardInterrupt:
-        ckpt.save_state(args.dir_checkpoint, "INTERRUPTED", 0, trainer.state_dict())
-        logging.info("Saved interrupt")
+        if dist.is_main:
+            ckpt.save_state(args.dir_checkpoint, "INTERRUPTED", 0, trainer.state_dict())
+            logging.info("Saved interrupt")
         sys.exit(0)
     finally:
         profiler.close()
@@ -205,14 +222,23 @@ def train_net(trainer: Trainer, args, save_checkpoint: bool = True) -> Trainer:
 def main(argv=None) -> Trainer:
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    device = resolve_device(args.device)
-    logging.info("Using device %s", device)
-    Path(args.dir_checkpoint).mkdir(parents=True, exist_ok=True)
-    trainer = Trainer(args, device)
-    logging.info("Network: 3 input channels, 2 output classes, bilinear upscaling")
-    if args.load:
-        trainer.load(args.load)
-    return train_net(trainer, args)
+    dist = pdist.init_from_env(args.device)
+    try:
+        if not dist.is_main:
+            logging.getLogger().setLevel(logging.WARNING)
+        args.batch_size = pdist.round_batch(args.batch_size, dist.world_size)
+        logging.info("Using device %s", dist.device)
+        if dist.is_main:
+            Path(args.dir_checkpoint).mkdir(parents=True, exist_ok=True)
+        trainer = Trainer(args, dist)
+        logging.info("Network: 3 input channels, 2 output classes, bilinear upscaling")
+        if args.load:
+            trainer.load(args.load)
+        pdist.agree([trainer.step], "the step loaded", dist.group)
+        pdist.broadcast_module(trainer.model, dist.group)
+        return train_net(trainer, args)
+    finally:
+        pdist.shutdown()
 
 
 if __name__ == "__main__":

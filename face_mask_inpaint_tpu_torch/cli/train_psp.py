@@ -1,8 +1,10 @@
 """Train the Stack B RefpSp (pSp encoder -> StyleGAN2): the port of
-``train_psp.py`` with its flags and defaults, on one device.
+``train_psp.py`` with its flags and defaults.
 
     python -m face_mask_inpaint_tpu_torch.cli.train_psp \\
         --data_root <celeba root> --use_ref --run_name <name> [--device cuda]
+    python -m torch.distributed.run --standalone --nproc_per_node W \\
+        -m face_mask_inpaint_tpu_torch.cli.train_psp ...
 
 Encoder-only optimization unless ``--train_decoder 1`` (train/psp.py),
 adam or ranger, the pSpLoss lambda surface (losses/psp_loss.py, style and
@@ -41,6 +43,17 @@ An Orbax directory, or a file that holds no state dict of its net, raises.
 ground truth and of (gen + 1) / 2 over the validation round into one
 Fréchet distance, with ``--inception_weights`` (a torchvision
 ``inception_v3``) or, without them, a random InceptionV3 from ``--seed``.
+
+Under ``torch.distributed.run`` the W ranks train data parallel, as the JAX
+trainer does over its mesh (parallel/dist.py): the global batch is
+``--batch_size`` rounded to ``max(b, W) // W * W``, each rank takes its
+slice of it and the step computes the one-process step on the global batch
+(the trainable gradients, the encoder's BatchNorm moments, the noise and the
+guard's decision over the ranks). Every rank builds the weights from
+``--seed`` and reads the same weight files and ``--resume``'s checkpoint;
+rank 0's model is then broadcast. Only rank 0 validates, logs and writes
+checkpoints; the validation loss that steps the learning rate is broadcast
+from it.
 """
 
 from __future__ import annotations
@@ -52,9 +65,9 @@ from pathlib import Path
 
 import torch
 
-from face_mask_inpaint_tpu_torch.cli.train_reference_fill import load_vgg, resolve_device
+from face_mask_inpaint_tpu_torch.cli.train_reference_fill import (
+    load_vgg, reference_loaders, resolve_device, start)
 from face_mask_inpaint_tpu_torch.convert import jax_leading_dims, load_checkpoint, read_checkpoint
-from face_mask_inpaint_tpu_torch.data.loader import get_reference_dataloader
 from face_mask_inpaint_tpu_torch.evaluations.fid import FIDAccumulator, build_inception
 from face_mask_inpaint_tpu_torch.evaluations.ssim import ms_ssim, ssim
 from face_mask_inpaint_tpu_torch.losses.id_loss import make_backbone
@@ -62,6 +75,7 @@ from face_mask_inpaint_tpu_torch.losses.lpips import LPIPSNet
 from face_mask_inpaint_tpu_torch.losses.psp_loss import PSPLossConfig
 from face_mask_inpaint_tpu_torch.models.psp import PSP
 from face_mask_inpaint_tpu_torch.nn.layers import init_weights
+from face_mask_inpaint_tpu_torch.parallel import dist as pdist
 from face_mask_inpaint_tpu_torch.tools.convert_torch import (
     convert_irse_backbone, convert_lpips_alex, convert_psp, convert_stylegan2_generator)
 from face_mask_inpaint_tpu_torch.train import checkpoint as ckpt
@@ -69,7 +83,8 @@ from face_mask_inpaint_tpu_torch.train.optim import (
     PlateauTracker, adam, ranger, set_learning_rate)
 from face_mask_inpaint_tpu_torch.train.psp import (
     make_psp_eval_step, make_psp_train_step, partition_params)
-from face_mask_inpaint_tpu_torch.utils.metrics_logger import MetricsLogger, histogram_summary
+from face_mask_inpaint_tpu_torch.utils.metrics_logger import (
+    MetricsLogger, NullLogger, histogram_summary)
 from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
 
 __all__ = ["get_args", "loss_config", "build_models", "Trainer", "train_net", "main"]
@@ -237,10 +252,12 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 class Trainer:
     """The model, the loss nets, the optimizer and plateau tracker, the step
     counter and the noise generator; ``state_dict``/``load_state_dict`` are
-    what a checkpoint holds."""
+    what a checkpoint holds. ``dist`` is this rank's data-parallel
+    environment, or the device of a run on one rank."""
 
-    def __init__(self, args, device: torch.device):
-        self.device = device
+    def __init__(self, args, dist: pdist.DistEnv | torch.device):
+        self.dist = dist if isinstance(dist, pdist.DistEnv) else pdist.DistEnv(dist)
+        self.device = device = self.dist.device
         self.cfg = loss_config(args)
         self.psp, self.nets = build_models(args, self.cfg, device)
         named = partition_params(self.psp, args.train_decoder)
@@ -258,7 +275,8 @@ class Trainer:
         self.step = 0
         self.train_step = make_psp_train_step(self.psp, self.optimizer, self.cfg, self.nets,
                                               use_ref=args.use_ref,
-                                              randomize_noise=args.randomize_noise)
+                                              randomize_noise=args.randomize_noise,
+                                              group=self.dist.group)
         self.eval_step = make_psp_eval_step(self.psp, self.cfg, self.nets,
                                             use_ref=args.use_ref)
         self.inception = None
@@ -313,9 +331,11 @@ def _drop_style(named) -> list:
 
 
 def train_net(trainer: Trainer, train_loader, val_loader, args):
-    run_dir = ckpt.checkpoint_dir(args.checkpoint_path, args.run_name)
-    logger = MetricsLogger(run_dir, 'RefpSp', args.run_name, config=vars(args),
-                           use_wandb=bool(args.use_wandb))
+    dist = trainer.dist
+    run_dir = (ckpt.checkpoint_dir(args.checkpoint_path, args.run_name) if dist.is_main
+               else Path(args.checkpoint_path) / args.run_name)
+    logger = (MetricsLogger(run_dir, 'RefpSp', args.run_name, config=vars(args),
+                            use_wandb=bool(args.use_wandb)) if dist.is_main else NullLogger())
     if len(train_loader) == 0:
         raise SystemExit(f'train loader is empty: need at least one batch of '
                          f'{args.batch_size}')
@@ -331,9 +351,13 @@ def train_net(trainer: Trainer, train_loader, val_loader, args):
             start_epoch = last
             logging.info('Resumed from epoch %d (step %d, lr=%g)', last, trainer.step,
                          trainer.sched.lr)
+    # every rank resumes from the same files, optimizer state, trackers and
+    # noise included: a rank that found none fails the run on every rank
+    pdist.agree([start_epoch, trainer.step], 'the epoch and step resumed from', dist.group)
+    pdist.broadcast_module(trainer.psp, dist.group)
 
     eval_options = set(args.eval_options)
-    profiler = ProfileWindow(args.profile_dir, args.profile_steps)
+    profiler = ProfileWindow(args.profile_dir if dist.is_main else '', args.profile_steps)
     division_step = max(n_train // (10 * args.batch_size), 1)
     for epoch in range(start_epoch, args.epochs):
         for batch in train_loader:
@@ -346,17 +370,24 @@ def train_net(trainer: Trainer, train_loader, val_loader, args):
             logger.log({k: float(v) for k, v in metrics.items()} | {'epoch': epoch},
                        step=trainer.step)
             if is_eval_step:
-                hists = histogram_summary(_drop_style(trainer.psp.named_parameters()),
-                                          'Weights')
-                hists.update(histogram_summary(_drop_style(grads), 'Gradients'))
-                val_metrics = evaluate(trainer, val_loader, eval_options)
-                set_learning_rate(trainer.optimizer,
-                                  trainer.sched.step(val_metrics['validation loss']))
-                val_metrics['lr'] = trainer.sched.lr
-                logging.info('Validation: %s', val_metrics)
-                logger.log({**val_metrics, **hists}, step=trainer.step)
-        ckpt.save_state(run_dir, 'G', epoch + 1, trainer.state_dict())
-        logging.info('Checkpoint epoch %d saved under %s', epoch + 1, run_dir)
+                # rank 0 validates alone, on the unsharded model; every rank
+                # steps its learning rate on its validation loss
+                val_metrics = None
+                if dist.is_main:
+                    hists = histogram_summary(_drop_style(trainer.psp.named_parameters()),
+                                              'Weights')
+                    hists.update(histogram_summary(_drop_style(grads), 'Gradients'))
+                    val_metrics = evaluate(trainer, val_loader, eval_options)
+                val_loss, = pdist.broadcast_values(
+                    val_metrics and [val_metrics['validation loss']], 1, dist.group)
+                set_learning_rate(trainer.optimizer, trainer.sched.step(val_loss))
+                if dist.is_main:
+                    val_metrics['lr'] = trainer.sched.lr
+                    logging.info('Validation: %s', val_metrics)
+                    logger.log({**val_metrics, **hists}, step=trainer.step)
+        if dist.is_main:
+            ckpt.save_state(run_dir, 'G', epoch + 1, trainer.state_dict())
+            logging.info('Checkpoint epoch %d saved under %s', epoch + 1, run_dir)
     profiler.close()
     logger.close()
     return trainer
@@ -364,15 +395,13 @@ def train_net(trainer: Trainer, train_loader, val_loader, args):
 
 def main(argv=None):
     args = get_args(argv)
-    logging.basicConfig(level=logging.INFO, format='%(levelname)s: %(message)s')
-    device = resolve_device(args.device)
-    logging.info('Using device %s', device)
-    trainer = Trainer(args, device)
-    train_loader, val_loader = get_reference_dataloader(
-        args.src_img_path, args.ref_img_path, args.mask_path, args.identity_file_path,
-        args.batch_size, apply_transform=True, val_amount=0.1, img_scale=args.img_scale,
-        use_ssim=True, device=device, seed=args.seed, pin_memory=device.type == "cuda")
-    return train_net(trainer, train_loader, val_loader, args)
+    dist = start(args)
+    try:
+        trainer = Trainer(args, dist)
+        train_loader, val_loader = reference_loaders(args, dist, True, True)
+        return train_net(trainer, train_loader, val_loader, args)
+    finally:
+        pdist.shutdown()
 
 
 if __name__ == '__main__':

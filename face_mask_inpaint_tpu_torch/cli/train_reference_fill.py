@@ -1,8 +1,10 @@
 """Train the Stack A ReferenceFill GAN: the port of ``train_reference_fill.py``
-with its flags and defaults, on one device.
+with its flags and defaults.
 
     python -m face_mask_inpaint_tpu_torch.cli.train_reference_fill \\
         --data_root <celeba root> --run_name <name> [--device cuda]
+    python -m torch.distributed.run --standalone --nproc_per_node W \\
+        -m face_mask_inpaint_tpu_torch.cli.train_reference_fill ...
 
 Two Adam optimizers, the GANOptimizer losses (lsgan + L1 + VGG perceptual,
 style and contextual; train/gan.py), an eval round every
@@ -31,6 +33,16 @@ encoders (their BatchNorm on the batch statistics, the running ones moved
 once a step, as the JAX step moves them) and a decoder without its latent
 branch; it clears ``--pt_ckpt_path``, as ``train_reference_fill.py:128-129``
 does.
+
+Under ``torch.distributed.run`` the W ranks train data parallel, as the JAX
+trainer does over its mesh (parallel/dist.py): the global batch is
+``--batch_size`` rounded to ``max(b, W) // W * W``, each rank takes its
+slice of it and the step computes the one-process step on the global batch
+(the gradients, the DRN's BatchNorm moments, the contextual loss's feature
+mean and the latent noise over the ranks). Every rank builds the weights
+from ``--seed`` and reads ``--resume``'s files; rank 0's modules are then
+broadcast. Only rank 0 validates, logs and writes checkpoints; the
+validation losses that step the learning rates are broadcast from it.
 """
 
 from __future__ import annotations
@@ -50,15 +62,17 @@ from face_mask_inpaint_tpu_torch.losses.vgg import VGG16Features
 from face_mask_inpaint_tpu_torch.models.picnet import define_d
 from face_mask_inpaint_tpu_torch.models.reference_fill import ReferenceFill
 from face_mask_inpaint_tpu_torch.nn.layers import init_weights
+from face_mask_inpaint_tpu_torch.parallel import dist as pdist
 from face_mask_inpaint_tpu_torch.tools.convert_torch import convert_picnet_module
 from face_mask_inpaint_tpu_torch.train import checkpoint as ckpt
 from face_mask_inpaint_tpu_torch.train.gan import make_gan_eval_step, make_gan_train_step
 from face_mask_inpaint_tpu_torch.train.optim import PlateauTracker, adam, set_learning_rate
-from face_mask_inpaint_tpu_torch.utils.metrics_logger import MetricsLogger, histogram_summary
+from face_mask_inpaint_tpu_torch.utils.metrics_logger import (
+    MetricsLogger, NullLogger, histogram_summary)
 from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
 
 __all__ = ["get_args", "process_params", "build_models", "read_picnet_checkpoints", "Trainer",
-           "main"]
+           "start", "main"]
 
 def get_args(argv=None):
     parser = argparse.ArgumentParser()
@@ -211,10 +225,13 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 class Trainer:
     """The models, their optimizers and plateau trackers, the step counter
     and the noise generator: the port's counterpart of ``GANTrainState``.
-    ``state_dicts``/``load_state_dicts`` are what a checkpoint holds."""
+    ``state_dicts``/``load_state_dicts`` are what a checkpoint holds.
+    ``dist`` is this rank's data-parallel environment, or the device of
+    a run on one rank."""
 
-    def __init__(self, args, device: torch.device):
-        self.device = device
+    def __init__(self, args, dist: pdist.DistEnv | torch.device):
+        self.dist = dist if isinstance(dist, pdist.DistEnv) else pdist.DistEnv(dist)
+        self.device = device = self.dist.device
         self.generator, self.discriminator, self.vgg = build_models(args, device)
         self.g_opt = adam(self.generator.parameters(), args.learning_rate)
         self.d_opt = adam(self.discriminator.parameters(), args.learning_rate)
@@ -225,7 +242,7 @@ class Trainer:
         self.noise = torch.Generator(device=device).manual_seed(args.seed)
         self.step = 0
         self.train_step = make_gan_train_step(self.generator, self.discriminator, self.vgg,
-                                              self.g_opt, self.d_opt)
+                                              self.g_opt, self.d_opt, group=self.dist.group)
         self.eval_step = make_gan_eval_step(self.generator, self.discriminator, self.vgg)
         self.inception = None
         if 'fid' in set(args.eval_options):
@@ -288,9 +305,11 @@ def evaluate(trainer: Trainer, val_loader, eval_options: set, step: int):
 
 
 def train_net(trainer: Trainer, train_loader, val_loader, args):
-    run_dir = ckpt.checkpoint_dir(args.checkpoint_path, args.run_name)
-    logger = MetricsLogger(run_dir, 'reference_fill', args.run_name, config=vars(args),
-                           use_wandb=bool(args.use_wandb))
+    dist = trainer.dist
+    run_dir = (ckpt.checkpoint_dir(args.checkpoint_path, args.run_name) if dist.is_main
+               else Path(args.checkpoint_path) / args.run_name)
+    logger = (MetricsLogger(run_dir, 'reference_fill', args.run_name, config=vars(args),
+                            use_wandb=bool(args.use_wandb)) if dist.is_main else NullLogger())
     if len(train_loader) == 0:
         raise SystemExit(f'train loader is empty: need at least one batch of {args.batch_size}')
     n_train = len(train_loader.dataset)
@@ -312,9 +331,14 @@ def train_net(trainer: Trainer, train_loader, val_loader, args):
             start_epoch = last
             logging.info('Resumed from epoch %d (step %d, lr G=%g D=%g)', last, trainer.step,
                          trainer.sched_g.lr, trainer.sched_d.lr)
+    # every rank resumes from the same files, optimizer state, trackers and
+    # noise included: a rank that found none fails the run on every rank
+    pdist.agree([start_epoch, trainer.step], 'the epoch and step resumed from', dist.group)
+    pdist.broadcast_module(trainer.generator, dist.group)
+    pdist.broadcast_module(trainer.discriminator, dist.group)
 
     eval_options = set(args.eval_options)
-    profiler = ProfileWindow(args.profile_dir, args.profile_steps)
+    profiler = ProfileWindow(args.profile_dir if dist.is_main else '', args.profile_steps)
     division_step = max(n_train // (10 * args.batch_size), 1)
     for epoch in range(start_epoch, args.epochs):
         for batch in train_loader:
@@ -329,41 +353,77 @@ def train_net(trainer: Trainer, train_loader, val_loader, args):
                         'contextual loss': float(metrics['cx_loss']), 'epoch': epoch},
                        step=trainer.step)
             if is_eval_step:
-                hists = histogram_summary(trainer.generator.named_parameters(), 'Weights/G')
-                hists.update(histogram_summary(trainer.discriminator.named_parameters(),
-                                               'Weights/D'))
-                hists.update(histogram_summary(metrics['g_grads'], 'Gradients/G'))
-                hists.update(histogram_summary(metrics['d_grads'], 'Gradients/D'))
-                val_metrics, sample = evaluate(trainer, val_loader, eval_options, trainer.step)
-                trainer.set_learning_rates(val_metrics)
-                val_metrics['lr G'] = trainer.sched_g.lr
-                val_metrics['lr D'] = trainer.sched_d.lr
-                logging.info('Validation: %s', val_metrics)
-                logger.log({**val_metrics, **hists}, step=trainer.step)
-                if sample is not None:
-                    logger.log_image('gen', sample[0], step=trainer.step)
-                    logger.log_image('gt', sample[1], step=trainer.step)
-        g_state, d_state = trainer.state_dicts()
-        ckpt.save_state(run_dir, 'G', epoch + 1, g_state)
-        ckpt.save_state(run_dir, 'D', epoch + 1, d_state)
-        logging.info('Checkpoint epoch %d saved under %s', epoch + 1, run_dir)
+                # rank 0 validates alone, on the unsharded modules; every rank
+                # steps its learning rates on its validation losses
+                keys = ('D validation loss', 'G validation loss')
+                val_metrics = sample = None
+                if dist.is_main:
+                    hists = histogram_summary(trainer.generator.named_parameters(), 'Weights/G')
+                    hists.update(histogram_summary(trainer.discriminator.named_parameters(),
+                                                   'Weights/D'))
+                    hists.update(histogram_summary(metrics['g_grads'], 'Gradients/G'))
+                    hists.update(histogram_summary(metrics['d_grads'], 'Gradients/D'))
+                    val_metrics, sample = evaluate(trainer, val_loader, eval_options,
+                                                   trainer.step)
+                losses = pdist.broadcast_values(
+                    val_metrics and [val_metrics[k] for k in keys], len(keys), dist.group)
+                trainer.set_learning_rates(dict(zip(keys, losses)))
+                if dist.is_main:
+                    val_metrics['lr G'] = trainer.sched_g.lr
+                    val_metrics['lr D'] = trainer.sched_d.lr
+                    logging.info('Validation: %s', val_metrics)
+                    logger.log({**val_metrics, **hists}, step=trainer.step)
+                    if sample is not None:
+                        logger.log_image('gen', sample[0], step=trainer.step)
+                        logger.log_image('gt', sample[1], step=trainer.step)
+        if dist.is_main:
+            g_state, d_state = trainer.state_dicts()
+            ckpt.save_state(run_dir, 'G', epoch + 1, g_state)
+            ckpt.save_state(run_dir, 'D', epoch + 1, d_state)
+            logging.info('Checkpoint epoch %d saved under %s', epoch + 1, run_dir)
     profiler.close()
     logger.close()
     return trainer
 
 
+def start(args) -> pdist.DistEnv:
+    """Join the ranks torchrun started (one rank without it), keep the log
+    to rank 0 and round ``args.batch_size`` to the global batch, as the JAX
+    trainers do."""
+    logging.basicConfig(level=logging.INFO, format='%(levelname)s: %(message)s')
+    dist = pdist.init_from_env(args.device)
+    if not dist.is_main:
+        logging.getLogger().setLevel(logging.WARNING)
+    args.batch_size = pdist.round_batch(args.batch_size, dist.world_size)
+    logging.info('Using device %s', dist.device)
+    return dist
+
+
+def reference_loaders(args, dist: pdist.DistEnv, apply_transform: bool, use_ssim: bool):
+    """``get_reference_dataloader`` for this rank; rank 0 builds its loaders
+    first, so that it alone scores and writes the best-reference map."""
+    if not dist.is_main:
+        pdist.barrier(dist.group)
+    loaders = get_reference_dataloader(
+        args.src_img_path, args.ref_img_path, args.mask_path, args.identity_file_path,
+        args.batch_size, apply_transform=apply_transform, val_amount=0.1,
+        img_scale=args.img_scale, use_ssim=use_ssim, device=dist.device, seed=args.seed,
+        pin_memory=dist.device.type == "cuda", rank=dist.rank, world_size=dist.world_size)
+    if dist.is_main:
+        pdist.barrier(dist.group)
+    return loaders
+
+
 def main(argv=None):
     args = get_args(argv)
-    logging.basicConfig(level=logging.INFO, format='%(levelname)s: %(message)s')
-    device = resolve_device(args.device)
-    logging.info('Using device %s', device)
-    trainer = Trainer(args, device)
-    train_loader, val_loader = get_reference_dataloader(
-        args.src_img_path, args.ref_img_path, args.mask_path, args.identity_file_path,
-        args.batch_size, apply_transform=False, val_amount=0.1, img_scale=args.img_scale,
-        use_ssim=bool(args.use_best_reference), device=device, seed=args.seed,
-        pin_memory=device.type == "cuda")
-    return train_net(trainer, train_loader, val_loader, args)
+    dist = start(args)
+    try:
+        trainer = Trainer(args, dist)
+        train_loader, val_loader = reference_loaders(args, dist, False,
+                                                     bool(args.use_best_reference))
+        return train_net(trainer, train_loader, val_loader, args)
+    finally:
+        pdist.shutdown()
 
 
 if __name__ == '__main__':

@@ -108,14 +108,16 @@ def _act(y: torch.Tensor, act: str, slope: float) -> torch.Tensor:
 def instance_norm_act_plain(x: torch.Tensor, weight: Optional[torch.Tensor],
                             bias: Optional[torch.Tensor], act: str = "LeakyReLU",
                             slope: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
-    """Plain PyTorch version over NCHW: f32 stats, E[x^2] - mu^2 clamped at 0."""
-    x32 = x.float()
+    """Plain PyTorch version over NCHW: f32 stats (f64 for an f64 input),
+    E[x^2] - mu^2 clamped at 0."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = x32.mean(dim=(2, 3), keepdim=True)
     sq = x32.square().mean(dim=(2, 3), keepdim=True)
     var = torch.clamp_min(sq - mean.square(), 0.0)
     y = (x32 - mean) * torch.rsqrt(var + eps)
     if weight is not None:
-        y = y * weight.float()[None, :, None, None] + bias.float()[None, :, None, None]
+        y = (y * weight.to(x32.dtype)[None, :, None, None]
+             + bias.to(x32.dtype)[None, :, None, None])
     return _act(y, act, slope).to(x.dtype)
 
 

@@ -12,6 +12,9 @@ Images enter ``vgg_loss`` as NHWC in the JAX package's layout; feature maps
 are NCHW inside this module. The trunk runs in ``dtype`` (bf16-mixed
 training passes bfloat16); every loss reduction is float32. The contextual
 loss keeps the JAX guards: d = max(1 - cos, 0) and norms floored at 1e-12.
+Inside a data-parallel train step (``parallel.dist.data_parallel``) its
+feature mean ``y_mu`` is over the global batch: a sum and a count summed
+over the ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch import nn
 
 from face_mask_inpaint_tpu_torch.nn.layers import Conv2d
 from face_mask_inpaint_tpu_torch.ops.resize import max_pool2d, scale_img
+from face_mask_inpaint_tpu_torch.parallel import dist as _dp
 
 __all__ = ["VGG16Features", "gram_matrix", "style_loss_gram", "contextual_loss",
            "vgg_loss"]
@@ -73,7 +77,13 @@ def style_loss_gram(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def contextual_loss(x: torch.Tensor, y: torch.Tensor, h: float = 0.5) -> torch.Tensor:
     """Contextual loss on NCHW feature maps; cosines in float32."""
     n, c = x.shape[:2]
-    y_mu = y.mean(dim=(0, 2, 3), keepdim=True)  # per channel, over N, H, W
+    if _dp.active() is None:
+        y_mu = y.mean(dim=(0, 2, 3), keepdim=True)  # per channel, over N, H, W
+    else:
+        y32 = y.to(torch.promote_types(y.dtype, torch.float32))
+        sums = _dp.all_reduce_sum(torch.cat([y32.sum(dim=(0, 2, 3)),
+                                             y32.new_full((1,), y.numel() // c)]))
+        y_mu = (sums[:c] / sums[c]).to(y.dtype).view(1, c, 1, 1)
     x_c, y_c = x - y_mu, y - y_mu
     x_n = x_c / torch.clamp_min(torch.linalg.vector_norm(x_c, dim=1, keepdim=True), 1e-12)
     y_n = y_c / torch.clamp_min(torch.linalg.vector_norm(y_c, dim=1, keepdim=True), 1e-12)

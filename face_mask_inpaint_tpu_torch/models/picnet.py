@@ -21,6 +21,7 @@ from face_mask_inpaint_tpu_torch.nn.blocks import (
     AutoAttention, CoordConvWrap, Output, ResBlock, ResBlockDecoder,
     ResBlockEncoderOptimized)
 from face_mask_inpaint_tpu_torch.nn.layers import Activation, Conv2d
+from face_mask_inpaint_tpu_torch.parallel import dist as _dp
 
 __all__ = ["ResEncoder", "ResGenerator", "ResDiscriminator", "PatchDiscriminator",
            "sample_z", "define_e", "define_g", "define_d"]
@@ -80,14 +81,16 @@ def sample_z(src_distribution, ref_distribution, eps_q: Optional[torch.Tensor] =
              return_zq: bool = False) -> torch.Tensor:
     """Reparameterized sample (network.py:275-307): z = concat([z_q, z_p]) on
     channels with z_q = mu_q + sigma_q * eps_q, z_p likewise. The noise is
-    given (``eps_q``/``eps_p``, NCHW like mu) or drawn from ``generator``."""
+    given (``eps_q``/``eps_p``, NCHW like mu) or drawn from ``generator``;
+    inside a data-parallel train step, at the global batch's shape, this
+    rank keeping its slice (``parallel.dist.randn_batch``)."""
     q_mu, q_sigma = src_distribution
     p_mu, p_sigma = ref_distribution
 
     def noise(eps, like):
         if eps is None:
-            return torch.randn(like.shape, generator=generator, device=like.device,
-                               dtype=like.dtype)
+            return _dp.randn_batch(like.shape, _dp.active(), generator=generator,
+                                   device=like.device, dtype=like.dtype)
         return eps.to(like.dtype)
 
     z_q = q_mu + q_sigma * noise(eps_q, q_mu)
@@ -114,7 +117,13 @@ class ResGenerator(nn.Module):
     no backward, and the JAX generator takes both only when ``not train``
     (``use_packed_output_kernel(train)``, ``use_packed_convt_kernel(train)``).
     In training mode every block runs its dense, differentiable path. Under
-    ``use_coord`` no block packs, so neither runs (JAX picnet.py:224, :261)."""
+    ``use_coord`` no block packs, so neither runs (JAX picnet.py:224, :261).
+
+    ``attn_pre_channels`` gives the attention after decoder 1 its long-term
+    branch (``AutoAttention``'s ``pre``, with a ResBlock of this module's
+    norm); ``forward`` then takes ``f_e`` and ``mask`` and hands them to it,
+    as the JAX generator does (picnet.py:187-188, :289-292). No CLI feeds
+    them."""
 
     def __init__(self, input_nc: int, z_channels: Optional[int] = None,
                  output_nc: int = 3, ngf: int = 64, z_nc: int = 512,
@@ -122,7 +131,8 @@ class ResGenerator(nn.Module):
                  norm: str = "instance", activation: str = "ReLU",
                  use_spect: bool = True, use_coord: bool = False,
                  use_attn: bool = True, init_type: str = "orthogonal",
-                 pack_threshold: int = 256, packed_convt: bool = False):
+                 pack_threshold: int = 256, packed_convt: bool = False,
+                 attn_pre_channels: Optional[int] = None):
         super().__init__()
         del z_nc  # the latent width comes from the encoders (z_channels)
         kw = dict(activation=activation, use_spect=use_spect, init_type=init_type)
@@ -147,13 +157,17 @@ class ResGenerator(nn.Module):
             self.add_module(f"decoder{i}", ResBlockDecoder(in_c, ch, ch, norm=norm, **kw))
             in_c = ch
             if i == 1 and use_attn:
-                self.add_module(f"attn{i}", AutoAttention(ch, init_type=init_type))
+                self.add_module(f"attn{i}", AutoAttention(
+                    ch, attn_pre_channels, norm=norm, init_type=init_type))
         self.add_module(f"out{layers - 1}", Output(
             in_c, output_nc, 3, norm="none", use_coord=use_coord, **kw))
 
     def forward(self, encoded: torch.Tensor, z: Optional[torch.Tensor] = None,
+                f_e: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
                 fuse_pool: Optional[int] = None) -> torch.Tensor:
-        """fuse_pool: an integer factor of the caller's average pool. In eval
+        """f_e [N, attn_pre_channels, H, W] and mask [N, 1, H, W], at the
+        attention's resolution (decoder 1's output), feed its ``pre`` branch.
+        fuse_pool: an integer factor of the caller's average pool. In eval
         mode the last decoder then hands the Output head its (h, bypass)
         pair, and the head returns the pooled image through kernel K3 (JAX
         picnet.py:243-262, without the packing conditions). When the last
@@ -193,7 +207,7 @@ class ResGenerator(nn.Module):
                 r *= 2
             if i == 1 and self.use_attn:
                 r, stats = 1, None  # the attention rewrites the map: stale stats
-                out = getattr(self, f"attn{i}")(out)
+                out = getattr(self, f"attn{i}")(out, f_e, mask)
         return head(out, pre_activated=pre_activated)
 
 
@@ -283,10 +297,11 @@ def define_g(input_nc: int, z_channels: Optional[int] = None, output_nc: int = 3
              layers: int = 5, norm: str = "instance", activation: str = "ReLU",
              use_spect: bool = True, use_coord: bool = False, use_attn: bool = True,
              init_type: str = "orthogonal", pack_threshold: int = 256,
-             packed_convt: bool = False, **_unused) -> ResGenerator:
+             packed_convt: bool = False, attn_pre_channels: Optional[int] = None,
+             **_unused) -> ResGenerator:
     return ResGenerator(input_nc, z_channels, output_nc, ngf, z_nc, img_f, L, layers,
                         norm, activation, use_spect, use_coord, use_attn, init_type,
-                        pack_threshold, packed_convt)
+                        pack_threshold, packed_convt, attn_pre_channels)
 
 
 def define_d(input_nc: int = 3, ndf: int = 64, img_f: int = 512, layers: int = 6,

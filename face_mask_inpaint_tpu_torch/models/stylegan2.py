@@ -36,6 +36,7 @@ from torch import nn
 
 from face_mask_inpaint_tpu_torch.ops.fused_act import fused_leaky_relu
 from face_mask_inpaint_tpu_torch.ops.upfirdn2d import blur, make_taps, upsample_2d
+from face_mask_inpaint_tpu_torch.parallel import dist as _dp
 
 __all__ = ["channels_for", "PixelNorm", "EqualLinear", "EqualConv2d", "ModulatedConv2d",
            "NoiseInjection", "StyledConv", "ToRGB", "Generator"]
@@ -173,10 +174,13 @@ class NoiseInjection(nn.Module):
 
     def forward(self, image: torch.Tensor, noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """noise: [N or 1, 1, H, W]; drawn from ``generator`` when None."""
+        """noise: [N or 1, 1, H, W]; drawn from ``generator`` when None,
+        inside a data-parallel train step at the global batch's shape, this
+        rank keeping its slice (``parallel.dist.randn_batch``)."""
         if noise is None:
             n, _, h, w = image.shape
-            noise = torch.randn((n, 1, h, w), device=image.device, generator=generator)
+            noise = _dp.randn_batch((n, 1, h, w), _dp.active(), generator=generator,
+                                    device=image.device)
         return image + self.weight.to(image.dtype) * noise.to(image.dtype)
 
 

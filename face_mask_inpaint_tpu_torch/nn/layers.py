@@ -25,6 +25,7 @@ from torch import nn
 
 from face_mask_inpaint_tpu_torch.kernels import norm_act as na
 from face_mask_inpaint_tpu_torch.ops.conv import conv2d, conv_transpose2d
+from face_mask_inpaint_tpu_torch.parallel import dist as _dp
 
 __all__ = ["get_initializer", "get_activation", "Activation", "PReLU", "Conv2d",
            "ConvTranspose2d", "Dense", "BatchNorm2d", "InstanceNorm2d", "make_norm",
@@ -125,14 +126,15 @@ class _SpectralMixin:
 
     def _spectral_normalize(self, w: torch.Tensor) -> torch.Tensor:
         w_mat = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])
+        acc = torch.promote_types(w.dtype, torch.float32)  # f32, or f64 for f64 weights
         with torch.no_grad():
-            w32 = w_mat.float()
+            w32 = w_mat.to(acc)
             v = _l2normalize(w32 @ self.u)
             u = _l2normalize(w32.t() @ v)
             if self.training:
                 self.u.copy_(u)
                 self.v.copy_(v)
-        sigma = torch.einsum("w,wo,o->", v, w_mat.float(), u)
+        sigma = torch.einsum("w,wo,o->", v, w_mat.to(acc), u)
         return w / sigma.to(w.dtype)
 
 
@@ -238,6 +240,12 @@ class BatchNorm2d(nn.Module):
     (f64 for an f64 input), and moves each running statistic 0.1 of the way
     to the batch's, the variance being the same biased one (torch would
     store the unbiased).
+
+    Inside a data-parallel train step (``parallel.dist.data_parallel``) the
+    per-channel sums of x and x^2 and the count are summed over the ranks,
+    differentiably, so every rank normalizes with the global batch's moments
+    and moves its running statistics alike, as the JAX step's statistics
+    over the sharded global batch do.
     """
 
     momentum = 0.1
@@ -265,8 +273,16 @@ class BatchNorm2d(nn.Module):
         dims = [d for d in range(x.dim()) if d != 1]
         shape = [1, -1] + [1] * (x.dim() - 2)
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = x32.mean(dim=dims)
-        var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean, 0.0)
+        if _dp.active() is None:
+            mean = x32.mean(dim=dims)
+            var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean, 0.0)
+        else:
+            c = x32.shape[1]
+            sums = _dp.all_reduce_sum(torch.cat([
+                x32.sum(dim=dims), (x32 * x32).sum(dim=dims),
+                x32.new_full((1,), x32.numel() // c)]))
+            mean = sums[:c] / sums[2 * c]
+            var = torch.clamp_min(sums[c:2 * c] / sums[2 * c] - mean * mean, 0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean.detach().to(self.running_mean.dtype), self.momentum)
             self.running_var.lerp_(var.detach().to(self.running_var.dtype), self.momentum)

@@ -32,7 +32,7 @@ def attention_apply(query: torch.Tensor, values: Sequence[torch.Tensor],
     """query: [N, L, d]; values: each [N, L, C]. Returns one [N, L, C] per
     value."""
     if query.shape[1] <= block_threshold:
-        q32 = query.float()
+        q32 = query.to(torch.promote_types(query.dtype, torch.float32))
         att = torch.softmax(torch.matmul(q32, q32.transpose(1, 2)), dim=-1)
         att = att.to(query.dtype)
         return [torch.matmul(att.to(v.dtype), v) for v in values]

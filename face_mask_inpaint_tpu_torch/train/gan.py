@@ -24,6 +24,14 @@ applies G once, in training mode, so they normalize with the batch's
 statistics and move the running ones once a step, as the JAX step's one
 apply with ``mutable=["spectral", "batch_stats"]`` does; the eval step runs
 them on the running statistics.
+
+Given a ``group`` (parallel/dist.py), the train step runs on this rank's
+slice of a global batch and computes the one-process step on the global
+batch: G's gradients and then D's are averaged over the ranks before each
+optimizer steps, the batch-coupled reductions (the DRN's BatchNorm, the
+contextual loss's feature mean) and the sampling noise are global, and the
+metrics are the ranks' mean. The spectral-norm vectors move from the
+weights alone, which stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from torch import nn
 
 from face_mask_inpaint_tpu_torch.losses.gan import gan_loss
 from face_mask_inpaint_tpu_torch.losses.vgg import VGG16Features, vgg_loss
+from face_mask_inpaint_tpu_torch.parallel import dist as _dp
 
 __all__ = ["gan_losses", "make_gan_train_step", "make_gan_eval_step",
            "LAMBDA_PERC", "LAMBDA_STYLE", "LAMBDA_CX"]
@@ -75,28 +84,36 @@ def _trainable(module: nn.Module) -> list[tuple[str, nn.Parameter]]:
     return [(n, p) for n, p in module.named_parameters() if p.requires_grad]
 
 
-def _grads(loss: torch.Tensor, named: list) -> list[torch.Tensor]:
+def _grads(loss: torch.Tensor, named: list, group=None) -> list[torch.Tensor]:
+    """d loss / d parameters; with a ``group``, their mean over the ranks."""
     grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]
+    grads = [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]
+    return grads if group is None else _dp.all_reduce_mean(grads, group)
 
 
 def make_gan_train_step(generator: nn.Module, discriminator: nn.Module, vgg: VGG16Features,
                         g_opt: torch.optim.Optimizer, d_opt: torch.optim.Optimizer,
-                        lambda_g: float = 0.01, gan_mode: str = "lsgan"):
+                        lambda_g: float = 0.01, gan_mode: str = "lsgan", group=None):
     """``step(batch, eps_q=None, eps_p=None, noise=None, return_grads=False)
     -> metrics``: one G update and one D update, in place on the modules and
     optimizers. Metrics are detached scalar tensors (``D_loss``, ``G_loss``,
     ``perc_loss``, ``style_loss``, ``cx_loss``, ``l1_loss``, ``adv_loss``);
-    ``return_grads`` adds ``g_grads``/``d_grads``, name -> gradient."""
+    ``return_grads`` adds ``g_grads``/``d_grads``, name -> gradient. With a
+    ``group`` the batch (and any ``eps_q``/``eps_p``) is this rank's slice
+    of the global batch."""
     g_named, d_named = _trainable(generator), _trainable(discriminator)
 
     def step(batch: dict, eps_q=None, eps_p=None, noise=None, return_grads: bool = False):
+        with _dp.data_parallel(group):
+            return _step(batch, eps_q, eps_p, noise, return_grads)
+
+    def _step(batch: dict, eps_q, eps_p, noise, return_grads: bool):
         generator.train()
         discriminator.train()
         # ---- generator update (D constant: only G's parameters get grads)
         g_total, aux = gan_losses(generator, discriminator, vgg, batch, eps_q, eps_p, noise,
                                   lambda_g, gan_mode)
-        g_grads = _grads(g_total, g_named)
+        g_grads = _grads(g_total, g_named, group)
         for (_, p), g in zip(g_named, g_grads):
             p.grad = g
         g_opt.step()
@@ -107,7 +124,7 @@ def make_gan_train_step(generator: nn.Module, discriminator: nn.Module, vgg: VGG
         d_fake = _apply_d(discriminator, gen, gen.dtype)
         d_loss = 0.5 * (gan_loss(d_real, True, True, gan_mode)
                         + gan_loss(d_fake, False, True, gan_mode))
-        d_grads = _grads(d_loss, d_named)
+        d_grads = _grads(d_loss, d_named, group)
         for (_, p), g in zip(d_named, d_grads):
             p.grad = g
         d_opt.step()
@@ -117,6 +134,8 @@ def make_gan_train_step(generator: nn.Module, discriminator: nn.Module, vgg: VGG
                    "style_loss": aux["style_loss"].detach(),
                    "cx_loss": aux["cx_loss"].detach(), "l1_loss": aux["loss_l1_g"].detach(),
                    "adv_loss": aux["loss_ad_g"].detach()}
+        if group is not None:
+            metrics = _dp.mean_over_ranks(metrics, group)
         if return_grads:
             metrics["g_grads"] = {n: g for (n, _), g in zip(g_named, g_grads)}
             metrics["d_grads"] = {n: g for (n, _), g in zip(d_named, d_grads)}

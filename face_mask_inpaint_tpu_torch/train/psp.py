@@ -12,6 +12,13 @@ BatchNorm running statistics keep that step's update, as ``merged(mut)``
 keeps it in the JAX step.
 
 Images are NHWC and masks [N, H, W] in {0, 1}, on the model's device.
+
+Given a ``group`` (parallel/dist.py), the train step runs on this rank's
+slice of a global batch and computes the one-process step on the global
+batch: the trainable partition's gradients are averaged over the ranks, the
+encoder's BatchNorm moments, the contextual term's feature mean and the
+randomized noise are global, the loss dict is the ranks' mean, and the guard
+decides on that mean, so every rank skips or steps together.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 from torch import nn
 
 from face_mask_inpaint_tpu_torch.losses.psp_loss import PSPLossConfig, psp_loss
+from face_mask_inpaint_tpu_torch.parallel import dist as _dp
 
 __all__ = ["partition_params", "make_psp_train_step", "make_psp_eval_step"]
 
@@ -54,7 +62,7 @@ def _forward_loss(model, cfg: PSPLossConfig, nets: dict, batch: dict, use_ref: b
 
 def make_psp_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                         cfg: PSPLossConfig, nets: dict, use_ref: bool = True,
-                        randomize_noise: bool = True, resize: bool = True):
+                        randomize_noise: bool = True, resize: bool = True, group=None):
     """``step(batch, noise=None, return_grads=False) -> loss_dict``: one
     update in place on the model and the optimizer, over the model's
     trainable parameters (``partition_params``). ``resize`` pools the output
@@ -62,18 +70,28 @@ def make_psp_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     dict holds detached scalars, ``skipped_nonfinite`` (1.0 when the guard
     held the parameters) and, with ``return_grads``, ``grads``: name ->
     gradient, zero on a skipped step. Randomized noise comes from
-    ``noise``."""
+    ``noise``. With a ``group`` the batch is this rank's slice of the
+    global batch."""
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
 
     def step(batch: dict, noise: Optional[torch.Generator] = None,
              return_grads: bool = False) -> dict:
+        with _dp.data_parallel(group):
+            return _step(batch, noise, return_grads)
+
+    def _step(batch: dict, noise: Optional[torch.Generator], return_grads: bool) -> dict:
         model.train()
         loss, loss_dict, _ = _forward_loss(model, cfg, nets, batch, use_ref,
                                            randomize_noise, resize, noise)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if group is not None:
+            loss_dict = _dp.mean_over_ranks(loss_dict, group)
+            loss = loss_dict["loss"]
         finite = bool(torch.isfinite(loss))
+        if finite and group is not None:
+            grads = _dp.all_reduce_mean(grads, group)
         if not finite:
             grads = [torch.zeros_like(p) for p in params]
             held = [p.detach().clone() for p in params]

@@ -10,6 +10,12 @@ running ones (flax semantics, nn/layers.py); the eval step runs it on the
 running statistics. ``--amp`` is the model's bf16 compute dtype over f32
 parameters, as the JAX trainer builds it: bf16 has f32's exponent range, so
 no loss scaling.
+
+Given a ``group`` (parallel/dist.py), the train step runs on this rank's
+slice of a global batch and computes the one-process step on the global
+batch: BatchNorm's moments and the Dice's sums are global, the gradients
+are averaged over the ranks before Adam steps, and the loss is the ranks'
+mean.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch.nn.functional as F
 
 from face_mask_inpaint_tpu_torch.losses.dice import dice_loss, multiclass_dice_coeff
 from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
+from face_mask_inpaint_tpu_torch.parallel import dist as _dp
 
 __all__ = ["unet_loss", "make_unet_train_step", "make_unet_eval_step"]
 
@@ -35,17 +42,24 @@ def unet_loss(logits: torch.Tensor, true_mask: torch.Tensor, n_classes: int = 2
     return ce + dice_loss(torch.softmax(logits32, dim=-1), onehot, multiclass=True)
 
 
-def make_unet_train_step(model: MaskDetector, optimizer: torch.optim.Optimizer
-                         ) -> Callable[[dict], dict]:
+def make_unet_train_step(model: MaskDetector, optimizer: torch.optim.Optimizer,
+                         group=None) -> Callable[[dict], dict]:
     """``step(batch)`` with batch["image"] [N, H, W, 3] and batch["mask"]
-    [N, H, W] int labels on the model's device: one Adam update, the batch
+    [N, H, W] int labels on the model's device (with a ``group``, this
+    rank's slice of the global batch): one Adam update, the batch
     statistics moved; returns {"loss"} (a 0-d tensor)."""
 
     def step(batch: dict) -> dict:
         model.train()
-        loss = unet_loss(model(batch["image"]), batch["mask"])
+        with _dp.data_parallel(group):
+            loss = unet_loss(model(batch["image"]), batch["mask"])
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            params = [p for p in model.parameters() if p.grad is not None]
+            for p, g in zip(params, _dp.all_reduce_mean([p.grad for p in params], group)):
+                p.grad = g
+            loss = _dp.mean_over_ranks({"loss": loss}, group)["loss"]
         optimizer.step()
         return {"loss": loss.detach()}
 

@@ -21,7 +21,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-__all__ = ["MetricsLogger", "histogram_summary", "write_metrics_csv"]
+__all__ = ["MetricsLogger", "NullLogger", "histogram_summary", "write_metrics_csv"]
 
 
 def _host(v):
@@ -117,6 +117,20 @@ class MetricsLogger:
         self._fh.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullLogger:
+    """The logger of a rank that writes nothing (every rank but 0 of a
+    data-parallel trainer)."""
+
+    def log(self, metrics: dict[str, Any], step: Optional[int] = None) -> None:
+        pass
+
+    def log_image(self, name: str, image, step: Optional[int] = None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def write_metrics_csv(path, columns: dict[str, list]) -> None:

@@ -52,3 +52,49 @@ def test_port_imports_no_pandas():
                 continue
             assert not any(n.split(".")[0] in ("pandas", "jax", "flax", "face_mask_inpaint_tpu")
                            for n in names), f"{path}:{node.lineno} imports {names}"
+
+
+COLLECTIVES_ALLOWED = {"all_reduce", "broadcast", "init_process_group", "destroy_process_group",
+                       "is_available", "is_initialized"}
+
+
+def test_parallel_package_imports_without_jax():
+    """face_mask_inpaint_tpu_torch.parallel and its dist module import where
+    jax, flax and the JAX package cannot, and are among the modules the
+    probe above walks."""
+    probe = PROBE.replace('importlib.import_module("chip_smoke")\n', "").replace(
+        "print(len(names))",
+        'print("face_mask_inpaint_tpu_torch.parallel.dist" in names, '
+        'len([importlib.import_module("face_mask_inpaint_tpu_torch.parallel.dist")]))')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.split()[-2:] == ["True", "1"]
+
+
+def test_port_uses_only_all_reduce_and_broadcast():
+    """Data parallel uses all-reduce and broadcast alone (gloo cannot
+    all-gather CUDA tensors) and no DistributedDataParallel wrapper (the
+    steps take their gradients with torch.autograd.grad): every use of
+    torch.distributed in the port and chip_smoke.py is one of
+    COLLECTIVES_ALLOWED."""
+    files = sorted((REPO / "face_mask_inpaint_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    seen = set()
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        assert not any(isinstance(n, (ast.Name, ast.Attribute, ast.alias))
+                       and "DistributedDataParallel" in ast.dump(n) for n in ast.walk(tree)), path
+        aliases = {"torch.distributed"}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                aliases |= {a.asname for a in node.names
+                            if a.name == "torch.distributed" and a.asname}
+            elif isinstance(node, ast.ImportFrom) and node.module == "torch":
+                aliases |= {a.asname or a.name for a in node.names if a.name == "distributed"}
+            elif isinstance(node, ast.ImportFrom) and node.module == "torch.distributed":
+                seen |= {a.name for a in node.names}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and ast.unparse(node.value) in aliases:
+                seen.add(node.attr)
+    assert seen and seen <= COLLECTIVES_ALLOWED, seen - COLLECTIVES_ALLOWED
