@@ -22,8 +22,8 @@ counts set to 0 just before it and read just after. Phases:
    flagship shapes and ragged ones, in float32 (TF32 off) and bfloat16; time
    each at the flagship shape beside its bound (the larger of its bytes over
    the memory rate and its operations over the peak rate of the route that
-   ran it: K1's, K4b's and K5's f32 split-precision route as three TF32
-   products) and, for K1, K5, K4b and K4a, beside the PyTorch call that
+   ran it: K1's, K4a's, K4b's and K5's f32 split-precision route as three
+   TF32 products) and, for K1, K5, K4b and K4a, beside the PyTorch call that
    computes the same function (K1's and K5's in both types, with that call's
    error against the plain version, not gated; K4b's and K4a's cuDNN call in
    both types);
@@ -42,11 +42,11 @@ counts set to 0 just before it and read just after. Phases:
    nearest two-call PyTorch pair timed beside it (not gated);
    that K4b and K4a take their tensor-core routes in
    bfloat16 where W % 8 == 0 (the flagship's decoders 3 and 4 and W = 72
-   among them) and their CUDA-core ones elsewhere, that K4b takes its
-   split-precision (tf32x3) route in float32 where W % 4 == 0 (decoders 3
-   and 4, W = 72, 48, 100 and 36) and its CUDA-core one elsewhere, while
-   K4a's float32 stays on the CUDA cores, and print each one's route and
-   K1's, K4a's, K4b's and K5's achieved TFLOP/s;
+   among them) and their CUDA-core ones elsewhere, that K4b and K4a take
+   their split-precision (tf32x3) routes in float32 where W % 4 == 0
+   (decoders 3 and 4, W = 72, 48, 100 and 36) and their CUDA-core ones
+   elsewhere, and print each one's route and K1's, K4a's, K4b's and K5's
+   achieved TFLOP/s;
 3. the flagship models at batch 4, float32, random weights from --seed:
    output shape, range and finiteness; the kernel path against the plain
    versions on the card; the launch counts of one forward (K1 once, K2 ten
@@ -55,7 +55,8 @@ counts set to 0 just before it and read just after. Phases:
 3b. the packed-convt configuration on the same models and inputs: the
    launch counts of one forward (K1 once, K2 six times, K4b and K4a twice,
    K3 never), a ``torch.profiler`` window of one forward, which must show
-   K4b's split-precision kernel and neither of its others, the kernel path
+   K4b's and K4a's split-precision kernels and none of their others, the
+   kernel path
    against the plain versions and against the default configuration's
    output (both compute the same function);
 4. the CLI's ``infer_batch`` (float32, as the CLI runs) over three seeded
@@ -432,7 +433,7 @@ def _bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
 
 
 def _route_bound(nbytes: float, ops: float, dtype_name: str, route: str) -> tuple[float, str]:
-    """K1's, K4b's and K5's bound for the route that ran them: bf16 at the
+    """K1's, K4a's, K4b's and K5's bound for the route that ran them: bf16 at the
     dense bf16 rate; f32 on the split-precision route as three TF32 products
     at the dense TF32 rate, on the CUDA cores at the f32 rate."""
     if dtype_name == "bfloat16":
@@ -859,10 +860,10 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
     # W = 41 and 70 take K4b's and K4a's CUDA-core kernels in bf16; W = 72 and
     # 48 their tensor cores, with odd H, C and Co off their tiles (Co = 3 and
     # 80); each K4a also runs on the x stream alone, which has no prologue. In
-    # f32, K4b takes its split-precision kernel where W % 4 == 0 (72, 48, 100,
-    # 36: H and W off its tile, C = 13 and 21 off its 8-channel chunk, Co = 16
-    # and 40 off its channel block, with and without a prologue) and K4a its
-    # CUDA-core one
+    # f32, K4b and K4a take their split-precision kernels where W % 4 == 0
+    # (72, 48, 100, 36: H and W off their tiles, C = 13 and 21 off their
+    # 8-channel chunk, Co = 3, 16, 40 and 80 off their channel blocks, with and
+    # without a prologue) and their CUDA-core ones at W = 41 and 70
     ragged = [dict(name="ragged", n=3, c=13, co=3, h=37, w=41, pro="ReLU", act="LeakyReLU"),
               dict(name="ragged", n=2, c=21, co=80, h=17, w=70, pro=None, act=None),
               dict(name="ragged", n=2, c=40, co=80, h=19, w=72, pro="LeakyReLU", act="ReLU"),
@@ -929,11 +930,11 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
                                        f"{', stats within rtol' if with_stats else ''}")
                 del got1, want1
             if dtype == torch.bfloat16:
-                want_k4b = want_k4a = "tensor_cores" if w % 8 == 0 else "cuda_cores"
+                want_route = "tensor_cores" if w % 8 == 0 else "cuda_cores"
             else:
-                want_k4b, want_k4a = "tf32x3" if w % 4 == 0 else "cuda_cores", "cuda_cores"
-            for kname, route, want_route in (("K4b", dc.conv3x3_route(t["x"]), want_k4b),
-                                             ("K4a", dc.convt_pair_route(y), want_k4a)):
+                want_route = "tf32x3" if w % 4 == 0 else "cuda_cores"
+            for kname, route in (("K4b", dc.conv3x3_route(t["x"])),
+                                 ("K4a", dc.convt_pair_route(y))):
                 run.check(route == want_route, f"{kname} {case['name']} W={w} {dname} takes "
                                                f"the {want_route} route (route {route})")
             if flagship:
@@ -941,8 +942,8 @@ def _phase_decoder_tail(run: Run, gen, timings: dict):
                 w1, b1 = t["w1"].to(dtype), t["b1"].to(dtype)
                 w2, b2, wb, bb = (t[k].to(dtype) for k in ("w2", "b2", "wb", "bb"))
                 # the library yardsticks leave out the prologues and the stats;
-                # each bound at the rate of the route that ran (K4b's f32
-                # split-precision route: three TF32 products a multiply-add)
+                # each bound at the rate of the route that ran (K4b's and K4a's
+                # f32 split-precision routes: three TF32 products a multiply-add)
                 per = {"conv3x3_stats": (
                     lambda: dc.conv3x3_stats(*k4b_args, with_stats=True),
                     lambda: dc.conv3x3_stats_plain(*k4b_args, with_stats=True),
@@ -1091,9 +1092,13 @@ def phase_flagship(run: Run, seed: int) -> tuple[dict, dict]:
         _check_launched(run, rows, "conv3x3_tf32x3_kernel",
                         ("conv3x3_kernel", "conv3x3_mma_kernel"),
                         "K4b in the f32 packed-convt forward")
+        _check_launched(run, rows, "convt_pair_tf32x3_kernel",
+                        ("convt_pair_kernel", "convt_pair_mma_kernel"),
+                        "K4a in the f32 packed-convt forward")
         k4b_ms = sum(e.self_device_time_total for e in rows if "conv3x3_" in e.key) / 1e3
-        print(f"[packed-convt] f32 forward, batch 4: K4b {k4b_ms:.3f} ms of "
-              f"{sum(e.self_device_time_total for e in rows) / 1e3:.3f} ms device time",
+        k4a_ms = sum(e.self_device_time_total for e in rows if "convt_pair_" in e.key) / 1e3
+        print(f"[packed-convt] f32 forward, batch 4: K4b {k4b_ms:.3f} ms, K4a {k4a_ms:.3f} ms "
+              f"of {sum(e.self_device_time_total for e in rows) / 1e3:.3f} ms device time",
               flush=True)
         del prof
         with plain_versions():
@@ -1344,7 +1349,8 @@ def phase_profile(run: Run, seed: int, rounds: int, card: str):
             _check_launched(run, rows, "conv3x3_mma_kernel",
                             ("conv3x3_kernel", "conv3x3_tf32x3_kernel"),
                             "K4b in the bf16 packed-convt forward")
-            _check_launched(run, rows, "convt_pair_mma_kernel", ("convt_pair_kernel",),
+            _check_launched(run, rows, "convt_pair_mma_kernel",
+                            ("convt_pair_kernel", "convt_pair_tf32x3_kernel"),
                             "K4a in the bf16 packed-convt forward")
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
             print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "

@@ -86,8 +86,20 @@
 // it reaches is in PERF.md (tools/tensor_core_variants.py times it without
 // two of its three products and with its sums added in place).
 //
-// K4a in f32, and K4b and K4a on maps their routes reject, run on the CUDA
-// cores:
+// K4a in f32 (W % 4 == 0, 16-byte aligned maps; fmi_convt_pair_route) runs
+// its four parity GEMMs on the tensor cores in split precision as K4b's f32
+// route runs its one: 8-channel chunks, hi and lo tiles staged with the
+// stream's prologue, the weights split and packed [2][9][co_pad][c_pad] a
+// stream by the wrapper, each chunk's products of a parity in a zeroed
+// fragment added to that parity's f32 totals with one rounded add. The
+// four parities' totals fill 128 registers a thread, so a warp takes its
+// parities one after another, one partial set live, and a block takes at
+// most 32 output channels (see its section). At the flagship's decoders 3
+// and 4 (f32, batch 16: 464 GFLOP, 1392 of them TF32 products) the bound is
+// 2.81 ms by the tensor cores' TF32 rate; what it reaches, and what holds it
+// back, is in PERF.md (tools/tensor_core_variants.py).
+//
+// K4b and K4a on maps their routes reject run on the CUDA cores:
 //   - a block of 256 threads owns a tile of output pixels for up to 64
 //     output channels, so each input byte is read from device memory about
 //     once per 64 output channels (more than 64 split into channel blocks);
@@ -733,50 +745,69 @@ struct Tf32Cfg {
   static_assert(TH == MmaCfg<COP>::TH, "the tiles (and so psum's extent) of the bf16 kernel");
 };
 
+// the A fragments (hi and lo) of MT m16 tiles of 16 staged pixels each, k8
+// channels: tile mt starts at staged pixel p0 + 16 mt, a row address per lane
+template <int MT, int SP>
+__device__ __forceinline__ void tf32x3_load_a(unsigned (&ah)[MT][4], unsigned (&al)[MT][4],
+                                              const float* sh, const float* sl, int p0,
+                                              int lane) {
+  using namespace fmi_mma;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int p = p0 + mt * 16 + (lane & 15);
+    ldmatrix_x4(ah[mt], sh + p * SP + (lane >> 4) * 4);
+    ldmatrix_x4(al[mt], sl + p * SP + (lane >> 4) * 4);
+  }
+}
+
+// one tap's k8 step: c[mt] += A_mt B_tap in split precision, from the given A
+// fragments and the tap's hi/lo weights ([9][NT * 8][WS], N-major)
+template <int MT, int NT, int WS>
+__device__ __forceinline__ void tf32x3_tap(float (&c)[MT][NT][4], const unsigned (&ah)[MT][4],
+                                           const unsigned (&al)[MT][4], const float* wh,
+                                           const float* wl, int tap, int lane) {
+  using namespace fmi_mma;
+  constexpr int COP = NT * 8;
+  const int lm = lane >> 3, li = lane & 7;
+  if constexpr (NT == 1) {
+    unsigned bh[2], bl[2];
+    const int row = tap * COP + li, col = (lm & 1) * 4;
+    ldmatrix_x2(bh, wh + row * WS + col);
+    ldmatrix_x2(bl, wl + row * WS + col);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      mma_tf32x3(c[mt][0], ah[mt], al[mt], bh[0], bh[1], bl[0], bl[1]);
+  } else {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      // b0, b1 of n-tile 2 np and b2, b3 of 2 np + 1
+      unsigned bh[4], bl[4];
+      const int row = tap * COP + np * 16 + (lm >> 1) * 8 + li, col = (lm & 1) * 4;
+      ldmatrix_x4(bh, wh + row * WS + col);
+      ldmatrix_x4(bl, wl + row * WS + col);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_tf32x3(c[mt][2 * np], ah[mt], al[mt], bh[0], bh[1], bl[0], bl[1]);
+        mma_tf32x3(c[mt][2 * np + 1], ah[mt], al[mt], bh[2], bh[3], bl[2], bl[3]);
+      }
+    }
+  }
+}
+
 // the chunk's nine taps, each one k8 step: c += A_tap B_tap in split
 // precision, from the staged hi/lo tiles and the chunk's hi/lo weights
 template <typename Cfg>
 __device__ __forceinline__ void tf32x3_taps(float (&c)[Cfg::MT][Cfg::NT][4], const float* sh,
                                             const float* sl, const float* wh, const float* wl,
                                             int wrow, int wcol, int lane) {
-  using namespace fmi_mma;
   constexpr int MT = Cfg::MT, NT = Cfg::NT, SW = Cfg::SW, SP = Cfg::SP, WS = Cfg::WS;
-  constexpr int COP = NT * 8;
-  const int lm = lane >> 3, li = lane & 7;
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
     const int ky = tap / 3, kx = tap % 3;
     // the tap is a shift of the staged tile: a row address per lane
     unsigned ah[MT][4], al[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int p = (wrow + ky) * SW + wcol + mt * 16 + (lane & 15) + kx;
-      ldmatrix_x4(ah[mt], sh + p * SP + (lane >> 4) * 4);
-      ldmatrix_x4(al[mt], sl + p * SP + (lane >> 4) * 4);
-    }
-    if constexpr (NT == 1) {
-      unsigned bh[2], bl[2];
-      const int row = tap * COP + li, col = (lm & 1) * 4;
-      ldmatrix_x2(bh, wh + row * WS + col);
-      ldmatrix_x2(bl, wl + row * WS + col);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        mma_tf32x3(c[mt][0], ah[mt], al[mt], bh[0], bh[1], bl[0], bl[1]);
-    } else {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        // b0, b1 of n-tile 2 np and b2, b3 of 2 np + 1
-        unsigned bh[4], bl[4];
-        const int row = tap * COP + np * 16 + (lm >> 1) * 8 + li, col = (lm & 1) * 4;
-        ldmatrix_x4(bh, wh + row * WS + col);
-        ldmatrix_x4(bl, wl + row * WS + col);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_tf32x3(c[mt][2 * np], ah[mt], al[mt], bh[0], bh[1], bl[0], bl[1]);
-          mma_tf32x3(c[mt][2 * np + 1], ah[mt], al[mt], bh[2], bh[3], bl[2], bl[3]);
-        }
-      }
-    }
+    tf32x3_load_a<MT, SP>(ah, al, sh, sl, (wrow + ky) * SW + wcol + kx, lane);
+    tf32x3_tap<MT, NT, WS>(c, ah, al, wh, wl, tap, lane);
   }
 }
 
@@ -1025,30 +1056,35 @@ struct ConvTMmaCfg {
   static constexpr size_t kSmem = kMain > kEpi ? kMain : kEpi;
 };
 
-// One stream of the tensor-core K4a: x [N, C, H, W] bf16, packed weights w
-// bf16 [9][c_pad][co_pad] (tap ky * 3 + kx, input channel, output channel),
-// the prologue's A, B [N, C] f32 and its activation pro (< 0: none).
+// One stream of a tensor-core K4a: x [N, C, H, W] of type T (bf16, or f32
+// on the split-precision route), packed weights w of type T (bf16
+// [9][c_pad][co_pad]: tap ky * 3 + kx, input channel, output channel; f32
+// [2][9][co_pad][c_pad]: hi, lo, tap, output channel, input channel), the
+// prologue's A, B [N, C] f32 and its activation pro (< 0: none).
+template <typename T>
 struct MmaStream {
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* w;
+  const T* x;
+  const T* w;
   const float* A;
   const float* B;
   int C, c_pad, pro;
 };
 
+template <typename T>
 struct MmaStreams {
-  MmaStream s[2];
+  MmaStream<T> s[2];
   int count;
 };
 
 // stream 0 or 1, field by field: an indexed kernel parameter would be
 // copied to local memory
-__device__ __forceinline__ MmaStream pick_stream(const MmaStreams& ss, bool second) {
-  const MmaStream& a = ss.s[0];
-  const MmaStream& b = ss.s[1];
-  return MmaStream{second ? b.x : a.x, second ? b.w : a.w, second ? b.A : a.A,
-                   second ? b.B : a.B, second ? b.C : a.C, second ? b.c_pad : a.c_pad,
-                   second ? b.pro : a.pro};
+template <typename T>
+__device__ __forceinline__ MmaStream<T> pick_stream(const MmaStreams<T>& ss, bool second) {
+  const MmaStream<T>& a = ss.s[0];
+  const MmaStream<T>& b = ss.s[1];
+  return MmaStream<T>{second ? b.x : a.x, second ? b.w : a.w, second ? b.A : a.A,
+                      second ? b.B : a.B, second ? b.C : a.C, second ? b.c_pad : a.c_pad,
+                      second ? b.pro : a.pro};
 }
 
 // raw chunk -> staged tile, channel-innermost, with the prologue PRO: two
@@ -1087,7 +1123,7 @@ __device__ __forceinline__ void convt_stage(const __nv_bfloat16* rb, const float
 // psum, psq [N, Co, tiles] or null. W % 8 == 0 and 16-byte aligned maps.
 template <int COP>
 __global__ void __launch_bounds__(kThreads, 1)
-convt_pair_mma_kernel(MmaStreams ss, const float* __restrict__ bias,
+convt_pair_mma_kernel(MmaStreams<__nv_bfloat16> ss, const float* __restrict__ bias,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ psum,
                       float* __restrict__ psq, int H, int W, int Co, int co_blocks, int co_pad,
                       int act) {
@@ -1115,7 +1151,7 @@ convt_pair_mma_kernel(MmaStreams ss, const float* __restrict__ bias,
   // m0 .. m0 + TH as they lie in memory (16-byte pieces, zeros past the
   // image and past C), the chunk's weights and its prologue affine
   auto prefetch = [&](int ck, int buf) {
-    const MmaStream st = pick_stream(ss, ck >= chunks0);
+    const auto st = pick_stream(ss, ck >= chunks0);
     const int c0 = (ck < chunks0 ? ck : ck - chunks0) * CK;
     const __nv_bfloat16* xn = st.x + static_cast<size_t>(n) * st.C * H * W;
     constexpr int kPieces = RW / 8;
@@ -1279,11 +1315,311 @@ convt_pair_mma_kernel(MmaStreams ss, const float* __restrict__ bias,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4a, f32 on the tensor cores in split precision (3xTF32, see csrc/mma.cuh):
+// the bf16 kernel's four parity GEMMs over one staged tile, K = (taps of the
+// parity) x 8-channel chunks of both streams (one m16n8k8 step a tap). As
+// K4b's f32 route: each operand split into tf32 hi and lo once, the weights
+// by the wrapper ([2][9][co_pad][c_pad] a stream, N-major and K-contiguous:
+// there is no transposed ldmatrix for 32-bit data), the input where the
+// staging pass applies the stream's prologue, into a hi and a lo tile with
+// 48-byte pixel rows; three TF32 products a k8 step (lo hi, hi lo, hi hi).
+// The tensor cores' accumulate drifts over long sums (mma.cuh), so a chunk's
+// products of one parity go to a zeroed fragment that is then added to that
+// parity's f32 totals with one rounded add. Registers decide the schedule:
+// the four parities' totals of a warp are 128 f32 a thread (as in bf16) and
+// a second set of partials for all four would spill, so a warp takes its
+// parities one after another within a chunk, one partial set live (4 totals
+// + 1 partial: 160 f32 at COP = 32, MT = 2). A block takes at most 32 output
+// channels (convt_tf32x3_cop). Two other schedules measured slower on the
+// H100 (decoders 3 + 4, f32, batch 16, tools/tensor_core_variants.py):
+// splitting the parities between the two warps of a pair, 1 + 4 taps
+// against 2 + 2, so that a weight fragment serves twice the pixels (5.75 +
+// 5.70 ms against 5.56 + 5.32 ms: its second partial set spills, and half
+// the time lies outside the products), and blocks of 64 channels at
+// decoder 3 (5.50-5.65 ms against 4.84-4.93 ms: the chunk's hi/lo weight
+// copies outweigh reading the input once per 32 channels). The epilogue is
+// the bf16 route's: bias, the stats from the f32 value in a fixed order, the
+// activation, the parities interleaved in shared memory so that each output
+// row leaves in 16-byte pieces.
+// ---------------------------------------------------------------------------
+
+template <int COP>
+struct ConvTTf32Cfg {
+  static constexpr int NT = COP / 8;                        // n8 tiles a warp keeps
+  static constexpr int MT0 = 128 / (4 * NT * 4);            // 128 totals a thread
+  static constexpr int MT = MT0 < 1 ? 1 : MT0 > 4 ? 4 : MT0;  // m16 tiles a warp keeps
+  static constexpr int PW = 16 * MT;                        // pixels of a warp
+  static constexpr int TW = 64;                             // tile columns (input)
+  static constexpr int WPR = TW / PW;                       // pixel groups a tile row
+  static constexpr int TH = kWarps / WPR;                   // tile rows (input)
+  static constexpr int SH = TH + 1, SW = TW + 1;            // plus the row and column after
+  static constexpr int CK = kTf32CK;
+  static constexpr int SP = CK + 4;                         // staged pixel stride: 48 bytes
+  static constexpr int RW = TW + 4;                         // raw row: columns n0 .. n0 + TW + 3
+  static constexpr int WS = CK + 4;                         // weight row stride: 48 bytes
+  static constexpr int kRaw = CK * SH * RW;                 // f32 a raw buffer
+  static constexpr int kStage = SH * SW * SP;               // f32 a staged tile (hi or lo)
+  static constexpr int kW = 9 * COP * WS;                   // f32 a weight tile (hi or lo)
+  static constexpr int OW = 2 * TW;                         // output row in the epilogue
+  static constexpr int OP = 2 * TH * OW + 4;                // output channel stride
+  static constexpr size_t kMain = sizeof(float) * (2 * kRaw + 2 * kStage + 4 * kW + 4 * CK);
+  static constexpr size_t kEpi = sizeof(float) * (COP * OP + 2 * kWarps * COP);
+  static constexpr size_t kSmem = kMain > kEpi ? kMain : kEpi;
+  static_assert(TH >= 1 && TW % PW == 0, "a block's pixel groups tile whole rows");
+};
+
+// raw chunk -> the hi and lo tiles, channel-innermost: the prologue PRO in
+// f32 (two roundings, no FMA), zeros past row H and column W written after
+// it, then the split. A thread takes all CK channels of one pixel.
+template <typename Cfg, int PRO>
+__device__ __forceinline__ void convt_stage_tf32x3(const float* rb, const float* abb,
+                                                   float* stage, int m0, int n0, int H, int W) {
+  using namespace fmi_mma;
+  constexpr int CK = Cfg::CK, SH = Cfg::SH, SW = Cfg::SW, RW = Cfg::RW, SP = Cfg::SP;
+  for (int p = threadIdx.x; p < SH * SW; p += kThreads) {
+    const int r = p / SW, s = p - r * SW;
+    const bool inside = m0 + r < H && n0 + s < W;
+    unsigned hi[CK], lo[CK];
+#pragma unroll
+    for (int ch = 0; ch < CK; ++ch) {
+      float f = rb[(ch * SH + r) * RW + s];
+      if constexpr (PRO >= 0) f = apply_act(__fadd_rn(__fmul_rn(f, abb[ch]), abb[CK + ch]), PRO);
+      split_tf32(inside ? f : 0.f, hi[ch], lo[ch]);
+    }
+#pragma unroll
+    for (int q = 0; q < CK; q += 4) {
+      *reinterpret_cast<uint4*>(stage + p * SP + q) =
+          make_uint4(hi[q], hi[q + 1], hi[q + 2], hi[q + 3]);
+      *reinterpret_cast<uint4*>(stage + Cfg::kStage + p * SP + q) =
+          make_uint4(lo[q], lo[q + 1], lo[q + 2], lo[q + 3]);
+    }
+  }
+}
+
+// parity Q = py * 2 + px of the warp's pixels over one chunk: its taps (1, 2
+// or 4; even o = 2m reads k = 1 at m, odd o = 2m + 1 reads k = 2 at m and
+// k = 0 at m + 1) in split precision into a zeroed fragment, then added to
+// the parity's f32 totals with one rounded add each
+template <typename Cfg, int Q>
+__device__ __forceinline__ void convt_tf32x3_parity(float (&acc)[Cfg::MT][Cfg::NT][4],
+                                                    const float* stage, const float* wt,
+                                                    int wrow, int wcol, int lane) {
+  constexpr int MT = Cfg::MT, NT = Cfg::NT, SW = Cfg::SW, SP = Cfg::SP, WS = Cfg::WS;
+  constexpr int PY = Q >> 1, PX = Q & 1;
+  float pq[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pq[mt][j][e] = 0.f;
+#pragma unroll
+  for (int iy = 0; iy < 1 + PY; ++iy)
+#pragma unroll
+    for (int ix = 0; ix < 1 + PX; ++ix) {
+      const int ky = PY ? (iy ? 0 : 2) : 1, kx = PX ? (ix ? 0 : 2) : 1;
+      const int dr = ky == 0 ? 1 : 0, dc = kx == 0 ? 1 : 0;
+      unsigned ah[MT][4], al[MT][4];
+      tf32x3_load_a<MT, SP>(ah, al, stage, stage + Cfg::kStage, (wrow + dr) * SW + wcol + dc,
+                            lane);
+      tf32x3_tap<MT, NT, WS>(pq, ah, al, wt, wt + Cfg::kW, ky * 3 + kx, lane);
+    }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = __fadd_rn(acc[mt][j][e], pq[mt][j][e]);
+}
+
+// the chunk's products of the warp's four parities, in order
+template <typename Cfg>
+__device__ __forceinline__ void convt_tf32x3_products(float (&acc)[4][Cfg::MT][Cfg::NT][4],
+                                                      const float* stage, const float* wt,
+                                                      int wrow, int wcol, int lane) {
+  convt_tf32x3_parity<Cfg, 0>(acc[0], stage, wt, wrow, wcol, lane);
+  convt_tf32x3_parity<Cfg, 1>(acc[1], stage, wt, wrow, wcol, lane);
+  convt_tf32x3_parity<Cfg, 2>(acc[2], stage, wt, wrow, wcol, lane);
+  convt_tf32x3_parity<Cfg, 3>(acc[3], stage, wt, wrow, wcol, lane);
+}
+
+// out [N, Co, 2H, 2W] f32; bias [co_pad] f32 (the streams' biases summed);
+// psum, psq [N, Co, tiles] or null. W % 4 == 0 and 16-byte aligned maps.
+template <int COP>
+__global__ void __launch_bounds__(kThreads, 1)
+convt_pair_tf32x3_kernel(MmaStreams<float> ss, const float* __restrict__ bias,
+                         float* __restrict__ out, float* __restrict__ psum,
+                         float* __restrict__ psq, int H, int W, int Co, int co_blocks, int co_pad,
+                         int act) {
+  using namespace fmi_mma;
+  using Cfg = ConvTTf32Cfg<COP>;
+  constexpr int MT = Cfg::MT, NT = Cfg::NT, TW = Cfg::TW, TH = Cfg::TH,
+                SH = Cfg::SH, CK = Cfg::CK, RW = Cfg::RW, WS = Cfg::WS, OW = Cfg::OW,
+                OP = Cfg::OP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* raw = reinterpret_cast<float*>(smem_raw);  // [2][CK][SH][RW]
+  float* stage = raw + 2 * Cfg::kRaw;               // [hi, lo][SH * SW][SP]
+  float* ws = stage + 2 * Cfg::kStage;              // [2][hi, lo][9][COP][WS]
+  float* ab = ws + 4 * Cfg::kW;                     // [2][A, B][CK]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = blockIdx.z / co_blocks;
+  const int co0 = (blockIdx.z - n * co_blocks) * COP;
+  const int m0 = blockIdx.y * TH, n0 = blockIdx.x * TW;
+  const int wrow = warp / Cfg::WPR, wcol = (warp % Cfg::WPR) * Cfg::PW;  // its pixels
+  const int chunks0 = (ss.s[0].C + CK - 1) / CK;
+  const int n_chunks = chunks0 + (ss.count > 1 ? (ss.s[1].C + CK - 1) / CK : 0);
+
+  // chunk ck (of stream 0, then stream 1) into buffer buf: the raw rows
+  // m0 .. m0 + TH as they lie in memory (16-byte pieces, zeros past the
+  // image and past C), the chunk's hi and lo weights and its prologue affine
+  auto prefetch = [&](int ck, int buf) {
+    const auto st = pick_stream(ss, ck >= chunks0);
+    const int c0 = (ck < chunks0 ? ck : ck - chunks0) * CK;
+    const float* xn = st.x + static_cast<size_t>(n) * st.C * H * W;
+    constexpr int kPieces = RW / 4;
+    float* rb = raw + buf * Cfg::kRaw;
+    for (int i = tid; i < CK * SH * kPieces; i += kThreads) {
+      const int j = i % kPieces, rest = i / kPieces;  // rest = ch * SH + r
+      const int r = rest % SH, c = c0 + rest / SH;
+      const int y = m0 + r, xx = n0 + 4 * j;
+      const bool ok = c < st.C && y < H && xx < W;
+      cp_async16(rb + rest * RW + 4 * j, ok ? xn + (static_cast<size_t>(c) * H + y) * W + xx : xn,
+                 ok ? 16 : 0);
+    }
+    float* wb = ws + buf * 2 * Cfg::kW;
+    constexpr int kWP = CK / 4;  // 16-byte pieces a weight row
+    for (int i = tid; i < 2 * 9 * COP * kWP; i += kThreads) {
+      const int p = i % kWP, rest = i / kWP;  // rest = (part * 9 + tap) * COP + co
+      const int co = rest % COP, pt = rest / COP;
+      cp_async16(wb + rest * WS + 4 * p,
+                 st.w + (static_cast<size_t>(pt) * co_pad + co0 + co) * st.c_pad + c0 + 4 * p,
+                 16);
+    }
+    if (st.pro >= 0 && tid < 2 * CK) {
+      const int c = c0 + tid % CK;
+      const bool ok = c < st.C;
+      cp_async4(ab + buf * 2 * CK + tid,
+                (tid < CK ? st.A : st.B) + static_cast<size_t>(n) * st.C + (ok ? c : 0),
+                ok ? 4 : 0);
+    }
+  };
+
+  // acc[q][mt][j]: parity q = py * 2 + px of the warp's pixels
+  float acc[4][MT][NT][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][mt][j][e] = 0.f;
+
+  prefetch(0, 0);
+  cp_async_commit();
+  for (int ck = 0; ck < n_chunks; ++ck) {
+    const int buf = ck & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ck landed; every warp is done with chunk ck - 1
+    if (ck + 1 < n_chunks) prefetch(ck + 1, buf ^ 1);  // overlaps this chunk's work
+    cp_async_commit();
+    const float* rb = raw + buf * Cfg::kRaw;
+    const float* abb = ab + buf * 2 * CK;
+    switch (pick_stream(ss, ck >= chunks0).pro) {  // the stream's prologue, block-uniform
+      case 0: convt_stage_tf32x3<Cfg, 0>(rb, abb, stage, m0, n0, H, W); break;
+      case 1: convt_stage_tf32x3<Cfg, 1>(rb, abb, stage, m0, n0, H, W); break;
+      case 2: convt_stage_tf32x3<Cfg, 2>(rb, abb, stage, m0, n0, H, W); break;
+      default: convt_stage_tf32x3<Cfg, -1>(rb, abb, stage, m0, n0, H, W); break;
+    }
+    __syncthreads();
+    convt_tf32x3_products<Cfg>(acc, stage, ws + buf * 2 * Cfg::kW, wrow, wcol, lane);
+  }
+  __syncthreads();  // the epilogue reuses the staging memory
+
+  // bias, stats from the f32 value, act; the parities interleave in shared
+  // memory so that each output row leaves in 16-byte pieces
+  float* ot = reinterpret_cast<float*>(smem_raw);  // [COP][2 TH][OW]
+  float* red = ot + COP * OP;                       // [2][kWarps][COP]
+  const bool row_in = m0 + wrow < H;
+  float s1[NT][2], s2[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s1[j][0] = s1[j][1] = s2[j][0] = s2[j][1] = 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int py = q >> 1, px = q & 1;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = wcol + mt * 16 + g + 8 * (e >> 1);
+          const int co = j * 8 + 2 * t + (e & 1);
+          const float yv = acc[q][mt][j][e] + bias[co0 + co];  // bias is padded to co_pad
+          if (row_in && n0 + col < W && co0 + co < Co) {
+            s1[j][e & 1] += yv;
+            s2[j][e & 1] += yv * yv;
+          }
+          ot[co * OP + (2 * wrow + py) * OW + 2 * col + px] = apply_act(yv, act);
+        }
+  }
+  if (psum != nullptr) {
+    // over the 8 pixel rows g of the fragments, then the warps in order
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float a = s1[j][h], b = s2[j][h];
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          a += __shfl_xor_sync(0xffffffffu, a, m);
+          b += __shfl_xor_sync(0xffffffffu, b, m);
+        }
+        if (lane < 4) {
+          red[warp * COP + j * 8 + 2 * lane + h] = a;
+          red[(kWarps + warp) * COP + j * 8 + 2 * lane + h] = b;
+        }
+      }
+  }
+  __syncthreads();
+  if (psum != nullptr && tid < COP && co0 + tid < Co) {
+    float a = 0.f, b = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      a += red[w * COP + tid];
+      b += red[(kWarps + w) * COP + tid];
+    }
+    const int tiles = gridDim.x * gridDim.y;
+    const size_t k = (static_cast<size_t>(n) * Co + co0 + tid) * tiles +
+                     blockIdx.y * gridDim.x + blockIdx.x;
+    psum[k] = a;
+    psq[k] = b;
+  }
+  constexpr int kPieces = OW / 4;
+  const int H2 = 2 * H, W2 = 2 * W;
+  for (int i = tid; i < COP * 2 * TH * kPieces; i += kThreads) {
+    const int kc = i % kPieces, rest = i / kPieces;  // rest = co * 2 TH + r
+    const int r = rest % (2 * TH), co = rest / (2 * TH);
+    const int y = 2 * m0 + r, xx = 2 * n0 + 4 * kc;
+    if (co0 + co < Co && y < H2 && xx < W2) {
+      const size_t dst = ((static_cast<size_t>(n) * Co + co0 + co) * H2 + y) * W2 + xx;
+      *reinterpret_cast<float4*>(out + dst) =
+          *reinterpret_cast<const float4*>(ot + co * OP + r * OW + 4 * kc);
+    }
+  }
+}
+
 int pick_cop(int Co) {
   int cop = kCPT;
   while (cop < Co && cop < kCoMax) cop *= 2;
   return cop;
 }
+
+// the split-precision K4a's channel block, at most 32 (co_pad stays a
+// multiple of it)
+int convt_tf32x3_cop(int Co) { return pick_cop(Co) < 32 ? pick_cop(Co) : 32; }
 
 bool bad_act(int act) { return act < 0 || act > 2; }
 
@@ -1391,9 +1727,9 @@ int launch_convt(const Streams& ss, const float* bias, void* out, float* psum, f
 }
 
 template <int COP>
-int launch_convt_mma(const MmaStreams& ss, const float* bias, __nv_bfloat16* out, float* psum,
-                     float* psq, int N, int H, int W, int Co, int co_pad, int act,
-                     cudaStream_t stream) {
+int launch_convt_mma(const MmaStreams<__nv_bfloat16>& ss, const float* bias,
+                     __nv_bfloat16* out, float* psum, float* psq, int N, int H, int W, int Co,
+                     int co_pad, int act, cudaStream_t stream) {
   using Cfg = ConvTMmaCfg<COP>;
   const int co_blocks = co_pad / COP;
   const dim3 grid((W + Cfg::TW - 1) / Cfg::TW, (H + Cfg::TH - 1) / Cfg::TH, N * co_blocks);
@@ -1403,6 +1739,23 @@ int launch_convt_mma(const MmaStreams& ss, const float* bias, __nv_bfloat16* out
                            static_cast<int>(Cfg::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   convt_pair_mma_kernel<COP><<<grid, kThreads, Cfg::kSmem, stream>>>(
+      ss, bias, out, psum, psq, H, W, Co, co_blocks, co_pad, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int COP>
+int launch_convt_tf32x3(const MmaStreams<float>& ss, const float* bias, float* out, float* psum,
+                        float* psq, int N, int H, int W, int Co, int co_pad, int act,
+                        cudaStream_t stream) {
+  using Cfg = ConvTTf32Cfg<COP>;
+  const int co_blocks = co_pad / COP;
+  const dim3 grid((W + Cfg::TW - 1) / Cfg::TW, (H + Cfg::TH - 1) / Cfg::TH, N * co_blocks);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaError_t err = cudaFuncSetAttribute(convt_pair_tf32x3_kernel<COP>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(Cfg::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  convt_pair_tf32x3_kernel<COP><<<grid, kThreads, Cfg::kSmem, stream>>>(
       ss, bias, out, psum, psq, H, W, Co, co_blocks, co_pad, act);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1596,12 +1949,15 @@ extern "C" int fmi_convt_pair_bf16(const void* x0, const void* w0, const void* A
                               out, psum, psq, N, H, W, Co, co_pad, act, stream);
 }
 
-// Which K4a kernel takes a call: 1 the tensor-core kernel (bf16, W % 8 == 0,
-// every map 16-byte aligned; x1 null for one stream), 0 the CUDA-core
+// Which K4a kernel takes a call: 1 the tensor-core kernel (bf16, W % 8 == 0),
+// 2 the split-precision tensor-core kernel (f32, W % 4 == 0), both with
+// every map 16-byte aligned (x1 null for one stream), 0 the CUDA-core
 // kernel. By type, shape and alignment only.
 extern "C" int fmi_convt_pair_route(int bf16, const void* x0, const void* x1, const void* out,
                                     int W) {
-  return bf16 && W % 8 == 0 && aligned16(x0) && aligned16(x1) && aligned16(out) ? 1 : 0;
+  if (!aligned16(x0) || !aligned16(x1) || !aligned16(out)) return 0;
+  if (bf16) return W % 8 == 0 ? 1 : 0;
+  return W % 4 == 0 ? 2 : 0;
 }
 
 // K4a on the tensor cores, for the calls fmi_convt_pair_route sends there:
@@ -1618,15 +1974,15 @@ extern "C" int fmi_convt_pair_bf16_mma(const void* x0, const void* w0, const voi
   if (bad_shape(N, H, W, Co) || count < 1 || count > 2 || C0 < 1 ||
       (count == 2 && C1 < 1) || pro0 > 2 || pro1 > 2 || bad_act(act) ||
       co_pad != (Co + pick_cop(Co) - 1) / pick_cop(Co) * pick_cop(Co) ||
-      !fmi_convt_pair_route(1, x0, count == 2 ? x1 : nullptr, out, W) || !aligned16(w0) ||
+      fmi_convt_pair_route(1, x0, count == 2 ? x1 : nullptr, out, W) != 1 || !aligned16(w0) ||
       (count == 2 && !aligned16(w1)))
     return static_cast<int>(cudaErrorInvalidValue);
   using B16 = __nv_bfloat16;
-  MmaStreams ss;
-  ss.s[0] = MmaStream{static_cast<const B16*>(x0), static_cast<const B16*>(w0),
+  MmaStreams<B16> ss;
+  ss.s[0] = MmaStream<B16>{static_cast<const B16*>(x0), static_cast<const B16*>(w0),
                       static_cast<const float*>(A0), static_cast<const float*>(B0), C0,
                       mma_c_pad(C0), pro0 < 0 ? -1 : pro0};
-  ss.s[1] = MmaStream{static_cast<const B16*>(x1), static_cast<const B16*>(w1),
+  ss.s[1] = MmaStream<B16>{static_cast<const B16*>(x1), static_cast<const B16*>(w1),
                       static_cast<const float*>(A1), static_cast<const float*>(B1), C1,
                       count == 2 ? mma_c_pad(C1) : 0, pro1 < 0 ? -1 : pro1};
   ss.count = count;
@@ -1640,6 +1996,44 @@ extern "C" int fmi_convt_pair_bf16_mma(const void* x0, const void* w0, const voi
     case 16: return launch_convt_mma<16>(ss, b, o, s1, s2, N, H, W, Co, co_pad, act, cs);
     case 32: return launch_convt_mma<32>(ss, b, o, s1, s2, N, H, W, Co, co_pad, act, cs);
     default: return launch_convt_mma<64>(ss, b, o, s1, s2, N, H, W, Co, co_pad, act, cs);
+  }
+}
+
+// K4a in f32 on the tensor cores in split precision, for the calls
+// fmi_convt_pair_route sends there: as fmi_convt_pair_f32, but each w_s is
+// f32 [2][9][co_pad][c_pad_s] (tf32 hi, then lo = tf32(w - hi); tap ky * 3 +
+// kx of torch's [C_s, Co, 3, 3], output channel, input channel; c_pad_s =
+// fmi_decoder_conv_c_pad(C_s); zeros past C_s and Co) and tiles is
+// fmi_decoder_conv_tiles(4, H, W, Co).
+extern "C" int fmi_convt_pair_f32_tf32x3(const void* x0, const void* w0, const void* A0,
+                                         const void* B0, int C0, int pro0, const void* x1,
+                                         const void* w1, const void* A1, const void* B1, int C1,
+                                         int pro1, int count, const void* bias, void* out,
+                                         void* psum, void* psq, int N, int H, int W, int Co,
+                                         int co_pad, int act, void* stream) {
+  if (bad_shape(N, H, W, Co) || count < 1 || count > 2 || C0 < 1 ||
+      (count == 2 && C1 < 1) || pro0 > 2 || pro1 > 2 || bad_act(act) ||
+      co_pad != (Co + pick_cop(Co) - 1) / pick_cop(Co) * pick_cop(Co) ||
+      fmi_convt_pair_route(0, x0, count == 2 ? x1 : nullptr, out, W) != 2 || !aligned16(w0) ||
+      (count == 2 && !aligned16(w1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MmaStreams<float> ss;
+  ss.s[0] = MmaStream<float>{static_cast<const float*>(x0), static_cast<const float*>(w0),
+                             static_cast<const float*>(A0), static_cast<const float*>(B0), C0,
+                             mma_c_pad(C0), pro0 < 0 ? -1 : pro0};
+  ss.s[1] = MmaStream<float>{static_cast<const float*>(x1), static_cast<const float*>(w1),
+                             static_cast<const float*>(A1), static_cast<const float*>(B1), C1,
+                             count == 2 ? mma_c_pad(C1) : 0, pro1 < 0 ? -1 : pro1};
+  ss.count = count;
+  const float* b = static_cast<const float*>(bias);
+  float* o = static_cast<float*>(out);
+  float* s1 = static_cast<float*>(psum);
+  float* s2 = static_cast<float*>(psq);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (convt_tf32x3_cop(Co)) {
+    case 8: return launch_convt_tf32x3<8>(ss, b, o, s1, s2, N, H, W, Co, co_pad, act, cs);
+    case 16: return launch_convt_tf32x3<16>(ss, b, o, s1, s2, N, H, W, Co, co_pad, act, cs);
+    default: return launch_convt_tf32x3<32>(ss, b, o, s1, s2, N, H, W, Co, co_pad, act, cs);
   }
 }
 
@@ -1657,9 +2051,19 @@ extern "C" int fmi_decoder_conv_c_pad(int C) { return mma_c_pad(C); }
 
 // The number of tiles, i.e. the last dimension of psum and psq, of K4b on
 // the CUDA cores (kind 0), K4a on the CUDA cores (kind 1), K4b on the tensor
-// cores (kind 2: bf16, and f32 in split precision, whose tiles are the same)
-// or K4a on the tensor cores (kind 3) at H x W input and Co outputs.
+// cores (kind 2: bf16, and f32 in split precision, whose tiles are the same),
+// K4a on the tensor cores in bf16 (kind 3) or in f32 in split precision
+// (kind 4) at H x W input and Co outputs.
 extern "C" int fmi_decoder_conv_tiles(int kind, int H, int W, int Co) {
+  if (kind == 4) {
+    int th = 0;
+    switch (convt_tf32x3_cop(Co)) {
+      case 8: th = ConvTTf32Cfg<8>::TH; break;
+      case 16: th = ConvTTf32Cfg<16>::TH; break;
+      default: th = ConvTTf32Cfg<32>::TH; break;
+    }
+    return ((W + ConvTTf32Cfg<32>::TW - 1) / ConvTTf32Cfg<32>::TW) * ((H + th - 1) / th);
+  }
   if (kind == 3) {
     int th = 0;
     switch (pick_cop(Co)) {

@@ -23,13 +23,14 @@ The CUDA kernels are chosen by the C side by dtype, shape and alignment only
 (``conv3x3_route``, ``convt_pair_route``): bf16 maps with W % 8 == 0 run on
 the tensor cores, with the weights packed once per call as bf16
 [9, c_pad, co_pad] (K4a: one such operand a stream, its four output parities
-computed as four GEMMs over one staged tile); K4b's float32 maps with
-W % 4 == 0 run on the tensor cores in split precision ("tf32x3": each f32
-operand split into tf32 hi + lo, three TF32 products, the weights split and
-packed once per call as f32 [2, 9, co_pad, c_pad] by ``tf32_split``), which
-holds the float32 gates whatever ``torch.backends.cuda.matmul.allow_tf32``
-says; everything else (K4a in float32, other widths) runs on the CUDA cores
-with f32 [C, 9, co_pad] weights.
+computed as four GEMMs over one staged tile); float32 maps with W % 4 == 0
+run on the tensor cores in split precision ("tf32x3": each f32 operand split
+into tf32 hi + lo, three TF32 products, the weights split and packed once per
+call as f32 [2, 9, co_pad, c_pad] by ``tf32_split``, one such operand a K4a
+stream), which holds the float32 gates whatever
+``torch.backends.cuda.matmul.allow_tf32`` says; everything else (other
+widths, misaligned maps) runs on the CUDA cores with f32 [C, 9, co_pad]
+weights.
 
 Weights are the port's own: ``Conv2d`` [Co, Ci, 3, 3] and ``ConvTranspose2d``
 torch's [Ci, Co, 3, 3] (nn/layers.py). Each wrapper launches its kernel for
@@ -202,6 +203,7 @@ _ARGTYPES = {
     "fmi_conv3x3_route": [_INT, _PTR, _PTR, _INT],
     "fmi_convt_pair": _STREAM_ARGS * 2 + [_INT] + [_PTR] * 4 + [_INT] * 6 + [_PTR],
     "fmi_convt_pair_bf16_mma": _STREAM_ARGS * 2 + [_INT] + [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    "fmi_convt_pair_f32_tf32x3": _STREAM_ARGS * 2 + [_INT] + [_PTR] * 4 + [_INT] * 6 + [_PTR],
     "fmi_convt_pair_route": [_INT, _PTR, _PTR, _PTR, _INT],
     "fmi_decoder_conv_co_pad": [_INT],
     "fmi_decoder_conv_c_pad": [_INT],
@@ -267,6 +269,14 @@ def _convt_weights_mma(w: torch.Tensor, c_pad: int, co_pad: int) -> torch.Tensor
     return _weights_mma(w.transpose(0, 1), c_pad, co_pad)
 
 
+def _convt_weights_tf32x3(w: torch.Tensor, c_pad: int, co_pad: int) -> torch.Tensor:
+    """The split-precision K4a's operand of one stream: [2, 9, co_pad, c_pad]
+    f32 (tf32 hi, then lo; tap ky * 3 + kx; output channel; input channel)
+    from torch's ConvTranspose2d weight [C, Co, 3, 3], zeros past C and Co;
+    c_pad is fmi_decoder_conv_c_pad(C)."""
+    return _weights_tf32x3(w.transpose(0, 1), c_pad, co_pad)
+
+
 def _weights(w: torch.Tensor, dtype: torch.dtype, co_pad: int, transposed: bool):
     """[Ci, 9, co_pad] f32, tap-major, rounded to the stream dtype."""
     w = w.to(dtype).float()
@@ -319,20 +329,21 @@ def conv3x3_route(x: torch.Tensor) -> str:
     return _route(x, x)
 
 
-def _convt_route(streams, out: torch.Tensor) -> bool:
-    """Whether K4a runs this call on the tensor cores (bf16, W % 8 == 0,
-    16-byte aligned maps): the C side decides, by shape and alignment."""
+def _convt_route(streams, out: torch.Tensor) -> str:
+    """The K4a kernel this call runs: "tensor_cores" (bf16, W % 8 == 0),
+    "tf32x3" (float32, W % 4 == 0), both with every map 16-byte aligned, or
+    "cuda_cores": the C side decides, by dtype, shape and alignment."""
     x0 = streams[0][0]
     x1 = streams[1][0].data_ptr() if len(streams) == 2 else None
-    return bool(_function("fmi_convt_pair_route")(x0.dtype == torch.bfloat16, x0.data_ptr(),
-                                                   x1, out.data_ptr(), x0.shape[3]))
+    return _ROUTES[_function("fmi_convt_pair_route")(x0.dtype == torch.bfloat16, x0.data_ptr(),
+                                                      x1, out.data_ptr(), x0.shape[3])]
 
 
 def convt_pair_route(x: torch.Tensor) -> str:
-    """"tensor_cores" or "cuda_cores": the K4a kernel a call launches whose
-    streams lie as the CUDA map x does (its output is allocated, so x's
-    alignment decides)."""
-    return "tensor_cores" if _convt_route([(x,)], x) else "cuda_cores"
+    """"tensor_cores", "tf32x3" or "cuda_cores": the K4a kernel a call
+    launches whose streams lie as the CUDA map x does (its output is
+    allocated, so x's alignment decides)."""
+    return _convt_route([(x,)], x)
 
 
 def conv3x3_stats(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -391,6 +402,13 @@ def conv3x3_stats(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 conv3x3_stats.launches = 0
 
 
+# K4a's tensor-core routes: (weight packing, C entry point, tiles kind)
+_CONVT_TENSOR_CORES = {
+    "tensor_cores": (_convt_weights_mma, "fmi_convt_pair_bf16_mma", 3),
+    "tf32x3": (_convt_weights_tf32x3, "fmi_convt_pair_f32_tf32x3", 4),
+}
+
+
 def convt_pair(streams: Sequence, act: Optional[str] = None, with_stats: bool = False):
     """K4a: sum over streams of convT_k3_s2_p1_op1(pro(x), w) + b ->
     [N, Co, 2H, 2W] in the streams' dtype, or (out, (sum y, sum y^2)) with
@@ -400,7 +418,10 @@ def convt_pair(streams: Sequence, act: Optional[str] = None, with_stats: bool = 
     contiguous, float32 or bfloat16, one dtype; w [C_s, Co, 3, 3] (torch's
     ConvTranspose2d layout, the effective weight); b [Co] or None; prologue
     None or (A, B, act) with A, B [N, C_s]. CPU tensors take the plain
-    version; CUDA tensors launch K4a.
+    version; CUDA tensors launch K4a on the route ``convt_pair_route`` names.
+    Its float32 route "tf32x3" runs on the tensor cores in split precision
+    and holds the float32 gates whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says.
     """
     streams = _streams(streams)
     x0 = streams[0][0]
@@ -415,7 +436,12 @@ def convt_pair(streams: Sequence, act: Optional[str] = None, with_stats: bool = 
     co = streams[0][1].shape[1]
     co_pad = _function("fmi_decoder_conv_co_pad")(co)
     out = torch.empty((n, co, 2 * h, 2 * wd), dtype=x0.dtype, device=x0.device)
-    mma = _convt_route(streams, out)
+    route = _convt_route(streams, out)
+    if route == "cuda_cores":
+        kernel, kind = _function("fmi_convt_pair", x0.dtype), 1
+    else:
+        pack, name, kind = _CONVT_TENSOR_CORES[route]
+        kernel = _function(name)
     args, keep = [], []  # the C arguments, and the tensors behind their pointers
     for x, w, b, prologue in streams + [(None, None, None, None)] * (2 - len(streams)):
         if x is None:
@@ -423,14 +449,12 @@ def convt_pair(streams: Sequence, act: Optional[str] = None, with_stats: bool = 
             continue
         a_, b_, pro = _prologue_args(prologue)
         _check_device(x, [x0, w, b, a_, b_], "convt_pair")
-        wt = (_convt_weights_mma(w, _function("fmi_decoder_conv_c_pad")(x.shape[1]), co_pad)
-              if mma else _weights(w, x.dtype, co_pad, transposed=True))
+        wt = (_weights(w, x.dtype, co_pad, transposed=True) if route == "cuda_cores"
+              else pack(w, _function("fmi_decoder_conv_c_pad")(x.shape[1]), co_pad))
         keep += [wt, a_, b_]  # alive until the launch: the kernel reads them
         args += [x.data_ptr(), wt.data_ptr(), _ptr(a_), _ptr(b_), x.shape[1], pro]
     bias = _padded(_pair_bias(streams, co, x0.device), co_pad)
-    kernel = (_function("fmi_convt_pair_bf16_mma") if mma
-              else _function("fmi_convt_pair", x0.dtype))
-    tiles = _function("fmi_decoder_conv_tiles")(3 if mma else 1, h, wd, co)
+    tiles = _function("fmi_decoder_conv_tiles")(kind, h, wd, co)
     psum, psq = _stats_buffers(n, co, tiles, x0.device, with_stats)
     with torch.cuda.device(x0.device):
         rc = kernel(

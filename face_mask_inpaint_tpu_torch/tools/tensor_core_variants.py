@@ -5,14 +5,14 @@ variants of their own sources on one NVIDIA GPU.
 
 A variant is ``csrc/decoder_conv.cu``, ``csrc/flash_attention_bwd.cu`` or
 ``csrc/flash_attention_fwd.cu``, with its own copy of the ``csrc/*.cuh``
-headers, with one part of one kernel's work taken out (K4b and K4a: the
-staging pass that applies the prologue and lays the chunk out
-channel-innermost, the tensor-core products, the cp.async copies of the
-next chunk; K5: the f32 atomics of dq's query role; K1: the P V products,
+headers, with one part of one kernel's work taken out (K4b and K4a, and
+K4a's f32 route: the staging pass that applies the prologue and lays the
+chunk out channel-innermost, the tensor-core products, the cp.async copies
+of the next chunk; K5: the f32 atomics of dq's query role; K1: the P V products,
 the exp2 of the softmax, the rescale of O; the f32 split-precision routes
-of K1, K4b and K5: the lo products, so one TF32 product is left (which
-fails the f32 gate); those of K1 and K5: the split conversions; K4b's f32
-route: all its products) or moved
+of K1, K4a, K4b and K5: the lo products, so one TF32 product is left
+(which fails the f32 gate); those of K1 and K5: the split conversions; K4b's
+and K4a's f32 routes: all their products) or moved
 (K5: v_c's A fragments read from shared memory instead of kept in
 registers; the f32 routes: each step's or chunk's products added to the
 long sums in place instead of through a zeroed fragment and a rounded
@@ -22,12 +22,13 @@ computes a wrong result: its time says what that work costs, not what a
 kernel could do. The committed source is checked against its plain version.
 Every variant is timed with CUDA events through its C entry point (so
 without the wrapper's host work) at the flagship shapes (K4b and K4a:
-decoders 3 and 4 at batch 16, K4b in bf16 and in f32; K5: config 5; K1:
+decoders 3 and 4 at batch 16, in bf16 and in f32; K5: config 5; K1:
 the flagship's 128^2 attention at batch 16; K1 and K5 in bf16 and in f32),
 twice, in turns (a,
 b, ..., b, a), beside the wrapper's own call (the C entry point plus the
 wrapper's host work: weight packing, padding, the stats sum), the plain
-version (f32) and the PyTorch call that computes the same function. Prints
+version (f32) and the PyTorch call that computes the same function (K4a's
+f32 also beside its CUDA-core kernel). Prints
 one line per kernel and shape and the card's name and power limit. Exits
 non-zero without CUDA.
 
@@ -84,6 +85,12 @@ _K5F32_ADD = """            mma_tf32x3(part[mt][jj], ah[mt], al[mt], bh0, bh1, b
 _K4BF32_ADD = "    tf32x3_taps<Cfg>(part, stage,"
 _K4BF32_FLUSH = ("        for (int e = 0; e < 4; ++e) acc[mt][j][e] = "
                  "__fadd_rn(acc[mt][j][e], part[mt][j][e]);")
+_K4AF32_PRODUCTS = "    convt_tf32x3_products<Cfg>(acc, stage,"
+_K4AF32_ADD = "      tf32x3_tap<MT, NT, WS>(pq, ah, al, wt,"
+_K4AF32_FLUSH = ("      for (int e = 0; e < 4; ++e) acc[mt][j][e] = "
+                 "__fadd_rn(acc[mt][j][e], pq[mt][j][e]);")
+_K4AF32_STAGE = "  for (int p = threadIdx.x; p < SH * SW; p += kThreads) {"
+_K4AF32_PREFETCH = "    if (ck + 1 < n_chunks) prefetch(ck + 1, buf ^ 1);  // overlaps"
 _K5F32_FLUSH = """#pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -109,6 +116,15 @@ VARIANTS = {
         "f32 K4b products added to the sums in place": {
             _K4BF32_ADD: _K4BF32_ADD.replace("part", "acc"),
             _K4BF32_FLUSH: "        for (int e = 0; e < 4; ++e) (void)part[mt][j][e];"},
+        "f32 K4a no products": {_K4AF32_PRODUCTS: "    if (n_chunks < 0)\n" + _K4AF32_PRODUCTS},
+        "f32 K4a no staging pass": {_K4AF32_STAGE: _K4AF32_STAGE.replace("SH * SW;",
+                                                                         "SH * SW * (H < 0);")},
+        "f32 K4a no prefetch of the next chunk": {
+            _K4AF32_PREFETCH: _K4AF32_PREFETCH.replace("n_chunks)", "n_chunks && n_chunks < 0)")},
+        "f32 K4a one TF32 product": _F32_SPLIT_VARIANTS["one TF32 product"],
+        "f32 K4a products added to the sums in place": {
+            _K4AF32_ADD: _K4AF32_ADD.replace("pq", "acc"),
+            _K4AF32_FLUSH: "      for (int e = 0; e < 4; ++e) (void)pq[mt][j][e];"},
     },
     "flash_attention_fwd": {
         "as committed": {},
@@ -360,6 +376,81 @@ def _k4a(libs, gen, card: str) -> None:
                 _in_turns(calls, 10), card)
 
 
+def _k4a_f32(libs, gen, card: str) -> None:
+    """K4a's split-precision route at decoders 3 and 4 in f32, run as the
+    packed-convt forward runs them (see _k4a), the share of the f32 gates
+    each variant uses, beside the CUDA-core kernel that the f32 maps took
+    before (its C entry point), the wrapper, the plain version and cuDNN's
+    pair of conv_transpose2d."""
+    for label, c, co, hw in DECODERS:
+        n = 16
+        with_stats = label == "decoder 3"
+        act = None if with_stats else "LeakyReLU"
+        h = torch.randn(n, co, hw, hw, device="cuda", generator=gen) * 1.5 + 0.2
+        x = torch.randn(n, c, hw, hw, device="cuda", generator=gen) * 1.5 + 0.2
+        w2 = torch.randn(co, co, 3, 3, device="cuda", generator=gen) / (3 * co ** 0.5)
+        wb = torch.randn(c, co, 3, 3, device="cuda", generator=gen) / (3 * c ** 0.5)
+        b2, bb = (0.5 * torch.randn(co, device="cuda", generator=gen) for _ in range(2))
+        a_ = (0.5 + torch.rand(n, co, device="cuda", generator=gen)).contiguous()
+        b_ = 0.3 * torch.randn(n, co, device="cuda", generator=gen)
+        streams = [(h, w2, b2, (a_, b_, "LeakyReLU")), (x, wb, bb)]
+        if dc.convt_pair_route(h) != "tf32x3":
+            raise RuntimeError(f"K4a {label}: f32 does not take the tf32x3 route")
+        c_pad = dc._function("fmi_decoder_conv_c_pad")
+        co_pad = dc._function("fmi_decoder_conv_co_pad")(co)
+        p2, pb = (dc._convt_weights_tf32x3(w, c_pad(w.shape[0]), co_pad) for w in (w2, wb))
+        bias = dc._padded(b2 + bb, co_pad)
+        out = torch.empty(n, co, 2 * hw, 2 * hw, device="cuda")
+        want = dc.convt_pair_plain(streams, act, with_stats)
+        want, want_stats = want if with_stats else (want, None)
+        calls, used = {}, {}
+        for variant, lib in _mine(libs, "f32 K4a").items():
+            fn = _c_function(lib, "fmi_convt_pair_f32_tf32x3", dc._ARGTYPES["fmi_convt_pair"])
+            tiles = _c_function(lib, "fmi_decoder_conv_tiles", [ctypes.c_int] * 4)
+            parts = (torch.empty((2, n, co, tiles(4, hw, hw, co)), device="cuda")
+                     if with_stats else None)
+
+            def call(fn=fn, parts=parts):
+                _checked(fn(h.data_ptr(), p2.data_ptr(), a_.data_ptr(), b_.data_ptr(), co, 2,
+                            x.data_ptr(), pb.data_ptr(), None, None, c, -1, 2, bias.data_ptr(),
+                            out.data_ptr(), None if parts is None else parts[0].data_ptr(),
+                            None if parts is None else parts[1].data_ptr(), n, hw, hw, co,
+                            co_pad, dc._ACT_CODE[act], torch.cuda.current_stream().cuda_stream))
+            call()
+            torch.cuda.synchronize()
+            shares = [float(((out - want).abs() / (1e-4 + 1e-4 * want.abs())).max())]
+            if with_stats:
+                sums = parts.sum(dim=3)
+                shares += [float(((g - r).abs() / (1e-4 * (r.abs() + r.abs().max()))).max())
+                           for g, r in zip(sums, want_stats)]
+            used[variant] = max(shares)
+            calls[variant] = call
+        if used["as committed"] > 1.0:
+            raise RuntimeError(f"K4a {label} f32: the committed kernel uses "
+                               f"{used['as committed']:.3f} of its gate")
+        del want, want_stats
+        # the CUDA-core kernel that ran K4a's f32 before, through its C entry
+        cuda_cores = _c_function(libs["as committed"], "fmi_convt_pair_f32",
+                                 dc._ARGTYPES["fmi_convt_pair"])
+        c2, cb = (dc._weights(w, torch.float32, co_pad, transposed=True) for w in (w2, wb))
+        tiles = _c_function(libs["as committed"], "fmi_decoder_conv_tiles", [ctypes.c_int] * 4)
+        parts = (torch.empty((2, n, co, tiles(1, hw, hw, co)), device="cuda")
+                 if with_stats else None)
+        calls["CUDA-core kernel"] = lambda: _checked(cuda_cores(
+            h.data_ptr(), c2.data_ptr(), a_.data_ptr(), b_.data_ptr(), co, 2, x.data_ptr(),
+            cb.data_ptr(), None, None, c, -1, 2, bias.data_ptr(), out.data_ptr(),
+            None if parts is None else parts[0].data_ptr(),
+            None if parts is None else parts[1].data_ptr(), n, hw, hw, co, co_pad,
+            dc._ACT_CODE[act], torch.cuda.current_stream().cuda_stream))
+        calls["wrapper"] = lambda: dc.convt_pair(streams, act, with_stats)
+        calls["plain"] = lambda: dc.convt_pair_plain(streams, act, with_stats)
+        calls["cuDNN conv_transpose2d x2 + add (no prologue, no stats)"] = lambda: (
+            F.conv_transpose2d(h, w2, b2, 2, 1, 1) + F.conv_transpose2d(x, wb, bb, 2, 1, 1))
+        _report(f"K4a {label} N={n} C_h={co} C_x={c} Co={co} H=W={hw} f32",
+                _in_turns(calls, 3), card)
+        _gate_report(f"K4a {label} f32", used, card)
+
+
 def _k5(libs, gen, card: str) -> None:
     n, l, d, c = CONFIG5
     q = (torch.randn(n, l, d, device="cuda", generator=gen) / d ** 0.5 * 2).bfloat16()
@@ -526,6 +617,7 @@ def main() -> int:
     _k4b(conv, gen, card)
     _k4b_f32(conv, gen, card)
     _k4a(conv, gen, card)
+    _k4a_f32(conv, gen, card)
     bwd, fwd = _build("flash_attention_bwd"), _build("flash_attention_fwd")
     _k5(bwd, gen, card)
     _k1(fwd, gen, card)

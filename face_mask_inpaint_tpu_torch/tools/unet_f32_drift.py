@@ -1,12 +1,12 @@
 """How far the Stack C training step's f32 gradients sit from its f64 step.
 
     python -m face_mask_inpaint_tpu_torch.tools.unet_f32_drift \\
-        [--device cuda] [--sizes 64 128 256] [--batch 2]
+        [--device cuda|cpu] [--sizes 64 128 256] [--batch 2]
 
 For each image size: one train step (train/unet.py, Adam at 1e-5) of the
 seeded MaskDetector on a seeded batch, in f64 on the CPU (the reference), in
-f32 on the CPU, and with ``--device cuda`` in f32 on the card twice and in
-f64 on the card, cuDNN's deterministic algorithms, TF32 off. Prints, for
+f32 on the CPU, and, unless ``--device cpu`` is given, in f32 on the card
+twice and in f64 on the card, cuDNN's deterministic algorithms, TF32 off. Prints, for
 each run against the reference, the largest share of phase 7's per-tensor
 tolerance (1e-3 * max|ref| + 1e-5 * the step's largest gradient entry) its
 gradients use, and the tensors that use the most; and the card's two f32
@@ -56,7 +56,8 @@ def shares(got: dict, want: dict) -> list[tuple[float, str]]:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--device", default="cpu", help="cpu, or cuda to add the card's runs")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the default) adds the card's runs; cpu runs the CPU alone")
     parser.add_argument("--sizes", type=int, nargs="+", default=[64, 128, 256])
     parser.add_argument("--batch", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)

@@ -18,6 +18,7 @@ This module imports no JAX, so the spawned ranks start fast.
 
 from __future__ import annotations
 
+import copy
 import time
 from pathlib import Path
 
@@ -199,7 +200,18 @@ def psp_models(job: dict):
     same on every rank), the noise weights at 0.5 so the noise reaches the
     image, a seeded latent average, LPIPS's linear heads made non-negative
     (as trained ones are, and as tests/test_dp_equivalence_bc.py makes
-    them)."""
+    them). Fresh copies of models drawn once a process: drawing the PSP's
+    weights takes seconds, copying them a fraction of one."""
+    key = (job["seed"], tuple(sorted(job["small"].items())))
+    if key not in _PSP_DRAWN:
+        _PSP_DRAWN[key] = _draw_psp_models(job)
+    return copy.deepcopy(_PSP_DRAWN[key])
+
+
+_PSP_DRAWN: dict = {}
+
+
+def _draw_psp_models(job: dict):
     from face_mask_inpaint_tpu_torch.losses.lpips import LPIPSNet
     from face_mask_inpaint_tpu_torch.models.psp import PSP
     from face_mask_inpaint_tpu_torch.nn.layers import init_weights

@@ -1,5 +1,5 @@
-"""The schedules of K4b's split-precision route and of the fused K6, emulated
-in plain torch on the CPU, against the plain versions.
+"""The schedules of K4b's and K4a's split-precision routes and of the fused
+K6, emulated in plain torch on the CPU, against the plain versions.
 
 K4b "tf32x3" (csrc/decoder_conv.cu ``conv3x3_tf32x3_kernel``): the weights
 packed hi and lo as [2, 9, co_pad, c_pad] by the wrapper's own
@@ -15,6 +15,14 @@ card's f32 gates: |y - plain| <= 1e-4 + 1e-4 |plain| and the sums of y and
 y^2 within rtol 1e-4 of the plain sums plus 1e-4 of the largest. The
 negative control: one TF32 product (hi·hi, what allow_tf32 means) misses
 the output gate.
+
+K4a "tf32x3" (``convt_pair_tf32x3_kernel``) the same way over one or two
+streams: each stream's weights packed by the wrapper's own
+``_convt_weights_tf32x3``, its prologue, then the zero row and column of
+output_padding, the split; per 8-channel chunk of each stream, each output
+parity's taps (one, two or four) into a zeroed partial, added to that
+parity's total with one rounded add; the streams' biases summed. Also held
+against JAX's ``packed_convt_pair`` (the Pallas kernel in interpret mode).
 
 K6 (csrc/upfirdn2d.cu ``upfirdn2d_kernel``): each output tile stages the
 input window ``_window`` names (zeros outside the image), runs the H pass over
@@ -35,7 +43,7 @@ from face_mask_inpaint_tpu_torch.kernels import norm_act as na
 from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
 
-CK = 8  # K4b tf32x3's input channels a chunk
+CK = 8  # K4b's and K4a's tf32x3 input channels a chunk
 # K6's output tile of one block per mode (up, down), (rows, columns):
 # csrc/upfirdn2d.cu ``Tile``
 K6_TILES = {(1, 1): (32, 128), (2, 1): (64, 128), (1, 2): (16, 64)}
@@ -136,6 +144,127 @@ def test_k4b_one_tf32_product_misses_the_gate():
     one, _ = _gate_used(_k4b_tf32x3(*args, products=1), want)
     three, _ = _gate_used(_k4b_tf32x3(*args), want)
     assert one > 1.0 and three <= 1.0, (one, three)
+
+
+def _parity_taps(q):
+    """(tap, dr, dc) of K4a's output parity q = py * 2 + px: even o = 2m
+    reads k = 1 at m, odd o = 2m + 1 reads k = 2 at m and k = 0 at m + 1."""
+    def axis(p):
+        return [(1, 0)] if p == 0 else [(2, 0), (0, 1)]
+    return [(ky * 3 + kx, dr, dc) for ky, dr in axis(q >> 1) for kx, dc in axis(q & 1)]
+
+
+def _k4a_tf32x3(streams, act, products=3):
+    """K4a's split-precision schedule: (out, (sum y, sum y^2))."""
+    x0, co = streams[0][0], streams[0][1].shape[1]
+    n, _, h, wd = x0.shape
+    co_pad = _pad_to(co, 8)
+    totals = [torch.zeros(n, co_pad, h, wd) for _ in range(4)]
+    for x, w, _, prologue in streams:
+        c = x.shape[1]
+        c_pad = _pad_to(c, 16)
+        wp = dc._convt_weights_tf32x3(w, c_pad, co_pad)
+        assert wp.shape == (2, 9, co_pad, c_pad)
+        # the zero row and column of output_padding, after the prologue
+        sh, sl = dc.tf32_split(F.pad(dc._prologued(x, prologue), (0, 1, 0, 1, 0, c_pad - c)))
+        for c0 in range(0, c, CK):
+            for q in range(4):
+                part = torch.zeros(n, co_pad, h, wd)
+                for tap, dr, dcol in _parity_taps(q):
+                    ah, al = (t[:, c0:c0 + CK, dr:dr + h, dcol:dcol + wd] for t in (sh, sl))
+                    bh, bl = (wp[i, tap, :, c0:c0 + CK] for i in (0, 1))
+                    terms = [(al, bh), (ah, bl), (ah, bh)] if products == 3 else [(ah, bh)]
+                    for a, bb in terms:
+                        part = part + torch.einsum("nchw,oc->nohw", a, bb)
+                totals[q] = totals[q] + part
+    y = torch.empty(n, co, 2 * h, 2 * wd)
+    for q, total in enumerate(totals):
+        y[:, :, q >> 1::2, q & 1::2] = total[:, :co]
+    y = y + dc._pair_bias(streams, co, x0.device)[None, :, None, None]
+    return dc._finish(y, act, True, x0.dtype)
+
+
+def _k4a_case(seed, n, cs, pros, h, w, co):
+    """Streams (x, w, b, prologue) with x [n, c, h, w] and torch's
+    ConvTranspose2d weight [c, co, 3, 3], one a channel count of cs."""
+    rs = np.random.RandomState(seed)
+    streams = []
+    for c, pro in zip(cs, pros):
+        x = torch.from_numpy((rs.randn(n, c, h, w) * 1.5 + 0.2).astype(np.float32))
+        wt = torch.from_numpy((rs.randn(c, co, 3, 3) / (3 * c ** 0.5)).astype(np.float32))
+        b = torch.from_numpy((0.5 * rs.randn(co)).astype(np.float32))
+        prologue = None
+        if pro is not None:
+            prologue = (torch.from_numpy((0.5 + rs.rand(n, c)).astype(np.float32)),
+                        torch.from_numpy((0.3 * rs.randn(n, c)).astype(np.float32)), pro)
+        streams.append((x, wt, b, prologue))
+    return streams
+
+
+# two streams (the first with a prologue, as the decoder runs them) and one;
+# C off the 8-channel chunk, Co off the channel block (3, 16, 80), H and W
+# off the tile
+@pytest.mark.parametrize("n,cs,pros,h,w,co,act", [
+    (2, (16, 13), ("LeakyReLU", None), 9, 12, 16, None),
+    (1, (21, 5), ("ReLU", None), 7, 8, 3, "LeakyReLU"),
+    (2, (13,), (None,), 5, 4, 80, "ReLU"),
+    (1, (32, 64), ("LeakyReLU", None), 6, 10, 32, "LeakyReLU")])
+def test_k4a_tf32x3_schedule_meets_f32_gate(n, cs, pros, h, w, co, act):
+    """Three TF32 products a tap, each parity's chunk in a zeroed partial and
+    rounded adds: the output and the stats within the card's f32 gates."""
+    streams = _k4a_case(3, n, cs, pros, h, w, co)
+    out, stats = _gate_used(_k4a_tf32x3(streams, act),
+                            dc.convt_pair_plain(streams, act, with_stats=True))
+    assert out <= 1.0 and stats <= 1.0, (out, stats)
+
+
+def test_k4a_one_tf32_product_misses_the_gate():
+    """The negative control: hi·hi alone leaves the f32 output gate on the
+    inputs where the three products stay inside it."""
+    streams = _k4a_case(4, 2, (32, 64), ("LeakyReLU", None), 8, 8, 32)
+    want = dc.convt_pair_plain(streams, None, with_stats=True)
+    one, _ = _gate_used(_k4a_tf32x3(streams, None, products=1), want)
+    three, _ = _gate_used(_k4a_tf32x3(streams, None), want)
+    assert one > 1.0 and three <= 1.0, (one, three)
+
+
+def test_k4a_tf32x3_schedule_matches_jax_kernel():
+    """The emulated schedule against JAX's packed_convt_pair (the Pallas
+    kernel in interpret mode, unpacked NHWC at r = 1) at the f32 gates:
+    two streams, the prologue on the first, weights from JAX's HWIO
+    ConvTranspose kernels through convert.py."""
+    import jax.numpy as jnp
+
+    from face_mask_inpaint_tpu.ops import packed as jpacked
+    from face_mask_inpaint_tpu.ops.pallas import packed_convt as jpc
+    from face_mask_inpaint_tpu_torch.convert import state_dict_from_jax
+    from face_mask_inpaint_tpu_torch.nn.layers import ConvTranspose2d
+
+    rs = np.random.RandomState(5)
+    n, h, w, ch, cx, co = 2, 6, 8, 12, 20, 16
+    hx = (rs.randn(n, h, w, ch) + 0.2).astype(np.float32)
+    xx = rs.randn(n, h, w, cx).astype(np.float32)
+    wh = (rs.randn(3, 3, ch, co) / np.sqrt(9 * ch)).astype(np.float32)
+    wx = (rs.randn(3, 3, cx, co) / np.sqrt(9 * cx)).astype(np.float32)
+    bh, bx = ((0.5 * rs.randn(co)).astype(np.float32) for _ in range(2))
+    pa, pb = (0.5 + rs.rand(n, ch)).astype(np.float32), (0.3 * rs.randn(n, ch)).astype(np.float32)
+    want, (ws1, ws2) = jpc.packed_convt_pair(
+        [(jnp.asarray(hx), jnp.asarray(wh), jnp.asarray(bh),
+          (jnp.asarray(pa), jnp.asarray(pb), "LeakyReLU")),
+         (jnp.asarray(xx), jnp.asarray(wx), jnp.asarray(bx))], 1, act=None, with_stats=True)
+    want = torch.from_numpy(np.array(jpacked.depth_to_space(want, 2)).transpose(0, 3, 1, 2))
+
+    def port(x, w_hwio, b, c, prologue=None):
+        sd = state_dict_from_jax(ConvTranspose2d(c, co), {"params": {"kernel": w_hwio,
+                                                                    "bias": b}})
+        return (torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))),
+                sd["weight"], sd["bias"], prologue)
+
+    streams = [port(hx, wh, bh, ch, (torch.from_numpy(pa), torch.from_numpy(pb), "LeakyReLU")),
+               port(xx, wx, bx, cx)]
+    ref = (want, (torch.from_numpy(np.array(ws1)), torch.from_numpy(np.array(ws2))))
+    out, stats = _gate_used(_k4a_tf32x3(streams, None), ref)
+    assert out <= 1.0 and stats <= 1.0, (out, stats)
 
 
 def _window(o0, n, up, down, pad0, k):

@@ -2,8 +2,8 @@
 their plain versions on an NVIDIA GPU, on each of their routes (K1: the
 warpgroup kernel in bf16, the split-precision (3xTF32) kernel in f32 and the
 CUDA-core kernel; K5: tensor cores in bf16, split precision in f32 and CUDA
-cores; K4a and K4b: tensor cores and CUDA cores, and K4b's split-precision
-kernel in f32; K2: one read a plane in a group of warps or a thread-block
+cores; K4a and K4b: tensor cores in bf16, split precision in f32 and CUDA
+cores; K2: one read a plane in a group of warps or a thread-block
 cluster, and two passes; K3: tensor cores in bf16 and CUDA cores), with
 each route's choice by dtype, shape and alignment.
 Marked ``cuda``: they skip where torch.cuda.is_available() is False (the
@@ -23,9 +23,9 @@ bfloat16 tolerance adds rtol times the sum of the output's terms' magnitudes
 (see the test).
 
 Tolerance: |kernel - plain| <= atol + rtol |plain| with (1e-4, 1e-4) in
-float32 (TF32 off; only the order of f32 sums differs, and on K1's, K4b's
-and K5's split-precision route the about 21 bits the split keeps of each
-operand)
+float32 (TF32 off; only the order of f32 sums differs, and on K1's, K4a's,
+K4b's and K5's split-precision route the about 21 bits the split keeps of
+each operand)
 and (1e-3, 2^-7) in
 bfloat16 (each side rounds an f32 result once: one bf16 ulp apart at most).
 K5's dq and dv are held to max |kernel - plain| <= tol * max |plain| with tol
@@ -741,8 +741,8 @@ def test_convt_pair_tensor_cores_match_plain(cuda, n, cs, pros, h, w, co, act, w
 @pytest.mark.parametrize("c,co", [(64, 32), (21, 80)])
 def test_convt_pair_takes_strided_weight_and_bias(cuda, dtype, c, co):
     """A weight and bias that are strided views give the plain version's
-    output on both routes (bf16 at W = 24 takes the tensor cores): the
-    wrapper hands the kernels contiguous copies."""
+    output (W = 24 takes the tensor cores in bf16, split precision in f32):
+    the wrapper hands the kernels contiguous copies."""
     x = _map(cuda, (2, c, 16, 24), dtype)
     wt = (torch.randn(3, 3, c, co, device="cuda", generator=cuda) / (3 * c ** 0.5)
           ).permute(2, 3, 0, 1)
@@ -756,16 +756,56 @@ def test_convt_pair_takes_strided_weight_and_bias(cuda, dtype, c, co):
 
 def test_convt_pair_routes(cuda):
     """bf16 maps with W % 8 == 0 take the tensor cores, the flagship's
-    decoders 3 and 4 among them; other widths, misaligned maps and float32
-    the CUDA cores."""
+    decoders 3 and 4 among them; float32 maps with W % 4 == 0 the tensor
+    cores in split precision; other widths and misaligned maps the CUDA
+    cores."""
     def route(c, h, w, dtype=torch.bfloat16, offset=0):
         flat = torch.zeros(c * h * w + offset, device="cuda", dtype=dtype)
         return dc.convt_pair_route(flat[offset:].view(1, c, h, w))
     assert route(128, 256, 256) == route(64, 512, 512) == "tensor_cores"  # decoders 3, 4
     assert route(5, 9, 72) == route(5, 9, 8) == "tensor_cores"
-    assert route(5, 9, 70) == route(5, 9, 41) == "cuda_cores"
+    assert route(5, 9, 70) == route(5, 9, 41) == route(5, 9, 36) == "cuda_cores"
     assert route(5, 9, 72, offset=1) == "cuda_cores"
-    assert route(5, 9, 72, torch.float32) == "cuda_cores"
+    f32 = torch.float32
+    assert route(128, 256, 256, f32) == route(64, 512, 512, f32) == "tf32x3"  # decoders 3, 4
+    assert route(5, 9, 72, f32) == route(5, 9, 36, f32) == route(5, 9, 4, f32) == "tf32x3"
+    assert route(5, 9, 70, f32) == route(5, 9, 41, f32) == "cuda_cores"
+    assert route(5, 9, 72, f32, offset=1) == route(5, 9, 72, f32, offset=2) == "cuda_cores"
+
+
+# (N, (C_s), (prologue act_s), H, W, Co) in float32 at W % 4 == 0: one or two
+# streams, H and W off the 64-column tile (2, 4 or 8 rows), C off the
+# 8-channel chunk, Co of 3, 8, 16, 32, 64 and 80 (two channel blocks)
+@pytest.mark.parametrize("act,with_stats", [(None, True), ("LeakyReLU", False),
+                                            ("ReLU", True)])
+@pytest.mark.parametrize("n,cs,pros,h,w,co", [
+    (2, (64, 128), ("LeakyReLU", None), 20, 64, 64),
+    (2, (32, 64), ("LeakyReLU", None), 24, 72, 32),
+    (3, (5, 13), ("ReLU", "none"), 37, 36, 3),
+    (1, (21,), (None,), 17, 100, 64),
+    (2, (40,), ("LeakyReLU",), 9, 4, 80),
+    (2, (16, 8), ("none", "ReLU"), 11, 132, 8),
+    (1, (33,), ("ReLU",), 7, 8, 16),
+])
+def test_convt_pair_tf32x3_route_matches_plain(cuda, n, cs, pros, h, w, co, act, with_stats):
+    """K4a's f32 split-precision kernel against its plain version at the f32
+    gate, one launch a call, with and without the stats."""
+    dtype = torch.float32
+    streams = [(_map(cuda, (n, c, h, w), dtype),
+                torch.randn(c, co, 3, 3, device="cuda", generator=cuda) / (3 * c ** 0.5),
+                0.5 * torch.randn(co, device="cuda", generator=cuda),
+                _prologue(cuda, n, c, pro) if pro else None) for c, pro in zip(cs, pros)]
+    assert dc.convt_pair_route(streams[0][0]) == "tf32x3"
+    before = dc.convt_pair.launches
+    got = dc.convt_pair(streams, act, with_stats)
+    torch.cuda.synchronize()
+    assert dc.convt_pair.launches == before + 1
+    want = dc.convt_pair_plain(streams, act, with_stats)
+    if with_stats:
+        (got, stats), (want, want_stats) = got, want
+        _assert_stats(stats, want_stats, dtype)
+    assert got.dtype == dtype and got.shape == (n, co, 2 * h, 2 * w)
+    _assert_close(got, want, dtype)
 
 
 def test_decoder_conv_kernels_reject_bad_input(cuda):
