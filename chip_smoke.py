@@ -189,7 +189,25 @@ counts set to 0 just before it and read just after. Phases:
    collective, the UNet step with its group against without); and
    ``cli/train_mask_detector`` under ``torch.distributed.run
    --nproc_per_node 2`` for one epoch on phase 10's tree, only rank 0
-   writing its files.
+   writing its files;
+14. the StyleGAN2 discriminator and the tools: the discriminator at size
+   1024, channel multiplier 2, batch 4 (one stddev group), weights from
+   --seed: its forward in float32 and bfloat16 against the plain versions
+   (the output, and each of its K6 and K7a calls) with the launches of one
+   forward (K6 16, K7a 19); the float32 gradient penalty ('mixed', alpha
+   from --seed) with its d/dx and its double backward into the
+   discriminator's parameters, the penalty, the gradient and every
+   parameter gradient against the plain path's to phase 7's gate, the
+   launches of each backward against ``disc_launches`` (d/dx K6's backward
+   16, K7b 19; the double backward twice that); the forwards and the
+   penalty step timed in turns with the plain versions, and the step's peak
+   memory; ``tools/parity_report.py``'s recorded reference fixtures on the
+   card at the CPU tests' tolerances (K6 and K7a launched) and its report
+   on an empty assets directory; ``tools/validate_kernels.py`` (every kernel
+   against its float64 reference, all ok); and ``tools/trace_top.py`` and
+   ``tools/trace_sweep.py`` over a ``ProfileWindow`` trace of three bf16
+   forwards (K6's and K7a's kernels with time, a cuDNN convolution with a
+   flop count).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -365,6 +383,33 @@ DP_PER_STEP = {"gan": PER_STEP, "gan_f32": PER_STEP, "psp": PSP_PER_STEP,
 # moves its gradients less than that; config 5's control runs in f32)
 DP_GRAD_FLOOR = {"gan": 2.0 ** -8}
 DP_TIMEOUT = 400
+
+# phase 14: the StyleGAN2 discriminator at full width (size 1024, channel
+# multiplier 2), batch 4 (one stddev group), weights from --seed
+DISC_SIZE, DISC_BATCH = 1024, 4
+# timed rounds of the D forward and of the penalty step, after one warm-up
+DISC_ROUNDS = 5
+
+
+def disc_launches(size: int) -> tuple[dict, dict, dict]:
+    """The launches (only the kernels that launch) of one StyleGAN2
+    discriminator forward at ``size``, of the gradient penalty's d/dx and of
+    its double backward (``penalty.backward()``). A forward blurs twice in
+    each of its log2(size) - 2 DResBlocks (K6) and activates conv_in, the
+    blocks' conv1 and conv2, final_conv and final_linear1 (K7a). d/dx runs
+    each call's backward once (K6 through upfirdn2d_bwd, K7b). The double
+    backward runs them twice: once as the backward of the d/dx graph (K7b's
+    Function applies its mask again, upfirdn2d_bwd's backward is K6 in the
+    forward mode, counted as upfirdn2d_bwd) and once through the forward
+    graph, which the minibatch stddev's backward reaches (it reads the
+    features) and autograd runs for the two K7a calls after it too, on the
+    zero gradients it fills in for them."""
+    blocks = int(math.log2(size)) - 2
+    n_blur, n_act = 2 * blocks, 1 + 2 * blocks + 2
+    return ({"upfirdn2d": n_blur, "fused_leaky_relu": n_act},
+            {"upfirdn2d_bwd": n_blur, "fused_leaky_relu_bwd": n_act},
+            {"upfirdn2d_bwd": 2 * n_blur, "fused_leaky_relu_bwd": 2 * n_act})
+
 
 KERNELS = {
     "flash_attention_fwd": dict(
@@ -2956,6 +3001,301 @@ def phase_data_parallel(run: Run, seed: int, card: str, workdir) -> None:
           f"13 {time.perf_counter() - t_phase:.1f} s, on {card}", flush=True)
 
 
+# -- phase 14: the StyleGAN2 discriminator, the gradient penalty, the tools ------
+
+def _disc(seed: int):
+    """The StyleGAN2 discriminator at DISC_SIZE on the card, weights from
+    ``seed`` (the biases 0.1 N(0, 1), so that K7a's bias add is not of
+    zeros)."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.models.stylegan2 import Discriminator
+    from face_mask_inpaint_tpu_torch.nn.layers import init_weights
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    with torch.device("cuda"):
+        disc = init_weights(Discriminator(DISC_SIZE, channel_multiplier=2), gen)
+    with torch.no_grad():
+        for name, p in disc.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.1, generator=gen)
+    return disc
+
+
+@contextlib.contextmanager
+def _checked_calls(run: Run, dname: str, what: str):
+    """Hold every K6 and K7a call the model makes against the plain version
+    on the same input (launches of these comparisons are not used)."""
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+
+    saved = fir.upfirdn2d, act.fused_leaky_relu
+    seen = {"upfirdn2d": [], "fused_leaky_relu": []}
+
+    def k6(x, taps, up=1, down=1, pad=(0, 0)):
+        y = saved[0](x, taps, up, down, pad)
+        ok, err = _k6_close(y, fir.upfirdn2d_plain(x, taps, up, down, pad), x, taps, up, down,
+                            pad, dname)
+        seen["upfirdn2d"].append((ok, err, tuple(x.shape), tuple(pad)))
+        return y
+
+    def k7a(x, bias=None, negative_slope=0.2, scale=act.SQRT2):
+        y = saved[1](x, bias, negative_slope, scale)
+        ok, err = _close(y, act.fused_leaky_relu_plain(x, bias, negative_slope, scale), dname)
+        seen["fused_leaky_relu"].append((ok, err, tuple(x.shape), None))
+        return y
+
+    # the wrappers count their launches on the module attribute they are
+    # called through, here these stand-ins: the comparisons' launches are
+    # not the model's
+    k6.launches = k7a.launches = 0
+    fir.upfirdn2d, act.fused_leaky_relu = k6, k7a
+    try:
+        yield
+    finally:
+        fir.upfirdn2d, act.fused_leaky_relu = saved
+    for name, calls in seen.items():
+        err = max(c[1] for c in calls)
+        run.err[name] = max(run.err[name], err)
+        shapes = sorted({(c[2], c[3]) for c in calls}, key=lambda c: -math.prod(c[0]))
+        run.check(bool(calls) and all(c[0] for c in calls),
+                  f"{what}: each of its {len(calls)} {name} calls against the plain version, "
+                  f"{dname}: max_abs_err {err:.3e} (shapes, pads: {shapes[:3]} ... {shapes[-1]})")
+
+
+def _param_grads(disc) -> dict:
+    import torch
+
+    return {k: (p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p))
+            for k, p in disc.named_parameters()}
+
+
+def _penalty_step(disc, real, fake, alpha):
+    """The gradient penalty, its d/dx and its double backward into the
+    discriminator's parameters: (penalty, grads, launches of the penalty
+    call, launches of penalty.backward())."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+    from face_mask_inpaint_tpu_torch.losses.gan import cal_gradient_penalty
+
+    disc.zero_grad(set_to_none=True)
+    reset_launch_counts()
+    pen, grads = cal_gradient_penalty(disc, real, fake, "mixed", alpha=alpha)
+    torch.cuda.synchronize()
+    first = {k: v for k, v in _counts().items() if v}
+    reset_launch_counts()
+    pen.backward()
+    torch.cuda.synchronize()
+    second = {k: v for k, v in _counts().items() if v}
+    return pen.detach(), grads.detach(), first, second
+
+
+def _phase_disc(run: Run, seed: int, card: str) -> dict:
+    """The discriminator's forward in f32 and bf16 and the f32 gradient
+    penalty with its double backward, kernels against plain; their times."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+    from face_mask_inpaint_tpu_torch.tools import trace_sweep, trace_top
+    from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow
+
+    disc = _disc(seed)
+    fwd, dx, double = disc_launches(DISC_SIZE)
+    n_params = sum(p.numel() for p in disc.parameters())
+    data = torch.Generator(device="cuda").manual_seed(seed + 15)
+    shape = (DISC_BATCH, 3, DISC_SIZE, DISC_SIZE)
+    real = torch.randn(shape, device="cuda", generator=data)
+    fake = torch.randn(shape, device="cuda", generator=data)
+    alpha = torch.rand((DISC_BATCH, 1, 1, 1), device="cuda", generator=data)
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x = real.to(dtype)
+            with torch.no_grad():
+                disc(x)
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                out = disc(x)
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in _counts().items() if v}
+                with _checked_calls(run, dname, f"D forward {dname}"):
+                    disc(x)
+                with plain_versions():
+                    want = disc(x)
+            ok, err = _close(out, want, dname)
+            run.check(launches == fwd, f"D forward {dname}, size {DISC_SIZE} batch {DISC_BATCH}: "
+                                       f"launches {launches} (derived {fwd})")
+            run.check(ok and out.dtype == dtype and tuple(out.shape) == (DISC_BATCH, 1)
+                      and bool(torch.isfinite(out.float()).all()),
+                      f"D forward {dname}: {out.dtype} {tuple(out.shape)} finite, kernels vs "
+                      f"plain max_abs_err {err:.3e} (max |plain| "
+                      f"{float(want.float().abs().max()):.3e})")
+        print(f"[disc] StyleGAN2 D size {DISC_SIZE}, channel multiplier 2: {n_params} "
+              f"parameters; f32 outputs {out.float().flatten().tolist()}", flush=True)
+
+        pen_k, grads_k, first, second = _penalty_step(disc, real, fake, alpha)
+        got = _param_grads(disc)
+        with plain_versions():
+            pen_p, grads_p, _, _ = _penalty_step(disc, real, fake, alpha)
+            want = _param_grads(disc)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    want_first = {k: fwd.get(k, 0) + dx.get(k, 0) for k in set(fwd) | set(dx)}
+    run.check(first == want_first and all(first.values()),
+              f"penalty f32, d/dx: launches {first} (derived: the forward {fwd} and d/dx {dx})")
+    run.check(second == double and all(second.values()),
+              f"penalty f32, double backward: launches {second} (derived {double})")
+    run.check(abs(float(pen_k) - float(pen_p)) <= GRAD_TOL * abs(float(pen_p))
+              and math.isfinite(float(pen_k)),
+              f"penalty f32: kernels {float(pen_k):.6f}, plain {float(pen_p):.6f}")
+    scale = float(grads_p.abs().max())
+    err = float((grads_k - grads_p).abs().max())
+    run.check(err <= (GRAD_TOL + GRAD_FLOOR) * scale,
+              f"penalty f32 grads [{DISC_BATCH}, 3, {DISC_SIZE}, {DISC_SIZE}]: max_abs_err "
+              f"{err:.3e} of max |plain| {scale:.3e} (tol {GRAD_TOL} + {GRAD_FLOOR})")
+    floor = GRAD_FLOOR * max(float(w.abs().max()) for w in want.values())
+    used, worst = 0.0, ""
+    for k, w in want.items():
+        e = float((got[k] - w).abs().max())
+        u = e / (GRAD_TOL * float(w.abs().max()) + floor)
+        if u >= used:
+            used, worst = u, k
+    run.check(used <= 1.0, f"penalty f32 double backward, {len(want)} parameter gradients: "
+                           f"max_abs_err uses at most {used:.3f} of its tolerance ({GRAD_TOL} * "
+                           f"max|plain| + {GRAD_FLOOR} * the largest entry; worst {worst})")
+    del got, want, grads_k, grads_p
+
+    sides = {"kernels": contextlib.nullcontext, "plain": plain_versions}
+    times = {(what, side): [] for what in ("forward bf16", "forward f32", "penalty step f32")
+             for side in sides}
+    x16 = real.to(torch.bfloat16)
+    for r in range(DISC_ROUNDS):
+        for side in (list(sides) if r % 2 == 0 else list(sides)[::-1]):
+            with sides[side](), torch.no_grad():
+                times[("forward bf16", side)].append(_time_ms(lambda: disc(x16), 1))
+                times[("forward f32", side)].append(_time_ms(lambda: disc(real), 1))
+            with sides[side]():
+                times[("penalty step f32", side)].append(
+                    _time_ms(lambda: _penalty_step(disc, real, fake, alpha), 1))
+    torch.cuda.reset_peak_memory_stats()
+    _penalty_step(disc, real, fake, alpha)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for (what, side), v in times.items():
+        q = statistics.quantiles(v, n=4)
+        print(f"[disc] D {what}, batch {DISC_BATCH}, {side}, {DISC_ROUNDS} rounds (ms): median "
+              f"{statistics.median(v):.3f}, quartiles {q[0]:.3f}-{q[2]:.3f}, range "
+              f"{min(v):.3f}-{max(v):.3f} on {card}", flush=True)
+    print(f"[disc] peak device memory of the f32 penalty step {peak:.2f} GiB on {card}",
+          flush=True)
+    trace_dir = Path("build/chip_smoke_trace_penalty")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    window = ProfileWindow(str(trace_dir), num_steps=1, start_step=1)
+    for step in range(3):
+        window.tick(step)
+        _penalty_step(disc, real, fake, alpha)
+    window.close()
+    print(f"[disc] one f32 penalty step (trace_top, then trace_sweep) on {card}:", flush=True)
+    trace_top.main([str(trace_dir), "15"])
+    trace_sweep.main([str(trace_dir), "--top", "10"])
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    del disc, real, fake, x16
+    torch.cuda.empty_cache()
+    return {"forward": fwd, "penalty_dx": first, "penalty_double": second}
+
+
+def _phase_tools(run: Run, seed: int, card: str) -> None:
+    """The port's tools on the card: the recorded reference fixtures and an
+    empty-asset report (parity_report), every kernel against its float64
+    reference (validate_kernels), and the trace readers over a
+    ProfileWindow trace of a few D forwards."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
+    from face_mask_inpaint_tpu_torch.tools import parity_report, trace_sweep, trace_top
+    from face_mask_inpaint_tpu_torch.tools import validate_kernels
+    from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow
+
+    report = {}
+    reset_launch_counts()
+    parity_report.module_fixture_parity(parity_report.DEFAULT_FIXTURE_DIR, report, "cuda")
+    launches = {k: v for k, v in _counts().items() if v}
+    tol = {"styled_conv_up": 5e-4, "irse_bottleneck": 5e-4, "vgg_block1": 2e-4,
+           "lpips_lin": 1e-5}
+    for name, row in report["module_fixtures"].items():
+        run.check(row.get("status") == "ok" and row["max_abs_diff"] < tol[name],
+                  f"parity fixture {name} on the card, f32 (TF32 off): {row} (tol {tol[name]})")
+    run.check(launches.get("upfirdn2d", 0) > 0 and launches.get("fused_leaky_relu", 0) > 0,
+              f"parity fixtures launched K6 and K7a (styled_conv_up): {launches}")
+    assets = Path("build/chip_smoke_assets")
+    shutil.rmtree(assets, ignore_errors=True)
+    assets.mkdir(parents=True)
+    rc = parity_report.main(["--assets", str(assets), "--skip_inference", "--device", "cuda",
+                             "--out", str(assets / "report.json")])
+    rep = json.loads((assets / "report.json").read_text())
+    run.check(rc == 0 and all(v["status"] == "asset missing" for v in rep["convert"].values()),
+              f"parity_report on an empty assets directory: exit {rc}, "
+              f"{len(rep['convert'])} assets missing")
+    shutil.rmtree(assets, ignore_errors=True)
+
+    out = Path("build/kernel_validation.json")
+    rc = validate_kernels.main(["--out", str(out)])
+    val = json.loads(out.read_text())
+    for name, row in val["checks"].items():
+        print(f"[validate] {name}: ok {row['ok']} max_abs_diff {row['max_abs_diff']:.3e} "
+              f"rel_diff {row['rel_diff']:.3e} (f32 {row.get('float32', {}).get('rel_diff')}, "
+              f"bf16 {row.get('bfloat16', {}).get('rel_diff')}) launches "
+              f"{row.get('launches')} {row.get('error', '')}", flush=True)
+    run.check(rc == 0 and val["all_ok"] and val["card"] == card,
+              f"validate_kernels on the card: exit {rc}, all_ok {val['all_ok']} "
+              f"({len(val['checks'])} checks) on {val.get('card')}")
+
+    disc = _disc(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((DISC_BATCH, 3, DISC_SIZE, DISC_SIZE), device="cuda", dtype=torch.bfloat16,
+                    generator=gen)
+    trace_dir = Path("build/chip_smoke_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    window = ProfileWindow(str(trace_dir), num_steps=3, start_step=1)
+    with torch.no_grad():
+        for step in range(5):
+            window.tick(step)
+            disc(x)
+    window.close()
+    events, path = trace_top.load_trace_events(trace_dir)
+    tot, cnt, kind = trace_top.op_totals(events)
+    k6 = {n: us for n, us in tot.items() if "upfirdn2d_kernel" in n}
+    k7 = {n: us for n, us in tot.items() if "fwd_kernel" in n and "flash" not in n}
+    run.check(kind == trace_top.DEVICE_KIND and sum(k6.values()) > 0 and sum(k7.values()) > 0,
+              f"trace_top over three bf16 D forwards reads {kind}: K6 {k6}, K7a {k7}")
+    kernel = next(e for e in events if e.get("cat") == "kernel")
+    launch = next((e for e in events if e.get("cat") == "cuda_runtime"), {})
+    print(f"[trace] a kernel event's args {sorted(kernel.get('args', {}))}; a runtime event's "
+          f"args {sorted(launch.get('args', {}))}", flush=True)
+    trace_top.main([str(trace_dir), "12"])
+    agg, _, kind = trace_sweep.sweep(str(trace_dir))
+    convs = {n: r for n, r in agg.items() if r["flops"] > 0 and r["ms"] > 0 and "conv" in r["op"]}
+    run.check(kind == trace_top.DEVICE_KIND and bool(convs),
+              f"trace_sweep gives {len(convs)} cuDNN convolution shape(s) a flop count and "
+              f"device time, e.g. "
+              f"{[(n[:70], r['flops'], r['ms']) for n, r in list(convs.items())[:2]]}")
+    trace_sweep.main([str(trace_dir), "--top", "12"])
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    del disc, x
+    torch.cuda.empty_cache()
+
+
+def phase_disc_and_tools(run: Run, seed: int, card: str) -> dict:
+    t0 = time.perf_counter()
+    launches = _phase_disc(run, seed, card)
+    _phase_tools(run, seed, card)
+    print(f"[disc] phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2999,6 +3339,7 @@ def main(argv=None) -> int:
         phase_data_parallel(run, args.seed, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    phase_disc_and_tools(run, args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:", file=sys.stderr)

@@ -72,13 +72,14 @@ from face_mask_inpaint_tpu_torch.models.picnet import PatchDiscriminator, ResDis
 from face_mask_inpaint_tpu_torch.models.psp import PSP
 from face_mask_inpaint_tpu_torch.models.reference_fill import ReferenceFill
 from face_mask_inpaint_tpu_torch.models.stylegan2 import (
-    EqualConv2d, EqualLinear, Generator, ModulatedConv2d, NoiseInjection)
+    Discriminator, EqualConv2d, EqualLinear, Generator, ModulatedConv2d, NoiseInjection)
 from face_mask_inpaint_tpu_torch.models.unet import MaskDetector
 from face_mask_inpaint_tpu_torch.nn.layers import BatchNorm2d, Conv2d, ConvTranspose2d, Dense
 
 __all__ = ["state_dict_from_jax", "convert_mask_detector", "convert_reference_fill",
            "convert_drn", "convert_discriminator", "convert_vgg16",
-           "vgg16_state_dict_from_torchvision", "convert_stylegan2_generator", "convert_gradual_style_encoder", "convert_psp",
+           "vgg16_state_dict_from_torchvision", "convert_stylegan2_generator",
+           "convert_stylegan2_discriminator", "convert_gradual_style_encoder", "convert_psp",
            "convert_lpips", "convert_backbone", "convert_inception", "jax_leading_dims",
            "merge_from_jax", "read_checkpoint", "load_checkpoint"]
 
@@ -251,6 +252,16 @@ def convert_stylegan2_generator(model: Generator, variables: dict) -> dict[str, 
     """JAX StyleGAN2 ``Generator`` variables (params + noises) -> state_dict."""
     if not isinstance(model, Generator):
         raise TypeError(f"expected a Generator, got {type(model).__name__}")
+    return state_dict_from_jax(model, variables)
+
+
+def convert_stylegan2_discriminator(model: Discriminator,
+                                    variables: dict) -> dict[str, torch.Tensor]:
+    """JAX StyleGAN2 ``Discriminator`` variables (params) -> state_dict.
+    ``final_linear1``'s [in, out] weight is transposed as it is: the port
+    flattens the final map in the JAX package's (h, w, c) order."""
+    if not isinstance(model, Discriminator):
+        raise TypeError(f"expected a StyleGAN2 Discriminator, got {type(model).__name__}")
     return state_dict_from_jax(model, variables)
 
 

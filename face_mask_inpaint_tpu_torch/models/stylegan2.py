@@ -1,4 +1,5 @@
-"""StyleGAN2 generator (synthesis network and style MLP), over NCHW.
+"""StyleGAN2 generator (synthesis network and style MLP) and discriminator,
+over NCHW.
 
 Port of face_mask_inpaint_tpu/models/stylegan2.py (dense execution; the
 packed space-to-depth execution of the JAX package computes the same
@@ -19,6 +20,12 @@ every ToRGB skip upsample are K6 (ops/upfirdn2d.py). At size 1024 one
 forward makes 17 K7a and 16 K6 calls; its backward makes 17 K7b calls and
 16 more K6 calls (the gradients of the blurs and skip upsamples).
 
+The discriminator (``ConvLayer``, ``DResBlock``, ``Discriminator``; JAX
+``models/stylegan2.py:623-716``) blurs through K6 in mode (1, 1) before
+each stride-2 convolution, pads (2, 2) before a 3x3 and (1, 1) before a 1x1
+skip, and runs K7a after every activated ConvLayer and ``final_linear1``
+(on [N, C] rows). At size 1024 one forward makes 16 K6 and 19 K7a calls.
+
 Weights are drawn from a ``torch.Generator`` with the distributions of the
 JAX initialisers: EqualLinear N(0, 1) / lr_mul with its bias_init (1 for the
 modulation), the conv weights and the input constant N(0, 1), the noise
@@ -34,12 +41,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from face_mask_inpaint_tpu_torch.ops.fused_act import fused_leaky_relu
+from face_mask_inpaint_tpu_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
 from face_mask_inpaint_tpu_torch.ops.upfirdn2d import blur, make_taps, upsample_2d
 from face_mask_inpaint_tpu_torch.parallel import dist as _dp
 
 __all__ = ["channels_for", "PixelNorm", "EqualLinear", "EqualConv2d", "ModulatedConv2d",
-           "NoiseInjection", "StyledConv", "ToRGB", "Generator"]
+           "NoiseInjection", "StyledConv", "ToRGB", "Generator", "ConvLayer", "DResBlock",
+           "Discriminator"]
 
 BLUR_KERNEL = (1, 3, 3, 1)
 
@@ -333,3 +341,107 @@ class Generator(nn.Module):
             skip = getattr(self, f"to_rgbs_{j}")(out, latent[:, i + 2], skip)
             i += 2
         return skip, latent if return_latents else None
+
+
+class ConvLayer(nn.Module):
+    """Discriminator conv layer (model.py:553-599): an optional blur and
+    stride-2 downsample, EqualConv2d, then the fused bias + LeakyReLU
+    (``activate_bias``) or, without a bias, the scaled LeakyReLU. The
+    convolution carries its own bias only when the layer is not activated."""
+
+    def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
+                 downsample: bool = False, blur_kernel: Sequence[int] = BLUR_KERNEL,
+                 bias: bool = True, activate: bool = True):
+        super().__init__()
+        self.downsample, self.activate = downsample, activate
+        if downsample:
+            p = (len(blur_kernel) - 2) + (kernel_size - 1)
+            self.blur_pad = ((p + 1) // 2, p // 2)
+            self.blur_taps = make_taps(blur_kernel)
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        self.conv = EqualConv2d(in_channel, out_channel, kernel_size, stride, padding,
+                                bias=bias and not activate)
+        self.activate_bias = (nn.Parameter(torch.empty(out_channel))
+                              if activate and bias else None)
+
+    def reset_parameters(self, generator=None) -> None:
+        if self.activate_bias is not None:
+            with torch.no_grad():
+                self.activate_bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.downsample:
+            x = blur(x, self.blur_taps, self.blur_pad)
+        x = self.conv(x)
+        if not self.activate:
+            return x
+        if self.activate_bias is None:
+            return scaled_leaky_relu(x)
+        return fused_leaky_relu(x, self.activate_bias.to(x.dtype))
+
+
+class DResBlock(nn.Module):
+    """Discriminator residual block (model.py:602-624): two 3x3 ConvLayers,
+    the second downsampling, plus a 1x1 downsampling skip, over sqrt(2)."""
+
+    def __init__(self, in_channel: int, out_channel: int,
+                 blur_kernel: Sequence[int] = BLUR_KERNEL):
+        super().__init__()
+        self.conv1 = ConvLayer(in_channel, in_channel, 3, blur_kernel=blur_kernel)
+        self.conv2 = ConvLayer(in_channel, out_channel, 3, downsample=True,
+                               blur_kernel=blur_kernel)
+        self.skip = ConvLayer(in_channel, out_channel, 1, downsample=True,
+                              blur_kernel=blur_kernel, bias=False, activate=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2 discriminator with minibatch stddev (model.py:627-685).
+
+    Computes in its input's dtype with float32 parameters. ``final_linear1``
+    reads the final 4x4 map flattened in (h, w, c) order, as the JAX package
+    flattens NHWC (JAX stylegan2.py:712), so JAX weights carry across by the
+    converter's plain transpose; the reference flattens NCHW."""
+
+    def __init__(self, size: int = 1024, channel_multiplier: int = 2,
+                 blur_kernel: Sequence[int] = BLUR_KERNEL, stddev_group: int = 4,
+                 stddev_feat: int = 1):
+        super().__init__()
+        self.stddev_group, self.stddev_feat = stddev_group, stddev_feat
+        channels = channels_for(size, channel_multiplier)
+        self.log_size = int(math.log2(size))
+        self.conv_in = ConvLayer(3, channels[size], 1, blur_kernel=blur_kernel)
+        in_ch = channels[size]
+        for i in range(self.log_size, 2, -1):
+            out_ch = channels[2 ** (i - 1)]
+            setattr(self, f"res_{i}", DResBlock(in_ch, out_ch, blur_kernel))
+            in_ch = out_ch
+        c4 = channels[4]
+        self.final_conv = ConvLayer(in_ch + stddev_feat, c4, 3, blur_kernel=blur_kernel)
+        self.final_linear1 = EqualLinear(c4 * 4 * 4, c4, activation="fused_lrelu")
+        self.final_linear2 = EqualLinear(c4, 1)
+
+    def minibatch_stddev(self, out: torch.Tensor) -> torch.Tensor:
+        """The features with their group stddev appended as ``stddev_feat``
+        channels (model.py:671-678): the batch split into ``group`` interleaved
+        slices, the population variance across them plus 1e-8, its root
+        averaged over each feature's channels and space, tiled back."""
+        n, c, h, w = out.shape
+        group, feat = min(n, self.stddev_group), self.stddev_feat
+        s = out.view(group, n // group, feat, c // feat, h, w)
+        s = torch.sqrt(s.var(dim=0, correction=0) + 1e-8).mean(dim=(2, 3, 4))
+        s = s.view(n // group, feat, 1, 1).repeat(group, 1, h, w)
+        return torch.cat([out, s], dim=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [N, 3, size, size] -> [N, 1]."""
+        out = self.conv_in(x)
+        for i in range(self.log_size, 2, -1):
+            out = getattr(self, f"res_{i}")(out)
+        out = self.final_conv(self.minibatch_stddev(out))
+        out = out.permute(0, 2, 3, 1).reshape(out.shape[0], -1)
+        return self.final_linear2(self.final_linear1(out))

@@ -1,7 +1,9 @@
-"""Adam, Ranger and the host-side ReduceLROnPlateau of the trainers.
+"""Adam, Ranger, the host-side ReduceLROnPlateau of the trainers, and the
+learning-rate schedules.
 
-Port of face_mask_inpaint_tpu/train/optim.py ``adam``, ``ranger`` and
-``PlateauTracker`` (train/optim.py:75-219). The reference steps its
+Port of face_mask_inpaint_tpu/train/optim.py ``adam``, ``ranger``,
+``PlateauTracker`` (train/optim.py:75-219), ``get_scheduler`` and
+``plateau_scheduler`` (:222-270), which no trainer uses. The reference steps its
 ReduceLROnPlateau schedulers on the validation losses with mode 'max',
 patience 2 and factor 0.8 (train_reference_fill.py:310-319, :403-404,
 train_psp.py:294-298); ``PlateauTracker.step`` returns the new learning rate
@@ -14,11 +16,13 @@ A torch optimizer always holds its learning rate there, so ``adam`` and
 from __future__ import annotations
 
 import math
-from typing import Iterable, Mapping, Optional
+from typing import Callable, Iterable, Mapping, Optional
 
+import numpy as np
 import torch
 
-__all__ = ["adam", "ranger", "Ranger", "set_learning_rate", "PlateauTracker"]
+__all__ = ["adam", "ranger", "Ranger", "set_learning_rate", "PlateauTracker", "get_scheduler",
+           "plateau_scheduler", "PlateauScheduler"]
 
 
 def adam(params: Iterable[torch.nn.Parameter], learning_rate: float) -> torch.optim.Adam:
@@ -164,3 +168,80 @@ def ranger(params: Iterable[torch.nn.Parameter], learning_rate: float,
            keep_dims: Mapping[torch.Tensor, int]) -> Ranger:
     """Ranger with the JAX package's defaults and centralization axes."""
     return Ranger(params, lr=learning_rate, keep_dims=keep_dims)
+
+
+def get_scheduler(lr_policy: str, base_lr: float, niter: int = 100, niter_decay: int = 100,
+                  iter_count: int = 0, lr_decay_iters: int = 50) -> Callable[[int], float]:
+    """The schedule registry of the reference's get_scheduler
+    (base_function.py:69-88): a callable from epoch to learning rate.
+
+    'lambda': base_lr * (1 - max(0, epoch + 2 + iter_count - niter) /
+    (niter_decay + 1)); 'step': x0.1 every ``lr_decay_iters`` epochs
+    (staircase); 'exponent': x0.95 per epoch (not staircase). Computed in
+    float32, as the JAX schedules are."""
+    f32 = np.float32
+    if lr_policy == "lambda":
+        def sched(epoch):
+            late = max(f32(0.0), f32(epoch + 2.0 + iter_count - niter))
+            return float(f32(base_lr) * (f32(1.0) - late / f32(niter_decay + 1)))
+        return sched
+    if lr_policy in ("step", "exponent"):
+        steps, rate = (lr_decay_iters, 0.1) if lr_policy == "step" else (1, 0.95)
+
+        def sched(epoch):
+            if epoch <= 0:
+                return float(f32(base_lr))
+            p = f32(epoch / steps)
+            if lr_policy == "step":
+                p = np.floor(p)
+            return float(f32(base_lr) * np.power(f32(rate), p))
+        return sched
+    raise NotImplementedError(f"learning rate policy [{lr_policy}] is not implemented")
+
+
+class PlateauScheduler:
+    """The state machine of ``optax.contrib.reduce_on_plateau`` (one value a
+    step, atol 0), in float32 as optax keeps it: ``update(value)`` returns
+    the scale to multiply the learning rate by. A value improves when it is
+    below (1 - rtol) * best; after ``patience`` steps without improvement
+    the scale drops by ``factor`` (not below ``min_scale``) and ``cooldown``
+    steps follow in which the plateau count stays 0 (the best value still
+    updates)."""
+
+    def __init__(self, factor: float = 0.1, patience: int = 10, rtol: float = 1e-4,
+                 cooldown: int = 0, min_scale: float = 0.0):
+        if not 0.0 < factor < 1.0:
+            raise ValueError(f"Factor must be in the range (0, 1), got factor = {factor}.")
+        if not 0.0 < rtol <= 1.0:
+            raise ValueError(f"rtol must be in (0, 1], got rtol = {rtol}.")
+        self.factor, self.patience, self.rtol = factor, patience, rtol
+        self.cooldown, self.min_scale = cooldown, min_scale
+        self.scale = np.float32(1.0)
+        self.best = np.float32(np.inf)
+        self.plateau_count = self.cooldown_count = 0
+
+    def update(self, value: float) -> float:
+        value = np.float32(value)
+        improved = value < np.float32(1 - self.rtol) * self.best
+        if improved:
+            self.best = value
+        count = 0 if improved else self.plateau_count + 1
+        if self.cooldown_count > 0:
+            self.plateau_count, self.cooldown_count = 0, self.cooldown_count - 1
+        else:
+            reduce = count == self.patience
+            self.plateau_count = 0 if reduce else count
+            scale = self.scale * np.float32(self.factor) if reduce else self.scale
+            self.scale = np.maximum(scale, np.float32(self.min_scale))
+            self.cooldown_count = self.cooldown if reduce else 0
+        return float(self.scale)
+
+
+def plateau_scheduler(factor: float = 0.1, patience: int = 10, mode: str = "min",
+                      rtol: float = 1e-4, cooldown: int = 0,
+                      min_scale: float = 0.0) -> PlateauScheduler:
+    """torch ReduceLROnPlateau's counterpart of the JAX function, which
+    returns ``optax.contrib.reduce_on_plateau`` with these arguments. For
+    mode 'max' pass the negated metric, as there."""
+    del mode  # the caller negates for 'max'
+    return PlateauScheduler(factor, patience, rtol, cooldown, min_scale)

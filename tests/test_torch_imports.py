@@ -1,7 +1,8 @@
 """The port imports no JAX: every module of face_mask_inpaint_tpu_torch, and
-chip_smoke.py, import in a subprocess where ``jax`` and ``flax`` cannot be
-imported. Nor pandas, which the card's machine lacks: no source file of the
-port imports it, at the top or inside a function."""
+chip_smoke.py, import in a subprocess where ``jax``, ``flax``, ``optax``,
+``orbax`` and ``tensorstore`` cannot be imported. Nor pandas, which the card's
+machine lacks: no source file of the port imports any of them, at the top or
+inside a function."""
 
 import ast
 
@@ -17,7 +18,8 @@ import importlib, importlib.abc, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "face_mask_inpaint_tpu", "pandas"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+                                  "face_mask_inpaint_tpu", "pandas"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -27,7 +29,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
-assert not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules)
+assert not any(m.split(".")[0] in ("jax", "flax", "optax", "orbax", "tensorstore")
+               for m in sys.modules)
 print(len(names))
 """
 
@@ -50,7 +53,8 @@ def test_port_imports_no_pandas():
                 names = [node.module or ""]
             else:
                 continue
-            assert not any(n.split(".")[0] in ("pandas", "jax", "flax", "face_mask_inpaint_tpu")
+            assert not any(n.split(".")[0] in ("pandas", "jax", "flax", "optax", "orbax",
+                                               "tensorstore", "face_mask_inpaint_tpu")
                            for n in names), f"{path}:{node.lineno} imports {names}"
 
 
