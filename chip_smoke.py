@@ -95,10 +95,14 @@ counts set to 0 just before it and read just after. Phases:
 8. Stack B, pSp -> StyleGAN2 inference at BASELINE config 4 (the path of
    ``psp_inference.py --use_ref --use_attention 1``): K6 (upfirdn2d) and
    K7a (fused_leaky_relu) against their plain versions in float32 and
-   bfloat16 at the shapes of one config-4 forward, ragged ones and ones of
-   several of K6's tiles in both axes on 1025- and 513-wide rows, timed
-   over the 16 K6 and 17 K7a calls of one batch-16 forward beside their
-   bounds and a PyTorch yardstick; the pSp model of the CLI's
+   bfloat16 at the shapes of one config-4 forward (all 17 of K7a's, on its
+   plane and flat routes, and x one element off its 16-byte boundary),
+   ragged ones and ones of several of K6's tiles in both axes on 1025- and
+   513-wide rows, timed over the 16 K6 and 17 K7a calls of one batch-16
+   bf16 forward and of the f32 forward of a batch-8 training step beside
+   their bounds and a PyTorch yardstick, K7a call by call through its
+   wrapper, its C entry point and on the device (a CUDA graph of its calls,
+   replayed), with the achieved TB/s; the pSp model of the CLI's
    ``build_models`` (output 1024, attention, random weights from --seed)
    with the UNet detector in front at batch 2 in float32: output shape and
    finiteness, the kernel path against the plain versions, the launches of
@@ -108,7 +112,8 @@ counts set to 0 just before it and read just after. Phases:
    model as bench.py builds it): the forward timed with CUDA events in
    turns against the plain versions (median and quartiles), its peak device
    memory and a ``torch.profiler`` window, which must show K6's fused
-   kernel and not the two-pass one it replaced;
+   kernel and not the two-pass one it replaced, and K7a's CUDA kernels and
+   not the Triton one they replaced;
 9. Stack B training at BASELINE config 4 (the path of ``train_psp.py``,
    the ``scripts/train_psp.sh`` recipe with ``--use_attention``: decoder
    trained, identity, LPIPS, L2, logged style and contextual terms, latent
@@ -206,8 +211,8 @@ counts set to 0 just before it and read just after. Phases:
    on an empty assets directory; ``tools/validate_kernels.py`` (every kernel
    against its float64 reference, all ok); and ``tools/trace_top.py`` and
    ``tools/trace_sweep.py`` over a ``ProfileWindow`` trace of three bf16
-   forwards (K6's and K7a's kernels with time, a cuDNN convolution with a
-   flop count).
+   forwards (K6's and K7a's kernels with time and no Triton K7a, a cuDNN
+   convolution with a flop count).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -297,6 +302,8 @@ PSP_TRAIN_ARGS = ["--use_ref", "--use_attention", "--output_size", "1024",
 PSP_TOL = 1e-4
 # timed rounds of the config-4 forward, kernels and plain versions in turns
 PSP_ROUNDS = 5
+# K7a's C-entry calls in the CUDA graph that times a call's device work
+GRAPH_CALLS = 10
 # K5: max |kernel - plain| <= tol * max |plain| for dq and each dv. bf16
 # rounds P and dS on both sides (the tensor-core route each dS[r, c] apart,
 # the plain version their sum over both roles), from f32 values summed in
@@ -434,7 +441,7 @@ KERNELS = {
         route="cuda", source="face_mask_inpaint_tpu_torch/csrc/upfirdn2d.cu",
         replaces="face_mask_inpaint_tpu/ops/pallas/upfirdn2d_pallas.py:44"),
     "fused_leaky_relu": dict(
-        route="triton", source="face_mask_inpaint_tpu_torch/kernels/fused_act.py",
+        route="cuda", source="face_mask_inpaint_tpu_torch/csrc/fused_act.cu",
         replaces="face_mask_inpaint_tpu/ops/pallas/fused_act_pallas.py:40"),
     "upfirdn2d_bwd": dict(
         route="cuda", source="face_mask_inpaint_tpu_torch/csrc/upfirdn2d.cu",
@@ -1606,12 +1613,10 @@ def _k6_close(got, want, x, taps, up, down, pad, dname):
 
 def phase_stackb_kernels(run: Run, seed: int, timings: dict):
     """K6 and K7a against their plain versions, float32 and bfloat16, at the
-    config-4 shapes and ragged ones; bfloat16 times summed over the calls of
-    one batch-16 forward."""
-    import math
-
+    config-4 shapes and ragged ones; times summed over the calls of one
+    batch-16 bf16 forward and over those of the f32 forward of a batch-8
+    training step, K7a's also call by call."""
     import torch
-    import torch.nn.functional as F
 
     from face_mask_inpaint_tpu_torch.kernels import fused_act as act
     from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
@@ -1648,34 +1653,78 @@ def phase_stackb_kernels(run: Run, seed: int, timings: dict):
                           f"{err:.3e} (tol atol {TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*"
                           f"(|ref| + upfirdn2d(|x|, |taps|)))")
             del x, y
-        k7_cases = [("1024^2 StyledConv", k7_shapes[-1], True), ("ragged", (3, 5, 37, 41), True),
-                    ("ragged rows", (7, 13), True), ("ragged, no bias", (2, 3, 9, 11), False)]
-        for label, shape, with_bias in k7_cases:
-            x = (torch.randn(shape, device="cuda", generator=gen) * 2).to(dtype)
-            b = torch.randn(shape[1], device="cuda", generator=gen) if with_bias else None
+        # every call of a config-4 forward (batch 16; 4^2 and 8^2 on the flat
+        # route, the rest on the plane route), ragged planes and rows, rows
+        # past 65,535 planes, a bf16 bias, no bias, and x one element into
+        # its allocation (single elements in the same launch)
+        k7_cases = [(f"config-4 call {i} {s[2]}^2", s, torch.float32, 0)
+                    for i, s in enumerate(k7_shapes)]
+        k7_cases += [("ragged", (3, 5, 37, 41), torch.float32, 0),
+                     ("ragged rows", (7, 13), torch.float32, 0),
+                     ("ragged, no bias", (2, 3, 9, 11), None, 0),
+                     ("rows past 65,535 planes", (300, 513), torch.float32, 0),
+                     ("bf16 bias", (16, 64, 512, 512), torch.bfloat16, 0),
+                     ("x one element off", (16, 512, 32, 32), torch.float32, 1),
+                     ("x one element off", (16, 512, 8, 8), torch.bfloat16, 1),
+                     ("hw 323", (2, 3, 17, 19), torch.float32, 0)]
+        for label, shape, bias_dtype, off in k7_cases:
+            buf = torch.randn(math.prod(shape) + off, device="cuda", generator=gen) * 2
+            x = buf.to(dtype)[off:].view(shape)
+            b = (None if bias_dtype is None else
+                 torch.randn(shape[1], device="cuda", generator=gen).to(bias_dtype))
             y = act.fused_leaky_relu(x, b)
             torch.cuda.synchronize()
             ok, err = _close(y, act.fused_leaky_relu_plain(x, b), dname)
             run.err["fused_leaky_relu"] = max(run.err["fused_leaky_relu"], err)
-            run.check(ok, f"K7a {label} {list(shape)} {dname}: max_abs_err {err:.3e} (tol atol "
-                          f"{TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|)")
-            del x, y
+            route = act.fused_leaky_relu_route(shape, dtype)
+            run.check(ok and (x.data_ptr() % 16 != 0) == (off != 0),
+                      f"K7a {label} {list(shape)} {dname} ({route}, x at byte "
+                      f"{x.data_ptr() % 16} of 16): max_abs_err {err:.3e} (tol atol "
+                      f"{TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|)")
+            del buf, x, y
         torch.cuda.empty_cache()
 
-    # bfloat16 times over one batch-16 forward's calls
-    dtype = torch.bfloat16
-    sums = {k: dict(ms=0.0, plain=0.0, lib=0.0, nbytes=0.0, ops=0.0) for k in ("k6", "k7")}
+    # bf16 times over the calls of one batch-16 forward, then f32 times over
+    # those of one batch-8 training step's forward
+    for dtype, batch in ((torch.bfloat16, 16), (torch.float32, 8)):
+        dname = str(dtype).split(".")[-1]
+        k6_shapes, k7_shapes = _psp_kernel_shapes(batch)
+        sums = {"k6": _k6_times(run, gen, k6_shapes, dtype), "k7": _k7a_times(gen, k7_shapes,
+                                                                             dtype)}
+        for key, name, what in (("k6", "upfirdn2d", "K6, 16 calls"),
+                                ("k7", "fused_leaky_relu", "K7a, 17 calls")):
+            t = sums[key]
+            bound = _bound(t["nbytes"], t["ops"], F32_RATE)
+            timings[(name, dname)] = (t["ms"], t["plain"], *bound, t["lib"])
+            more = ""
+            if key == "k7":
+                more = f"; C entry {t['c_entry']:.3f} ms, device {t['device']:.3f} ms"
+            print(f"[time] {what} of one config-4 forward, {dname} batch {batch}: kernel "
+                  f"{t['ms']:.3f} ms, plain {t['plain']:.3f} ms, library {t['lib']:.3f} ms, "
+                  f"bound {bound[0]:.3f} ms ({bound[1]}, {t['nbytes'] / 1e9:.3f} GB){more}",
+                  flush=True)
+
+
+def _k6_times(run: Run, gen, k6_shapes, dtype) -> dict:
+    """K6's calls of one config-4 forward: kernel, plain and library times
+    summed, with the bytes and operations of the bound."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
+    from face_mask_inpaint_tpu_torch.ops.upfirdn2d import make_taps
+
+    dname = str(dtype).split(".")[-1]
+    t = dict(ms=0.0, plain=0.0, lib=0.0, nbytes=0.0, ops=0.0)
     for label, shape, up, down, pad, gain in k6_shapes:
-        taps = [float(t) for t in make_taps(blur, gain)]
+        taps = [float(v) for v in make_taps([1, 3, 3, 1], gain)]
         x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         y = fir.upfirdn2d(x, taps, up, down, pad)
         lib = _k6_library(x, taps, up, pad)
         torch.cuda.synchronize()
         err = float((lib.float() - y.float()).abs().max()) / float(y.float().abs().max())
-        run.check(err <= 2.0 ** -5, f"K6 yardstick {label}: the depthwise cuDNN call computes "
-                                    f"the same function (max_abs_err {err:.3e} of max |y|, "
-                                    f"tol 2^-5: a misplaced tap errs by O(1))")
-        t = sums["k6"]
+        run.check(err <= 2.0 ** -5, f"K6 yardstick {label} {dname}: the depthwise cuDNN call "
+                                    f"computes the same function (max_abs_err {err:.3e} of max "
+                                    f"|y|, tol 2^-5: a misplaced tap errs by O(1))")
         t["ms"] += _time_ms(lambda: fir.upfirdn2d(x, taps, up, down, pad), 5)
         t["plain"] += _time_ms(lambda: fir.upfirdn2d_plain(x, taps, up, down, pad), 3)
         t["lib"] += _time_ms(lambda: _k6_library(x, taps, up, pad), 5)
@@ -1683,26 +1732,60 @@ def phase_stackb_kernels(run: Run, seed: int, timings: dict):
         t["nbytes"] += (x.numel() + y.numel()) * x.element_size()
         t["ops"] += 2.0 * 2 * y.numel() * len(taps) / up
         del x, y, lib
+    torch.cuda.empty_cache()
+    return t
+
+
+def _k7a_times(gen, k7_shapes, dtype) -> dict:
+    """K7a's calls of one config-4 forward, each timed through the wrapper,
+    through its C entry point (into a y made beforehand) and on the device
+    (a CUDA graph of GRAPH_CALLS C-entry calls, replayed: no host work
+    between the kernels), beside the plain version and the eager library
+    call; their sums, and the bytes and operations of the bound. A call's
+    host share is its wrapper time less its device time."""
+    import torch
+    import torch.nn.functional as F
+
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+
+    dname = str(dtype).split(".")[-1]
+    calls = []
     for shape in k7_shapes:
         x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         b = torch.randn(shape[1], device="cuda", generator=gen)
-        t = sums["k7"]
-        t["ms"] += _time_ms(lambda: act.fused_leaky_relu(x, b), 5)
-        t["plain"] += _time_ms(lambda: act.fused_leaky_relu_plain(x, b), 5)
-        t["lib"] += _time_ms(lambda: F.leaky_relu(x + b.to(dtype)[None, :, None, None], 0.2)
-                             * math.sqrt(2.0), 5)
-        t["nbytes"] += 2 * x.numel() * x.element_size() + b.numel() * 4
-        t["ops"] += 4.0 * x.numel()
-        del x
+        y = torch.empty_like(x)
+        r = dict(shape=shape, numel=x.numel(), itemsize=x.element_size(),
+                 nbytes=2 * x.numel() * x.element_size() + b.numel() * b.element_size(),
+                 ms=_time_ms(lambda: act.fused_leaky_relu(x, b), 5),
+                 c_entry=_time_ms(lambda: act._call(x, b, y, 0.2, act.SQRT2), 5),
+                 plain=_time_ms(lambda: act.fused_leaky_relu_plain(x, b), 5),
+                 lib=_time_ms(lambda: F.leaky_relu(x + b.to(dtype)[None, :, None, None], 0.2)
+                              * math.sqrt(2.0), 5))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(GRAPH_CALLS):
+                act._call(x, b, y, 0.2, act.SQRT2)
+        r["device"] = _time_ms(graph.replay, 5) / GRAPH_CALLS
+        calls.append(r)
+        del graph, x, b, y
+    t = dict(ms=0.0, c_entry=0.0, device=0.0, plain=0.0, lib=0.0, nbytes=0.0, ops=0.0)
+    for i, r in enumerate(calls):
+        for k in ("ms", "c_entry", "device", "plain", "lib", "nbytes"):
+            t[k] += r[k]
+        # x read once, y written once, the bias read once; an add, a compare
+        # and two multiplies an element
+        t["ops"] += 4.0 * r["numel"]
+        plan = act._plan(math.prod(r["shape"][2:]), r["itemsize"])
+        print(f"[k7a] {dname} call {i:2d} {list(r['shape'])} {plan.route} route, "
+              f"{plan.threads} threads: wrapper {r['ms']:.4f} ms "
+              f"({r['nbytes'] / r['ms'] / 1e9:.2f} TB/s), C entry {r['c_entry']:.4f} ms "
+              f"({r['nbytes'] / r['c_entry'] / 1e9:.2f} TB/s), device {r['device']:.4f} ms "
+              f"({r['nbytes'] / r['device'] / 1e9:.2f} TB/s), bound "
+              f"{r['nbytes'] / MEM_RATE * 1e3:.4f} ms ({r['nbytes'] / 1e9:.4f} GB), plain "
+              f"{r['plain']:.4f} ms, library {r['lib']:.4f} ms", flush=True)
+    del calls
     torch.cuda.empty_cache()
-    for key, name, what in (("k6", "upfirdn2d", "K6, 16 calls"),
-                            ("k7", "fused_leaky_relu", "K7a, 17 calls")):
-        t = sums[key]
-        bound = _bound(t["nbytes"], t["ops"], F32_RATE)
-        timings[(name, "bfloat16")] = (t["ms"], t["plain"], *bound, t["lib"])
-        print(f"[time] {what} of one config-4 forward, bf16 batch 16: kernel {t['ms']:.3f} ms, "
-              f"plain {t['plain']:.3f} ms, library {t['lib']:.3f} ms, bound {bound[0]:.3f} ms "
-              f"({bound[1]}, {t['nbytes'] / 1e9:.3f} GB)", flush=True)
+    return t
 
 
 def phase_psp(run: Run, seed: int) -> dict:
@@ -1854,6 +1937,8 @@ def phase_psp_timing(run: Run, seed: int, rounds: int, card: str):
           f"device busy {100 * busy / wall:.1f}% on {card}")
     _check_launched(run, rows, "upfirdn2d_kernel", ("upfirdn1d_kernel",),
                     "K6 in the bf16 config-4 forward")
+    _check_launched(run, rows, "fused_lrelu_", ("fwd_kernel",),
+                    "K7a in the bf16 config-4 forward")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"[psp]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:100]}")
     del detector, psp, forward, prof
@@ -3268,9 +3353,12 @@ def _phase_tools(run: Run, seed: int, card: str) -> None:
     events, path = trace_top.load_trace_events(trace_dir)
     tot, cnt, kind = trace_top.op_totals(events)
     k6 = {n: us for n, us in tot.items() if "upfirdn2d_kernel" in n}
-    k7 = {n: us for n, us in tot.items() if "fwd_kernel" in n and "flash" not in n}
-    run.check(kind == trace_top.DEVICE_KIND and sum(k6.values()) > 0 and sum(k7.values()) > 0,
-              f"trace_top over three bf16 D forwards reads {kind}: K6 {k6}, K7a {k7}")
+    k7 = {n: us for n, us in tot.items() if "fused_lrelu_" in n}
+    triton_k7 = [n for n in tot if "fwd_kernel" in n and "flash" not in n]
+    run.check(kind == trace_top.DEVICE_KIND and sum(k6.values()) > 0 and sum(k7.values()) > 0
+              and not triton_k7,
+              f"trace_top over three bf16 D forwards reads {kind}: K6 {k6}, K7a {k7}, and "
+              f"no Triton K7a (fwd_kernel): {triton_k7}")
     kernel = next(e for e in events if e.get("cat") == "kernel")
     launch = next((e for e in events if e.get("cat") == "cuda_runtime"), {})
     print(f"[trace] a kernel event's args {sorted(kernel.get('args', {}))}; a runtime event's "

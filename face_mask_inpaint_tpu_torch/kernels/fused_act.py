@@ -1,4 +1,4 @@
-"""K7a and K7b: the StyleGAN2 activation and its backward (Triton).
+"""K7a and K7b: the StyleGAN2 activation (CUDA C++) and its backward (Triton).
 
 K7a replaces face_mask_inpaint_tpu/ops/pallas/fused_act_pallas.py
 ``fused_leaky_relu_pallas`` (``_run_fwd``):
@@ -6,7 +6,24 @@ K7a replaces face_mask_inpaint_tpu/ops/pallas/fused_act_pallas.py
     y = leaky_relu(x + bias, slope) * scale,   bias over dim 1 (channels)
 
 computed in f32 and rounded once to x's dtype. x is [N, C, ...] (an NCHW map
-or an [N, C] row batch); ``bias`` may be None (``scaled_leaky_relu``).
+or an [N, C] row batch); ``bias`` may be None (``scaled_leaky_relu``). Its
+kernel is ``csrc/fused_act.cu``, built by nvcc at first use and called
+through its C entry points. What bounds it on an H100: one read and one write
+of each element and four operations, so bytes bound it: the 17 calls of a
+config-4 forward (bf16, batch 16) move 8.410 GB, 2.510 ms at 3.35 TB/s. On
+the card it runs them in 2.81 ms of device time (89% of the bound; 3.02 TB/s
+at 1024^2), where the Triton kernel it replaced read 3.637-5.670 ms through
+its wrapper; the 4^2 to 32^2 calls move 1% of the bytes and are bound by
+the host's work, about 35 us a call (PERF.md, chip_smoke.py phase 8).
+Design: 16-byte vectors, several loads a thread before its first
+store; a block on a chunk of one plane reads that plane's bias once in its
+own dtype (f32 or bf16, so no copy), the "plane" route; planes under 256
+elements (4^2, 8^2 maps, [N, C] rows) take the "flat" route, each vector
+finding its channel. ``_plan`` mirrors the C side's choice of route and
+block size, and ``fused_leaky_relu_route`` names the route. Where x lies at
+another offset from a 16-byte boundary than y (a view one element into its
+allocation), or a plane's size is no multiple of the vector, single elements
+take what vectors cannot, in the same launch.
 
 K7b replaces ``_run_mask`` (fused_act_pallas.py:88), the backward from the
 saved OUTPUT (the reference CUDA op's trick, fused_bias_act_kernel.cu):
@@ -16,14 +33,10 @@ saved OUTPUT (the reference CUDA op's trick, fused_bias_act_kernel.cu):
 in f32, rounded once to g's dtype; y >= 0 exactly where x + bias >= 0, as
 scale > 0. dbias is dx summed per channel in f32 and cast to the bias's
 dtype (g's, at every call site), a torch reduction outside the kernel, as
-the JAX package computes it (fused_act_pallas.py:137-139).
-
-What bounds both on an H100: one read (K7a: x; K7b: y and g) and one write
-of each element, a handful of operations an element, no reuse and no matrix
-products, so bytes bound them. Triton's vectorized loads reach that floor as
-well as CUDA C++ would. Design: at NCHW every (n, c) plane is contiguous, so
-one program covers up to 2048 elements of one plane and loads that plane's
-bias once; K7b keeps the same layout.
+the JAX package computes it (fused_act_pallas.py:137-139). K7b is a Triton
+kernel: two reads and one write an element, bytes bound it too; at NCHW
+every (n, c) plane is contiguous, so one program covers up to 2048 elements
+of one plane.
 
 ``fused_leaky_relu`` is one ``torch.autograd.Function``: its forward
 launches K7a and saves y, its backward launches K7b through
@@ -37,18 +50,28 @@ also what the kernels are held against on the card.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from face_mask_inpaint_tpu_torch.kernels import build
+
 __all__ = ["fused_leaky_relu", "fused_leaky_relu_plain", "fused_leaky_relu_bwd",
-           "fused_leaky_relu_bwd_plain", "SQRT2"]
+           "fused_leaky_relu_bwd_plain", "fused_leaky_relu_route", "SQRT2"]
 
 SQRT2 = math.sqrt(2.0)
 _MAX_BLOCK = 2048
 _MIN_BLOCK = 128
+_SYMBOLS = {torch.float32: "fmi_fused_leaky_relu_f32",
+            torch.bfloat16: "fmi_fused_leaky_relu_bf16"}
+# K7a's block (csrc/fused_act.cu): at most _THREADS threads, _UNROLL 16-byte
+# vectors a thread; planes under _FLAT_BELOW elements take the flat route
+_THREADS = 256
+_UNROLL = 4
+_FLAT_BELOW = 256
 
 
 def fused_leaky_relu_plain(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -68,23 +91,42 @@ def fused_leaky_relu_bwd_plain(y: torch.Tensor, g: torch.Tensor, negative_slope:
     return (g.float() * factor).to(g.dtype)
 
 
+class Plan(NamedTuple):
+    """K7a's cut of a call with planes of ``hw`` elements: ``route`` "plane"
+    (a block on a chunk of one plane) or "flat" (blocks on chunks of the
+    flat tensor), ``threads`` a block and ``chunk`` elements a block (its
+    threads times _UNROLL vectors of 16 bytes)."""
+    route: str
+    threads: int
+    chunk: int
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(hw: int, itemsize: int) -> Plan:
+    """What csrc/fused_act.cu's ``fmi_fused_act_route`` and
+    ``fmi_fused_act_threads`` choose for planes of hw elements of itemsize
+    bytes: a plane smaller than a full block's chunk gets the warps its
+    vectors fill."""
+    vec = 16 // itemsize
+    if hw < _FLAT_BELOW:
+        return Plan("flat", _THREADS, _THREADS * _UNROLL * vec)
+    threads = min(_THREADS, -(-hw // (32 * vec)) * 32)
+    return Plan("plane", threads, threads * _UNROLL * vec)
+
+
+def fused_leaky_relu_route(shape, dtype: torch.dtype) -> str:
+    """"plane" or "flat": the route K7a takes for x of this shape and dtype."""
+    if len(shape) < 2:
+        raise ValueError(f"fused_leaky_relu takes [N, C, ...], got {tuple(shape)}")
+    if dtype not in _SYMBOLS:
+        raise TypeError(f"fused_leaky_relu takes float32 or bfloat16, got {dtype}")
+    return _plan(math.prod(shape[2:]), torch.empty((), dtype=dtype).element_size()).route
+
+
 @functools.lru_cache(maxsize=None)
 def _triton_kernel():
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def fwd_kernel(x_ptr, b_ptr, y_ptr, hw, channels, slope, scale,
-                   HAS_BIAS: tl.constexpr, BLOCK: tl.constexpr):
-        plane = tl.program_id(0)
-        idx = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-        mask = idx < hw
-        base = plane.to(tl.int64) * hw
-        v = tl.load(x_ptr + base + idx, mask=mask, other=0.0).to(tl.float32)
-        if HAS_BIAS:
-            v = v + tl.load(b_ptr + plane % channels)
-        y = tl.where(v >= 0, v, v * slope) * scale
-        tl.store(y_ptr + base + idx, y.to(y_ptr.dtype.element_ty), mask=mask)
 
     @triton.jit
     def bwd_kernel(y_ptr, g_ptr, dx_ptr, hw, neg_factor, pos_factor, BLOCK: tl.constexpr):
@@ -97,7 +139,25 @@ def _triton_kernel():
         dx = g * tl.where(y >= 0, pos_factor, neg_factor)
         tl.store(dx_ptr + base + idx, dx.to(dx_ptr.dtype.element_ty), mask=mask)
 
-    return triton.cdiv, triton.next_power_of_2, fwd_kernel, bwd_kernel
+    return triton.cdiv, triton.next_power_of_2, bwd_kernel
+
+
+_ARGTYPES = {
+    "fmi_fused_leaky_relu": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                             ctypes.c_float, ctypes.c_void_p],
+    "fmi_fused_act_route": [ctypes.c_longlong],
+    "fmi_fused_act_threads": [ctypes.c_longlong, ctypes.c_int],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _function(name: str, dtype: Optional[torch.dtype] = None):
+    """The C entry point ``name`` (K7a's ``_SYMBOLS`` entry for a dtype)."""
+    fn = getattr(build.load("fused_act"), name if dtype is None else _SYMBOLS[dtype])
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(x: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
@@ -124,17 +184,31 @@ def _grid(x: torch.Tensor, what: str):
     return grid, hw, block
 
 
+def _call(x: torch.Tensor, bias: Optional[torch.Tensor], y: torch.Tensor,
+          negative_slope: float, scale: float) -> None:
+    """K7a's C entry point on x into y, checked tensors of one shape, and a
+    bias in float32 or bfloat16 or None."""
+    n, c = x.shape[:2]
+    with torch.cuda.device(x.device):
+        rc = _function("fmi_fused_leaky_relu", x.dtype)(
+            x.data_ptr(), None if bias is None else bias.data_ptr(),
+            int(bias is not None and bias.dtype == torch.bfloat16), y.data_ptr(), n * c,
+            math.prod(x.shape[2:]), c, negative_slope, scale,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_leaky_relu launch failed: cudaError {rc}")
+
+
 def _launch_fwd(x: torch.Tensor, bias: Optional[torch.Tensor], negative_slope: float,
                 scale: float) -> torch.Tensor:
     """One K7a launch on CUDA tensors."""
     _check(x, bias)
-    grid, hw, block = _grid(x, "fused_leaky_relu")
-    b = bias.float().contiguous() if bias is not None else x  # x stands in, unread
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _triton_kernel()[2][grid](x, b, y, hw, x.shape[1], float(negative_slope),
-                                  float(scale), HAS_BIAS=bias is not None, BLOCK=block,
-                                  num_warps=4)
+    if bias is not None:
+        if bias.dtype not in _SYMBOLS:
+            bias = bias.float()
+        bias = bias.contiguous()
+    _call(x, bias, y, negative_slope, scale)
     fused_leaky_relu.launches += 1
     return y
 
@@ -150,7 +224,7 @@ def _launch_bwd(y: torch.Tensor, g: torch.Tensor, negative_slope: float,
     grid, hw, block = _grid(g, "fused_leaky_relu_bwd")
     dx = torch.empty_like(g)
     with torch.cuda.device(g.device):
-        _triton_kernel()[3][grid](y, g, dx, hw, float(negative_slope * scale), float(scale),
+        _triton_kernel()[2][grid](y, g, dx, hw, float(negative_slope * scale), float(scale),
                                   BLOCK=block, num_warps=4)
     fused_leaky_relu_bwd.launches += 1
     return dx
@@ -181,16 +255,21 @@ class _MaskApply(torch.autograd.Function):
         return None, _MaskApply.apply(y, gg.contiguous(), *ctx.consts), None, None
 
 
+def _forward(x: torch.Tensor, bias: Optional[torch.Tensor], negative_slope: float,
+             scale: float) -> torch.Tensor:
+    """K7a on CUDA tensors, the plain version on CPU ones."""
+    if _device(x, "fused_leaky_relu") == "cpu":
+        return fused_leaky_relu_plain(x, bias, negative_slope, scale)
+    return _launch_fwd(x, bias, negative_slope, scale)
+
+
 class _FusedLeakyReLU(torch.autograd.Function):
-    """y = leaky_relu(x + bias) * scale: K7a forward on CUDA tensors (the
-    plain version on CPU ones), saving y; the backward is ``_MaskApply``."""
+    """y = leaky_relu(x + bias) * scale through ``_forward``, saving y; the
+    backward is ``_MaskApply``."""
 
     @staticmethod
     def forward(ctx, x, bias, negative_slope, scale):
-        if _device(x, "fused_leaky_relu") == "cpu":
-            y = fused_leaky_relu_plain(x, bias, negative_slope, scale)
-        else:
-            y = _launch_fwd(x, bias, negative_slope, scale)
+        y = _forward(x, bias, negative_slope, scale)
         ctx.save_for_backward(y)
         ctx.consts = negative_slope, scale
         ctx.bias_dtype = None if bias is None else bias.dtype
@@ -213,9 +292,13 @@ def fused_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
 
     x: [N, C, ...] contiguous, float32 or bfloat16; bias: [C] or None. CPU
     tensors take the plain version; CUDA tensors launch K7a (one launch a
-    call, counted in ``launches``) and, in the backward, K7b.
+    call, counted in ``launches``) and, in the backward, K7b. Where autograd
+    records nothing (no grad mode, or neither x nor bias requires grad) the
+    call skips the Function's own host work.
     """
-    return _FusedLeakyReLU.apply(x, bias, float(negative_slope), float(scale))
+    if torch.is_grad_enabled() and (x.requires_grad or (bias is not None and bias.requires_grad)):
+        return _FusedLeakyReLU.apply(x, bias, float(negative_slope), float(scale))
+    return _forward(x, bias, float(negative_slope), float(scale))
 
 
 def fused_leaky_relu_bwd(y: torch.Tensor, g: torch.Tensor, negative_slope: float = 0.2,

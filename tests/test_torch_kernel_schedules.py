@@ -1,5 +1,6 @@
-"""The schedules of K4b's and K4a's split-precision routes and of the fused
-K6, emulated in plain torch on the CPU, against the plain versions.
+"""The schedules of K4b's and K4a's split-precision routes, of the fused K6,
+of K2, K3 and of K7a's routes, emulated in plain torch on the CPU, against
+the plain versions.
 
 K4b "tf32x3" (csrc/decoder_conv.cu ``conv3x3_tf32x3_kernel``): the weights
 packed hi and lo as [2, 9, co_pad, c_pad] by the wrapper's own
@@ -33,12 +34,15 @@ bfloat16, for every mode, ragged tiles (the kernel's tiles and small ones
 that cut the maps into many), negative and transposed pads and 16 taps.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
 from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
+from face_mask_inpaint_tpu_torch.kernels import fused_act as act
 from face_mask_inpaint_tpu_torch.kernels import norm_act as na
 from face_mask_inpaint_tpu_torch.kernels import output_head as oh
 from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
@@ -48,6 +52,7 @@ CK = 8  # K4b's and K4a's tf32x3 input channels a chunk
 # csrc/upfirdn2d.cu ``Tile``
 K6_TILES = {(1, 1): (32, 128), (2, 1): (64, 128), (1, 2): (16, 64)}
 F32_TOL = (1e-4, 1e-4)
+SQRT2 = math.sqrt(2.0)
 STATS_RTOL = 1e-4
 
 
@@ -358,6 +363,164 @@ def test_k6_window_covers_the_taps(up, down):
                              for t in range(k) if (o * down - pad0 + t) % up == 0]
                     assert all(i0 <= i < i0 + count for i in reads)
                     assert count <= ((n - 1) * down + k - 1) // up + 2
+
+
+# ---------------------------------------------------------------------------
+# K7a (csrc/fused_act.cu): the wrapper's ``_plan`` (route, threads, chunk)
+# and the kernels' index mapping. "plane": block b takes chunk b % parts of
+# plane b // parts and reads that plane's bias once; "flat": block b takes
+# chunk b of the flat tensor, and each vector finds the channel of its first
+# element with one division, then steps through the planes its elements
+# cross. In a chunk, with x and y at one offset ``mis`` from a 16-byte
+# boundary: single elements up to the first boundary, thread t's vectors
+# t + u * threads (u < _UNROLL), single elements after the last whole
+# vector; with x and y at different offsets (mis -1): single elements, a
+# thread every threads-th. The emulation lists each block's pieces, asserts
+# that they cover the tensor once, every element with its own plane's bias,
+# then computes y in the kernel's arithmetic (the f32 add, the slope's and
+# the gain's products, each rounded, one rounding to x's dtype). Held to
+# fused_leaky_relu_plain bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _k7a_chunks(begin, end, threads, vec, mis, unroll):
+    """(singles, vectors): lists of (start, stop) tensors over the blocks
+    whose chunks are [begin, end), as csrc/fused_act.cu ``run_chunk`` cuts
+    them; every vector piece starts on a 16-byte boundary."""
+    if mis < 0:
+        starts = [begin + s * threads for s in range(unroll * vec)]
+        return [(a, torch.minimum(end, a + threads)) for a in starts], []
+    a0 = torch.minimum(end, begin + (vec - (mis + begin) % vec) % vec)
+    nv = (end - a0) // vec
+    tail = a0 + nv * vec
+    assert bool((a0 - begin < threads).all() and (end - tail < threads).all())
+    vectors = [(a0 + torch.clamp(nv, max=u * threads) * vec,
+                a0 + torch.clamp(nv, max=(u + 1) * threads) * vec) for u in range(unroll)]
+    for a, _ in vectors:
+        assert bool(((mis + a) % vec == 0).all())
+    return [(begin, a0), (tail, end)], vectors
+
+
+def _k7a_emulate(x, bias, mis=0, slope=0.2, scale=SQRT2, unroll=None):
+    """y as K7a computes it, x [N, C, ...] contiguous, x and y ``mis``
+    elements past a 16-byte boundary (-1: at different offsets)."""
+    unroll = act._UNROLL if unroll is None else unroll
+    n, c = x.shape[:2]
+    hw, planes = math.prod(x.shape[2:]), n * c
+    total, vec = planes * hw, 16 // x.element_size()
+    plan = act._plan(hw, x.element_size())
+    assert plan.chunk == plan.threads * act._UNROLL * vec and plan.threads % 32 == 0
+    if plan.route == "plane":
+        assert hw >= act._FLAT_BELOW
+        parts = -(-hw // plan.chunk)
+        blk = torch.arange(planes * parts)
+        plane = blk // parts
+        first = (blk - plane * parts) * plan.chunk
+        begin, end = plane * hw + first, plane * hw + torch.clamp(first + plan.chunk, max=hw)
+    else:
+        assert hw < act._FLAT_BELOW and plan.threads == act._THREADS
+        begin = torch.arange(-(-total // plan.chunk)) * plan.chunk
+        end = torch.clamp(begin + plan.chunk, max=total)
+    singles, vectors = _k7a_chunks(begin, end, plan.threads, vec, mis, unroll)
+    pieces = singles + vectors
+    starts = torch.cat([torch.minimum(a, b) for a, b in pieces])
+    stops = torch.cat([b for _, b in pieces])
+    keep = stops > starts
+    starts, order = starts[keep].sort()
+    stops = stops[keep][order]
+    assert int(starts[0]) == 0 and int(stops[-1]) == total, "the pieces miss the ends"
+    assert bool((starts[1:] == stops[:-1]).all()), "the pieces overlap or leave a gap"
+    xf = x.reshape(-1).float()
+    if bias is None:
+        v = xf
+    elif plan.route == "plane":
+        # a block's pieces lie in its plane, whose one bias it reads
+        for a, b in pieces:
+            inside = (a >= plane * hw) & (b <= plane * hw + hw)
+            assert bool((inside | (b <= a)).all())
+        v = (xf.view(planes, hw) + bias.float()[plane[::parts] % c][:, None]).view(-1)
+    else:
+        channel = torch.full((total,), -1, dtype=torch.long)
+        for a, b in singles:  # element by element: (i // hw) % C
+            for i0, i1 in zip(a.tolist(), b.tolist()):
+                channel[i0:max(i0, i1)] = torch.arange(i0, max(i0, i1)) // hw % c
+        for a, b in vectors:  # one division a vector, then a step an element
+            i0 = torch.cat([torch.arange(s, e, vec) for s, e in zip(a.tolist(), b.tolist())])
+            q = i0 // hw
+            r, ch = i0 - q * hw, q % c
+            for j in range(vec):
+                channel[i0 + j] = ch
+                r = r + 1
+                wrap = r == hw
+                r, ch = torch.where(wrap, 0, r), torch.where(wrap, ch + 1, ch)
+                ch = torch.where(ch == c, 0, ch)
+        assert bool((channel >= 0).all())
+        v = xf + bias.float()[channel]
+    y = torch.where(v >= 0, v, v * slope) * scale
+    return y.to(x.dtype).view(x.shape)
+
+
+def _k7a_shapes():
+    """The distinct shapes of the 17 K7a calls of a config-4 forward at batch
+    1 (chip_smoke.py ``_psp_kernel_shapes``)."""
+    from face_mask_inpaint_tpu_torch.models.stylegan2 import channels_for
+
+    ch = channels_for(1024)
+    return [(1, ch[r], r, r) for r in (2 ** i for i in range(2, 11))]
+
+
+K7A_CASES = [  # (shape, bias, mis): bias "f32", "bf16" or None
+    *[(shape, "f32", 0) for shape in _k7a_shapes()],
+    ((16, 512, 4, 4), "f32", 0),     # 4^2 x 512 at batch 16: flat
+    ((7, 13), "f32", 0),             # [N, C] rows: every element its own channel
+    ((300, 513), "bf16", 0),         # rows, N * C above 65,535
+    ((3, 5, 37, 41), "f32", 0),      # ragged planes: a head and a tail in most
+    ((2, 3, 17, 19), "bf16", 0),     # hw 323, no multiple of 8
+    ((2, 3, 5, 7), "f32", 0),        # hw 35, flat, vectors across planes
+    ((3, 5, 37, 41), "f32", -1),     # x one element off y's offset: singles only
+    ((2, 5, 9, 11), "f32", -1),
+    ((2, 32, 64, 64), "bf16", 3),    # x and y 3 elements past a boundary
+    ((2, 3, 9, 11), None, 0),        # no bias
+    ((2, 40, 33, 33), None, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,bias,mis", K7A_CASES)
+def test_k7a_plan_and_mapping_equal_plain(shape, bias, mis, dtype):
+    """Every element once, with its own channel's bias, and the kernel's
+    arithmetic: fused_leaky_relu_plain bit for bit, in f32 and bf16."""
+    gen = torch.Generator().manual_seed(19)
+    x = (torch.randn(shape, generator=gen) * 2).to(dtype)
+    b = None if bias is None else torch.randn(shape[1], generator=gen).to(
+        torch.float32 if bias == "f32" else torch.bfloat16)
+    got = _k7a_emulate(x, b, mis)
+    assert got.dtype == dtype and torch.equal(got, act.fused_leaky_relu_plain(x, b))
+
+
+def test_k7a_one_vector_less_a_thread_leaves_a_gap():
+    """The negative control: with one vector a thread fewer than the chunk
+    is sized for, the pieces no longer cover the plane."""
+    x = torch.randn(2, 4, 64, 64)
+    _k7a_emulate(x, torch.randn(4))
+    with pytest.raises(AssertionError, match="gap|ends"):
+        _k7a_emulate(x, torch.randn(4), unroll=act._UNROLL - 1)
+
+
+def test_k7a_routes_and_blocks():
+    """The plane route from 16^2 up and for ragged planes of 256 elements or
+    more; a plane under a full chunk gets the warps its vectors fill."""
+    for shape in _k7a_shapes():
+        for dtype in (torch.float32, torch.bfloat16):
+            want = "flat" if shape[2] < 16 else "plane"
+            assert act.fused_leaky_relu_route(shape, dtype) == want
+    assert act.fused_leaky_relu_route((16, 512), torch.bfloat16) == "flat"
+    assert act.fused_leaky_relu_route((3, 5, 37, 41), torch.float32) == "plane"
+    assert act._plan(256, 2) == act.Plan("plane", 32, 1024)
+    assert act._plan(1024, 2) == act.Plan("plane", 128, 4096)
+    assert act._plan(1024, 4) == act.Plan("plane", 256, 4096)
+    assert act._plan(1024 * 1024, 2) == act.Plan("plane", 256, 8192)
+    assert act._plan(255, 4) == act.Plan("flat", 256, 4096)
 
 
 # ---------------------------------------------------------------------------

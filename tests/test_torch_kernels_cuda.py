@@ -1,5 +1,7 @@
 """K1, K5, K2, K3, K4a, K4b, K6 (forward and backward), K7a and K7b against
-their plain versions on an NVIDIA GPU, on each of their routes (K1: the
+their plain versions on an NVIDIA GPU, on each of their routes (K7a: plane
+and flat, each bit for bit the plain version, and x off its 16-byte
+boundary; K1: the
 warpgroup kernel in bf16, the split-precision (3xTF32) kernel in f32 and the
 CUDA-core kernel; K5: tensor cores in bf16, split precision in f32 and CUDA
 cores; K4a and K4b: tensor cores in bf16, split precision in f32 and CUDA
@@ -914,6 +916,74 @@ def test_fused_leaky_relu_kernel_matches_plain(cuda, dtype, shape, with_bias):
     assert act.fused_leaky_relu.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     _assert_close(got, act.fused_leaky_relu_plain(x, b), dtype)
+
+
+def _k7a_config4_shapes():
+    """The distinct shapes of a config-4 forward's 17 K7a calls at batch 2."""
+    ch = {4: 512, 8: 512, 16: 512, 32: 512, 64: 512, 128: 256, 256: 128, 512: 64, 1024: 32}
+    return [(2, c, r, r) for r, c in ch.items()]
+
+
+def _k7a_check(x, b, route):
+    """One K7a launch on the route named, bit for bit the plain version."""
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+
+    assert act.fused_leaky_relu_route(x.shape, x.dtype) == route
+    before = act.fused_leaky_relu.launches
+    got = act.fused_leaky_relu(x, b)
+    torch.cuda.synchronize()
+    assert act.fused_leaky_relu.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.equal(got, act.fused_leaky_relu_plain(x, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _k7a_config4_shapes())
+def test_fused_leaky_relu_config4_shapes_equal_plain(cuda, dtype, bias_dtype, shape):
+    """K7a at the config-4 shapes (batch 2): the flat route at 4^2 and 8^2,
+    the plane route above, with an f32 and a bf16 bias read as they are."""
+    x = (torch.randn(shape, device="cuda", generator=cuda) * 2).to(dtype)
+    b = torch.randn(shape[1], device="cuda", generator=cuda).to(bias_dtype)
+    _k7a_check(x, b, "flat" if shape[2] < 16 else "plane")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,route", [((3, 5, 37, 41), "plane"), ((2, 64, 64, 64), "plane"),
+                                         ((4, 512, 8, 8), "flat"), ((300, 513), "flat")])
+def test_fused_leaky_relu_misaligned_view_equals_plain(cuda, dtype, shape, route):
+    """x one element into its allocation (buf[1:].view(shape)), y aligned:
+    the kernel takes single elements in the same launch."""
+    buf = (torch.randn(math.prod(shape) + 1, device="cuda", generator=cuda) * 2).to(dtype)
+    x = buf[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    _k7a_check(x, torch.randn(shape[1], device="cuda", generator=cuda), route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,with_bias", [((300, 513), True), ((70000, 3), True),
+                                             ((16, 512), True), ((300, 513), False),
+                                             ((2, 3, 17, 19), True), ((2, 3, 5, 7), True)])
+def test_fused_leaky_relu_rows_and_ragged_equal_plain(cuda, dtype, shape, with_bias):
+    """[N, C] rows (N * C above 65,535 too), a plane of 323 elements (no
+    multiple of 8) and one of 35 whose vectors cross planes."""
+    x = (torch.randn(shape, device="cuda", generator=cuda) * 2).to(dtype)
+    b = torch.randn(shape[1], device="cuda", generator=cuda) if with_bias else None
+    _k7a_check(x, b, "flat" if math.prod(shape[2:]) < 256 else "plane")
+
+
+def test_fused_leaky_relu_plan_matches_c(cuda):
+    """The route and block size the wrapper's ``_plan`` names are the C
+    side's (fmi_fused_act_route, fmi_fused_act_threads)."""
+    from face_mask_inpaint_tpu_torch.kernels import fused_act as act
+
+    route = act._function("fmi_fused_act_route")
+    threads = act._function("fmi_fused_act_threads")
+    for hw in (1, 16, 35, 64, 255, 256, 257, 323, 1024, 1517, 4096, 4097, 65536, 1048576):
+        for itemsize in (2, 4):
+            plan = act._plan(hw, itemsize)
+            assert ("plane", "flat")[route(hw)] == plan.route
+            assert threads(hw, itemsize) == plan.threads
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
