@@ -1,0 +1,8 @@
+"""stage_ms.detector: device time from the detector module's forward pre-hook to its
+post-hook (CUDA events), mean per batch over the traced run's window, in
+ms."""
+
+
+def read(ctx):
+    ms = ctx.stage_ms.get("detector")
+    return sum(ms) / len(ms) if ms else None
