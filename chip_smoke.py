@@ -66,13 +66,12 @@ counts set to 0 just before it and read just after. Phases:
    and with the plain versions and in the packed-convt one with the
    kernels, in alternating order, and the peak device memory of each
    configuration's forward;
-6. a profile of that forward: the time of each stage (CUDA events around
-   each stage's module) with the kernels, with the dense Output head
-   (K1 and K2 on, no K3) and in the packed-convt configuration; the spread
-   of the forward over PROFILE_ROUNDS rounds of three forwards a side in
-   alternating order (kernels, dense head, plain versions) with the host's
-   enqueue time, and a ``torch.profiler`` window of three forwards in each
-   configuration (device-busy share, kernels by device time, device
+6. a profile of that forward: the spread of the forward over
+   PROFILE_ROUNDS rounds of three forwards a side in alternating order
+   (kernels, dense head, plain versions) with the host's enqueue time, and
+   a ``torch.profiler`` window of three forwards with the kernels, with the
+   dense Output head (K1 and K2 on, no K3) and in the packed-convt
+   configuration (the program's span table, kernels by device time, device
    kernels a forward beside the count before K2's one-launch route); that
    window must show K1's warpgroup kernel, and neither of its others, and
    K2's cluster kernel, and neither its two-pass kernels nor the Triton
@@ -131,8 +130,8 @@ counts set to 0 just before it and read just after. Phases:
    K7a and K7b 17 times each, K1-K5 never), finite losses with
    ``skipped_nonfinite`` 0, the step time (CUDA events, median and quartiles
    of STEP_ROUNDS steps after two warm-up), its peak device memory and a
-   ``torch.profiler`` window (device-busy share), which must show K6's
-   fused kernel and not the two-pass one it replaced;
+   ``torch.profiler`` window (kernels by device time), which must show
+   K6's fused kernel and not the two-pass one it replaced;
 10. Stack C training (the path of ``train_mask_detector.py``), no TPU
    kernel: MaskDetector(3, bilinear) at 256^2, batch 16, in float32 (TF32
    off) and with ``--amp`` (bf16 compute): finite losses, the step time
@@ -1077,7 +1076,6 @@ def packed_convt(model):
 
 def phase_flagship(run: Run, seed: int) -> tuple[dict, dict]:
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
@@ -1103,8 +1101,7 @@ def phase_flagship(run: Run, seed: int) -> tuple[dict, dict]:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         forward()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = _device_rows(prof)
     _check_launched(run, rows, "flash_fwd_tf32x3_kernel",
                     ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"), "K1 in the f32 flagship forward")
     k1_ms = sum(e.self_device_time_total for e in rows if "flash_fwd" in e.key) / 1e3
@@ -1139,8 +1136,7 @@ def phase_flagship(run: Run, seed: int) -> tuple[dict, dict]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             forward()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        rows = _device_rows(prof)
         _check_launched(run, rows, "conv3x3_tf32x3_kernel",
                         ("conv3x3_kernel", "conv3x3_mma_kernel"),
                         "K4b in the f32 packed-convt forward")
@@ -1257,20 +1253,6 @@ def phase_timing(run: Run, seed: int, timings: dict, card: str):
           f"{peaks['packed-convt']:.2f} GiB, on {card}")
 
 
-def _stage_modules(detector, model) -> dict:
-    """The forward's stages, each one module: name -> module."""
-    dec = model.decoder
-    stages = {"detector": detector.model, "src_encoder": model.src_encoder,
-              "ref_encoder": model.ref_encoder, "attention": model.attention,
-              "latent branch": dec.generator}
-    for i in range(dec.layers):
-        stages[f"decoder{i}"] = getattr(dec, f"decoder{i}")
-        if i == 1 and dec.use_attn:
-            stages["attn1 (K1)"] = dec.attn1
-    stages["Output head"] = getattr(dec, f"out{dec.layers - 1}")
-    return stages
-
-
 @contextlib.contextmanager
 def dense_head(model):
     """The forward with PR 2's dense tail: decoder 4 adds h + s and the Output
@@ -1281,6 +1263,17 @@ def dense_head(model):
         yield
     finally:
         del model._fuse_pool
+
+
+def _device_rows(prof) -> list:
+    """A profiler window's device rows by name (kernels, copies, fills),
+    without the user-annotation rows that the port's ``fmi.*`` spans put on
+    the device timeline, so that the sums do not change because spans exist."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.is_user_annotation]
 
 
 def _check_launched(run: Run, rows, want: str, unwanted: tuple, what: str):
@@ -1296,8 +1289,9 @@ def _check_launched(run: Run, rows, want: str, unwanted: tuple, what: str):
 
 def phase_profile(run: Run, seed: int, rounds: int, card: str):
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from face_mask_inpaint_tpu_torch.utils.profiling import reset_spans, span_table
 
     batch = 16
     detector, model = _models(seed, torch.bfloat16)
@@ -1314,38 +1308,6 @@ def phase_profile(run: Run, seed: int, rounds: int, card: str):
              "plain": plain_versions}
     configs = {"kernels": contextlib.nullcontext, "dense head": lambda: dense_head(model),
                "packed-convt": lambda: packed_convt(model)}
-    for side in configs:
-        with configs[side]():
-            forward()
-            torch.cuda.synchronize()
-            events, hooks = {}, []
-            for name, mod in _stage_modules(detector, model).items():
-                def pre(_m, _a, name=name):
-                    events[name] = [torch.cuda.Event(enable_timing=True),
-                                    torch.cuda.Event(enable_timing=True)]
-                    events[name][0].record()
-
-                def post(_m, _a, _o, name=name):
-                    events[name][1].record()
-
-                hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
-            per_stage = {}
-            for _ in range(3):
-                forward()
-                done = torch.cuda.Event(enable_timing=True)
-                done.record()
-                torch.cuda.synchronize()
-                for name, (a, b) in events.items():
-                    per_stage.setdefault(name, []).append(a.elapsed_time(b))
-                per_stage.setdefault("after the head (pool)", []).append(
-                    events[list(events)[-1]][1].elapsed_time(done))
-            for h in hooks:
-                h.remove()
-        stage_ms = {k: statistics.median(v) for k, v in per_stage.items()}
-        print(f"[profile] {side}: per stage, median of 3 forwards (ms) on {card}: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
-              + f"; sum {sum(stage_ms.values()):.3f}", flush=True)
-
     times = {side: [] for side in sides}
     enqueue = {side: [] for side in sides}
     for r in range(rounds):
@@ -1368,17 +1330,18 @@ def phase_profile(run: Run, seed: int, rounds: int, card: str):
         with configs[side]():
             forward()
             torch.cuda.synchronize()
+            reset_spans()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
                 for _ in range(3):
                     forward()
                 torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-        rows = [e for e in prof.key_averages()  # the device's own events: kernels, copies
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in rows) / 1e3
-        print(f"[profile] {side}, three forwards: wall {wall:.2f} ms, summed device time "
-              f"{busy:.2f} ms, device busy {100 * busy / wall:.1f}% on {card}")
+        print(f"[profile] {side}: the program's spans, device ms a forward over three "
+              f"forwards on {card}: " + ", ".join(
+                  f"{name} {row['device_ms'] / 3:.3f} (in {row['parent'] or '-'})"
+                  for name, row in span_table().items()), flush=True)
+        rows = _device_rows(prof)
+        device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        print(f"[profile] {side}, three forwards: summed device time {device_ms:.2f} ms on {card}")
         _check_launched(run, rows, "flash_fwd_wgmma_kernel",
                         ("flash_fwd_tf32x3_kernel", "flash_fwd_kernel"),
                         f"K1 in the bf16 {side} forward")
@@ -1452,7 +1415,6 @@ def phase_train(run: Run, seed: int, card: str) -> dict:
     import copy
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from face_mask_inpaint_tpu_torch.kernels import reset_launch_counts
@@ -1502,16 +1464,12 @@ def phase_train(run: Run, seed: int, card: str) -> dict:
           f"of the first step {peak:.2f} GiB, on {card}", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for b in batches[:2]:
             trainer.train_step(b, noise=trainer.noise)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"[train] profile, two steps: wall {wall:.2f} ms, summed device time {busy:.2f} ms, "
-          f"device busy {100 * busy / wall:.1f}% on {card}")
+    rows = _device_rows(prof)
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[train] profile, two steps: summed device time {device_ms:.2f} ms on {card}")
     _check_launched(run, rows, "flash_bwd_col_kernel",
                     ("flash_bwd_dq_kernel", "flash_bwd_dv_kernel", "flash_bwd_tf32x3_kernel"),
                     "K5 in the config-5 step")
@@ -1531,8 +1489,7 @@ def phase_train(run: Run, seed: int, card: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         got = trainer.train_step(b, eps_q=eps[0], eps_p=eps[1], return_grads=True)
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = _device_rows(prof)
     _check_launched(run, rows, "flash_bwd_tf32x3_kernel",
                     ("flash_bwd_dq_kernel", "flash_bwd_dv_kernel", "flash_bwd_col_kernel"),
                     "K5 in the f32 config-5 step")
@@ -1871,7 +1828,6 @@ def phase_psp_timing(run: Run, seed: int, rounds: int, card: str):
     forward in turns with the kernels and the plain versions, its peak
     device memory, and a torch.profiler window."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from face_mask_inpaint_tpu_torch.cli.psp_inference import make_infer_batch
@@ -1925,16 +1881,12 @@ def phase_psp_timing(run: Run, seed: int, rounds: int, card: str):
           f"({base:.2f} GiB of it weights and inputs) on {card}", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(3):
             forward(src, ref)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"[psp] profile, three forwards: wall {wall:.2f} ms, summed device time {busy:.2f} ms, "
-          f"device busy {100 * busy / wall:.1f}% on {card}")
+    rows = _device_rows(prof)
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[psp] profile, three forwards: summed device time {device_ms:.2f} ms on {card}")
     _check_launched(run, rows, "upfirdn2d_kernel", ("upfirdn1d_kernel",),
                     "K6 in the bf16 config-4 forward")
     _check_launched(run, rows, "fused_lrelu_", ("fwd_kernel",),
@@ -2140,10 +2092,9 @@ def phase_psp_train(run: Run, seed: int, card: str) -> dict:
     through the trainer CLI's ``get_args`` and ``Trainer``: at batch 2 in
     float32 with the fixed noise, the kernel path's gradients against the
     plain path's; at batch 8, the launches of one step, its losses, and the
-    step time, peak memory and device-busy share. Returns the launches of
+    step time, peak memory and kernels by device time. Returns the launches of
     one step."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from face_mask_inpaint_tpu_torch.cli import train_psp as cli
@@ -2230,16 +2181,12 @@ def phase_psp_train(run: Run, seed: int, card: str) -> dict:
           f"images/s); host wall median {statistics.median(walls):.2f} ms; peak device memory of "
           f"the first step {peak:.2f} GiB, on {card}", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for b in batches[:2]:
             trainer.train_step(b, noise=trainer.noise)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"[psp-train] profile, two steps: wall {wall:.2f} ms, summed device time {busy:.2f} ms, "
-          f"device busy {100 * busy / wall:.1f}% on {card}")
+    rows = _device_rows(prof)
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[psp-train] profile, two steps: summed device time {device_ms:.2f} ms on {card}")
     _check_launched(run, rows, "upfirdn2d_kernel", ("upfirdn1d_kernel",),
                     "K6 in the f32 config-4 step (its forward and backward calls)")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:20]:

@@ -58,7 +58,7 @@ from face_mask_inpaint_tpu_torch.ops.resize import scale_img
 from face_mask_inpaint_tpu_torch.tools.convert_torch import convert_picnet_module, convert_unet
 from face_mask_inpaint_tpu_torch.utils.images import mask2im, tensor2im
 from face_mask_inpaint_tpu_torch.utils.metrics_logger import write_metrics_csv
-from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
+from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args, spanned
 
 __all__ = ["get_args", "process_params", "build_models", "make_infer_batch", "main"]
 
@@ -168,6 +168,7 @@ def make_infer_batch(detector: MaskDetector, generator: ReferenceFill,
     (``PICNet_inference.py:167-176``)."""
 
     @torch.no_grad()
+    @spanned("step")
     def infer_batch(src: torch.Tensor, ref: torch.Tensor, noise: torch.Generator):
         src_mask = detector.predict_mask(src)
         if old_model:

@@ -51,7 +51,7 @@ from face_mask_inpaint_tpu_torch.nn.layers import init_weights
 from face_mask_inpaint_tpu_torch.tools.convert_torch import convert_psp, convert_unet
 from face_mask_inpaint_tpu_torch.utils.images import mask2im, tensor2im
 from face_mask_inpaint_tpu_torch.utils.metrics_logger import write_metrics_csv
-from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args
+from face_mask_inpaint_tpu_torch.utils.profiling import ProfileWindow, add_profile_args, spanned
 
 __all__ = ["get_args", "build_models", "make_infer_batch", "main"]
 
@@ -136,6 +136,7 @@ def make_infer_batch(detector: MaskDetector, psp: PSP, use_ref: bool):
     the reference and the detected mask are fused in the encoder."""
 
     @torch.inference_mode()
+    @spanned("step")
     def infer_batch(src: torch.Tensor, ref: torch.Tensor):
         src_mask = detector.predict_mask((src + 1) / 2)
         gen = psp(src, ref if use_ref else None, src_mask if use_ref else None,

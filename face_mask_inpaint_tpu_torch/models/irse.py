@@ -30,6 +30,7 @@ from face_mask_inpaint_tpu_torch.nn.blocks import ExampleGuidedAttention
 from face_mask_inpaint_tpu_torch.nn.layers import BatchNorm2d, Conv2d, Dense, PReLU
 from face_mask_inpaint_tpu_torch.ops.resize import (
     adaptive_avg_pool2d, bilinear_resize, scale_img)
+from face_mask_inpaint_tpu_torch.utils.profiling import spanned
 
 __all__ = ["get_blocks", "tap_indices", "SEModule", "BottleneckIR", "IRBody", "InputLayer",
            "GradualStyleBlock", "GradualStyleEncoder", "BackboneEncoderUsingLastLayerIntoW",
@@ -194,6 +195,7 @@ class GradualStyleEncoder(nn.Module):
             spatial = 16 if j < self.coarse_ind else 32 if j < self.middle_ind else 64
             setattr(self, f"styles_{j}", GradualStyleBlock(512, 512, spatial))
 
+    @spanned("encoder")
     def backbone_taps(self, x: torch.Tensor):
         """One IR-SE backbone pass -> the (c1, c2, c3) pyramid taps."""
         t1, t2, t3 = tap_indices(self.num_layers)
@@ -227,6 +229,7 @@ class GradualStyleEncoder(nn.Module):
         p1 = bilinear_resize(p2, lat2.shape[2:], align_corners=True) + lat2
         return c3, p2, p1
 
+    @spanned("fusion")
     def fuse_styles(self, src_taps, ref_taps=None, mask=None) -> torch.Tensor:
         """Reference fusion + FPN + the style heads -> [N, n_styles, 512]."""
         c3, p2, p1 = self.fuse_pyramid(src_taps, ref_taps, mask)

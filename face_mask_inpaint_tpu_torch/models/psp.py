@@ -30,6 +30,7 @@ from face_mask_inpaint_tpu_torch.models.irse import (
 from face_mask_inpaint_tpu_torch.models.stylegan2 import Generator
 from face_mask_inpaint_tpu_torch.nn.layers import init_weights
 from face_mask_inpaint_tpu_torch.ops.resize import adaptive_avg_pool2d
+from face_mask_inpaint_tpu_torch.utils.profiling import span, spanned
 
 __all__ = ["PSP"]
 
@@ -98,12 +99,14 @@ class PSP(nn.Module):
     def decode(self, codes: torch.Tensor, resize: bool = True, randomize_noise: bool = True,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Decoder half: w+ codes -> NHWC image, pooled to 256^2 when resize."""
-        images, _ = self.decoder([codes], input_is_latent=True,
-                                 randomize_noise=randomize_noise, generator=generator)
+        with span("decoder"):
+            images, _ = self.decoder([codes], input_is_latent=True,
+                                     randomize_noise=randomize_noise, generator=generator)
         if resize:
             images = adaptive_avg_pool2d(images, (256, 256))
         return images.permute(0, 2, 3, 1)
 
+    @spanned("generator")
     def forward(self, x: torch.Tensor, ref: Optional[torch.Tensor] = None,
                 src_mask: Optional[torch.Tensor] = None, resize: bool = True,
                 latent_mask: Optional[Sequence[int]] = None, input_code: bool = False,
@@ -127,9 +130,10 @@ class PSP(nn.Module):
                     codes[:, i] = alpha * inject_latent[:, i] + (1 - alpha) * codes[:, i]
                 else:
                     codes[:, i] = inject_latent[:, i]
-        images, latent = self.decoder([codes], input_is_latent=not input_code,
-                                      randomize_noise=randomize_noise,
-                                      return_latents=return_latents, generator=generator)
+        with span("decoder"):
+            images, latent = self.decoder([codes], input_is_latent=not input_code,
+                                          randomize_noise=randomize_noise,
+                                          return_latents=return_latents, generator=generator)
         if resize:
             images = adaptive_avg_pool2d(images, (256, 256))
         images = images.permute(0, 2, 3, 1)

@@ -38,6 +38,7 @@ from face_mask_inpaint_tpu_torch.models.picnet import define_e, define_g, sample
 from face_mask_inpaint_tpu_torch.nn.blocks import ExampleGuidedAttention
 from face_mask_inpaint_tpu_torch.nn.layers import init_weights
 from face_mask_inpaint_tpu_torch.ops.resize import adaptive_avg_pool2d, scale_img
+from face_mask_inpaint_tpu_torch.utils.profiling import span, spanned
 
 __all__ = ["ReferenceFill"]
 
@@ -93,6 +94,14 @@ class ReferenceFill(nn.Module):
             return h_dec // out_h
         return None
 
+    def _encode(self, encoder: nn.Module, image: torch.Tensor):
+        """One encoder's pass: (its distribution, or None for DRN, and its
+        features)."""
+        with span("encoder"):
+            out = encoder(image)
+        return (None, out) if self.encoder_type == "drn" else out
+
+    @spanned("generator")
     def forward(self, src_image: torch.Tensor, ref_image: torch.Tensor,
                 src_mask: torch.Tensor, eps_q: Optional[torch.Tensor] = None,
                 eps_p: Optional[torch.Tensor] = None,
@@ -108,26 +117,23 @@ class ReferenceFill(nn.Module):
         """
         src = _nchw(src_image).to(self.dtype)
         ref = _nchw(ref_image).to(self.dtype)
-        if self.encoder_type == "drn":
-            src_dist, src_features = None, self.src_encoder(src)
-            ref_dist, ref_features = None, self.ref_encoder(ref)
-        else:
-            src_dist, src_features = self.src_encoder(src)
-            ref_dist, ref_features = self.ref_encoder(ref)
-        scaled_mask = scale_img(src_mask[:, None].to(src_features.dtype),
-                                src_features.shape[2:])
-        if self.use_att:
-            enc = self.attention(scaled_mask, src_features, ref_features)
-        else:
-            enc = (1.0 - scaled_mask) * src_features + scaled_mask * ref_features
+        src_dist, src_features = self._encode(self.src_encoder, src)
+        ref_dist, ref_features = self._encode(self.ref_encoder, ref)
+        with span("fusion"):
+            scaled_mask = scale_img(src_mask[:, None].to(src_features.dtype),
+                                    src_features.shape[2:])
+            if self.use_att:
+                enc = self.attention(scaled_mask, src_features, ref_features)
+            else:
+                enc = (1.0 - scaled_mask) * src_features + scaled_mask * ref_features
         fuse_pool = self._fuse_pool(enc) if resize and not no_prior else None
-        if src_dist is None or no_prior:
-            dec = self.decoder(enc, fuse_pool=fuse_pool)
-        else:
+        z = None
+        if src_dist is not None and not no_prior:
             z = sample_z(src_dist, ref_dist,
                          _nchw(eps_q) if eps_q is not None else None,
                          _nchw(eps_p) if eps_p is not None else None,
                          generator, return_zq=not self.use_att)
+        with span("decoder"):
             dec = self.decoder(enc, z=z, fuse_pool=fuse_pool)
         if resize and no_prior:
             dec = scale_img(dec, (218, 178))

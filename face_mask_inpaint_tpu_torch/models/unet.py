@@ -20,6 +20,7 @@ from torch import nn
 from face_mask_inpaint_tpu_torch.nn.layers import (
     BatchNorm2d, Conv2d, ConvTranspose2d, init_weights)
 from face_mask_inpaint_tpu_torch.ops.resize import bilinear_resize, max_pool2d
+from face_mask_inpaint_tpu_torch.utils.profiling import spanned
 
 __all__ = ["UNet", "MaskDetector"]
 
@@ -122,11 +123,13 @@ class MaskDetector(nn.Module):
                      else torch.Generator().manual_seed(0))
         self.eval()
 
+    @spanned("detector")
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         """[N, H, W, 3] image -> [N, H, W, 2] logits (the reference's
         mode='train')."""
         return self.model(image.permute(0, 3, 1, 2).to(self.dtype)).permute(0, 2, 3, 1)
 
+    @spanned("detector")
     def predict_mask(self, image: torch.Tensor) -> torch.Tensor:
         """The argmax decision every inference harness uses: [N, H, W] float
         mask, 1 where logits[1] > logits[0] (a tie picks class 0)."""

@@ -1,7 +1,7 @@
 """Time two checkouts of the port on one card, in turns A, B, B, A: chip_smoke.py's
 flagship bf16 batch-16 forward (phase 5: default, packed-convt and plain
-configurations), its profile (phase 6: per-stage times and the summed
-device time of three forwards of each configuration), its config-5
+configurations), its profile (phase 6: the program's span table and the
+summed device time of three forwards of each configuration), its config-5
 bf16-mixed training step (phase 7) and the number of device kernels (copies
 and fills aside) of one default bf16 forward, from a profiler window.
 
@@ -10,7 +10,8 @@ and fills aside) of one default bf16 forward, from a profiler window.
 Each turn is a fresh process in that checkout's root, which builds its own
 kernels there and runs that checkout's chip_smoke.phase_timing,
 phase_profile and phase_train; its [time] and [train] lines and the
-[profile] lines of stages and device time are printed with the turn's
+[profile] lines of spans (of stages, in a checkout before the spans) and
+device time are printed with the turn's
 label.
 The order A, B, B, A lets drift over the run hit both checkouts alike.
 Compare the two only within one run of this script (same card, same host).
@@ -51,7 +52,8 @@ with profile(activities=[ProfilerActivity.CUDA]) as prof:
     forward()
     torch.cuda.synchronize()
 rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-        and e.self_device_time_total > 0 and not e.key.startswith(("Memcpy", "Memset"))]
+        and e.self_device_time_total > 0 and not e.is_user_annotation
+        and not e.key.startswith(("Memcpy", "Memset"))]
 print(f"[count] device kernels of one default bf16 forward: {sum(e.count for e in rows)}")
 raise SystemExit(1 if run.failures else 0)
 """
@@ -70,8 +72,8 @@ def main(argv=None) -> int:
         for line in proc.stdout.splitlines():
             if (line.startswith(("[time] flagship", "[time] peak", "[train] config-5",
                                  "[train] profile", "[count]", "FAIL"))
-                    or line.startswith("[profile]") and ("per stage" in line
-                                                         or "device time" in line)):
+                    or line.startswith("[profile]") and any(
+                        k in line for k in ("spans", "per stage", "device time"))):
                 print(f"{side}{turn} {line}", flush=True)
         if proc.returncode != 0:
             print(f"{side}{turn} exited {proc.returncode}:\n{proc.stderr[-2000:]}", flush=True)

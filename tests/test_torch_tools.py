@@ -166,14 +166,23 @@ def _runtime(ext, corr, ts):
             "ts": ts, "dur": 2, "args": {"External id": ext, "correlation": corr}}
 
 
-def synthetic_card_trace(steps=3):
+def synthetic_card_trace(steps=3, spans=False):
     """Steps of a card-format trace: a cuDNN conv (an aten::conv2d with the
     profiler's count, its kernels launched from aten::cudnn_convolution inside
     it: a transpose and the GEMM, the GEMM found through its launch's
-    correlation), K6 and K7a with no count, a copy."""
+    correlation), K6 and K7a with no count, a copy. With ``spans``, each step
+    also lies inside the port's ``fmi.*`` ranges, as host user annotations
+    and their shadows on the device timeline."""
     events = [{"ph": "M", "name": "process_name", "pid": 0, "args": {"name": "GPU 0"}}]
     for s in range(steps):
         t, e = 10_000 * s, 100 * s
+        if spans:
+            events += [
+                {"ph": "X", "cat": "user_annotation", "name": f"fmi.{n}", "pid": 1, "tid": 1,
+                 "ts": t - 5, "dur": 2200, "args": {"External id": e + 90 + i}}
+                for i, n in enumerate(("step", "generator"))]
+            events += [_gpu("gpu_user_annotation", f"fmi.{n}", e + 90 + i, e + 90 + i, t + 500,
+                            1700) for i, n in enumerate(("step", "generator"))]
         events += [
             _op("aten::conv2d", e + 1, t, 400, flops=4e9, **{"Input type": ["c10::BFloat16"]}),
             _op("aten::cudnn_convolution", e + 2, t + 10, 300),
@@ -189,9 +198,13 @@ def synthetic_card_trace(steps=3):
     return {"traceEvents": events}
 
 
-def test_trace_readers_on_a_card_format_trace(tmp_path, capsys):
+@pytest.mark.parametrize("spans", [False, True], ids=["no_spans", "fmi_spans"])
+def test_trace_readers_on_a_card_format_trace(tmp_path, capsys, spans):
+    """The same sums with and without the port's spans: their host ranges and
+    device shadows are no kernels and no ops."""
     (tmp_path / "run" / "a").mkdir(parents=True)
-    (tmp_path / "run" / "a" / "trace.json").write_text(json.dumps(synthetic_card_trace()))
+    (tmp_path / "run" / "a" / "trace.json").write_text(
+        json.dumps(synthetic_card_trace(spans=spans)))
     tot, cnt, kind = trace_top.op_totals(trace_top.load_trace_events(tmp_path)[0])
     assert kind == trace_top.DEVICE_KIND
     assert tot["sm90_xmma_fprop_implicit_gemm_bf16"] == 3000 and cnt["fwd_kernel"] == 3
