@@ -267,14 +267,15 @@ PROFILE_ROUNDS = 10
 # timed steps of phase 7, after two warm-up steps
 STEP_ROUNDS = 6
 # launches of one flagship forward, default and packed-convt configuration,
-# and of one config-5 training step
+# and of one config-5 training step; in eval mode each dense decoder block
+# but the one that hands K3 its pair ends in the residual sum's kernel
 PER_FORWARD = {"flash_attention_fwd": 1, "flash_attention_bwd": 0, "instance_norm_act": 10,
-               "output_head": 1, "conv3x3_stats": 0, "convt_pair": 0}
+               "output_head": 1, "conv3x3_stats": 0, "convt_pair": 0, "residual_bias_add": 4}
 PACKED_PER_FORWARD = {"flash_attention_fwd": 1, "flash_attention_bwd": 0,
                       "instance_norm_act": 6, "output_head": 0, "conv3x3_stats": 2,
-                      "convt_pair": 2}
+                      "convt_pair": 2, "residual_bias_add": 3}
 PER_STEP = {"flash_attention_fwd": 1, "flash_attention_bwd": 1, "instance_norm_act": 10,
-            "output_head": 0, "conv3x3_stats": 0, "convt_pair": 0}
+            "output_head": 0, "conv3x3_stats": 0, "convt_pair": 0, "residual_bias_add": 0}
 # device kernels (copies and fills aside) of one default bf16 forward before
 # K2 ran as one launch a call (two Triton passes and about a dozen eager
 # finishing ops a call): tools/chip_ab.py on the parent tree, on the H100
@@ -353,7 +354,7 @@ DRN_ENC = dict(type="drn", img_f=128, init_type="orthogonal")
 OLD_MODEL_HW = (218, 178)
 OLD_MODEL_TOKENS = 108 * 88
 DRN_PER_FORWARD = dict(PER_FORWARD)
-OLD_MODEL_PER_FORWARD = dict(PER_FORWARD, output_head=0)
+OLD_MODEL_PER_FORWARD = dict(PER_FORWARD, output_head=0, residual_bias_add=5)
 DRN_PER_STEP = dict(PER_STEP)
 # timed forwards of phase 12, after one warm-up
 DRN_ROUNDS = 5
@@ -450,6 +451,9 @@ KERNELS = {
         route="triton", source="face_mask_inpaint_tpu_torch/kernels/fused_act.py",
         replaces="face_mask_inpaint_tpu/ops/pallas/fused_act_pallas.py:88",
         timed_dtype="float32"),
+    "residual_bias_add": dict(
+        route="cuda", source="face_mask_inpaint_tpu_torch/csrc/residual_add.cu",
+        replaces="none: the decoder block's h + s and its convs' bias adds, left to XLA"),
 }
 # each kernel's timings entry for the kernels line: bfloat16 unless its
 # entry names another timed_dtype (the Stack B backward kernels are timed in
@@ -520,11 +524,12 @@ def plain_versions():
     from face_mask_inpaint_tpu_torch.kernels import fused_act as act
     from face_mask_inpaint_tpu_torch.kernels import norm_act as na
     from face_mask_inpaint_tpu_torch.kernels import output_head as oh
+    from face_mask_inpaint_tpu_torch.kernels import residual_add as ra
     from face_mask_inpaint_tpu_torch.kernels import upfirdn2d as fir
 
     saved = (fa.flash_attention, fa.flash_attention_bwd, na.instance_norm_act,
              oh.output_head, dc.conv3x3_stats, dc.convt_pair, fir.upfirdn2d,
-             act.fused_leaky_relu)
+             act.fused_leaky_relu, ra.residual_bias_add)
     fa.flash_attention = lambda q, values, with_lse=False: fa.flash_attention_plain(
         q, values, with_lse=with_lse)
     fa.flash_attention_bwd = fa.flash_attention_bwd_plain
@@ -534,11 +539,13 @@ def plain_versions():
     dc.convt_pair = dc.convt_pair_plain
     fir.upfirdn2d = fir.upfirdn2d_plain
     act.fused_leaky_relu = act.fused_leaky_relu_plain
+    ra.residual_bias_add = ra.residual_bias_add_plain
     try:
         yield
     finally:
         (fa.flash_attention, fa.flash_attention_bwd, na.instance_norm_act, oh.output_head,
-         dc.conv3x3_stats, dc.convt_pair, fir.upfirdn2d, act.fused_leaky_relu) = saved
+         dc.conv3x3_stats, dc.convt_pair, fir.upfirdn2d, act.fused_leaky_relu,
+         ra.residual_bias_add) = saved
 
 
 def _kernel_name(ptxas_line: str) -> str:
@@ -773,27 +780,32 @@ def phase_kernels(run: Run, seed: int, timings: dict):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         total, total_plain, total_lib, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0.0
-        cases = [(f"decoder N=16 C={c} H=W={h}", (16, c, h, h), "LeakyReLU", "cluster")
-                 for c, h in DECODER_NORMS]
-        cases += [("ragged", (3, 5, 37, 41), act, "cluster") for act in ("LeakyReLU", "ReLU",
-                                                                         "none")]
-        cases += [("two_pass", (2, 3, 1024, 1024), "LeakyReLU", "two_pass"),
-                  ("two_pass", (2, 3, 1024, 1024), "ReLU", "two_pass")]
-        for label, shape, act, want in cases:
+        # the decoder's ten norms as the eval decoder calls them: each
+        # block's norm1 on its input, its norm2 on conv1's output with
+        # conv1's bias as the input bias; the other cases with and without
+        cases = [(f"decoder norm{1 + i % 2} N=16 C={c} H=W={h}", (16, c, h, h), "LeakyReLU",
+                  "cluster", i % 2 == 1) for i, (c, h) in enumerate(DECODER_NORMS)]
+        cases += [("ragged", (3, 5, 37, 41), act, "cluster", ib)
+                  for act, ib in (("LeakyReLU", True), ("ReLU", False), ("none", True))]
+        cases += [("two_pass", (2, 3, 1024, 1024), "LeakyReLU", "two_pass", True),
+                  ("two_pass", (2, 3, 1024, 1024), "ReLU", "two_pass", False)]
+        for label, shape, act, want, with_ib in cases:
             route = na.norm_act_route(shape, dtype)
             run.check(route == want, f"K2 {label} {dname} takes the {want} route (route {route})")
             x = (torch.randn(shape, device=dev, generator=gen) * 2 + 1).to(dtype)
             w = torch.randn(shape[1], device=dev, generator=gen)
             b = torch.randn(shape[1], device=dev, generator=gen)
-            y = na.instance_norm_act(x, w, b, act)
+            ib = torch.randn(shape[1], device=dev, generator=gen) if with_ib else None
+            y = na.instance_norm_act(x, w, b, act, in_bias=ib)
             torch.cuda.synchronize()
-            ok, err = _close(y, na.instance_norm_act_plain(x, w, b, act), dname)
+            ok, err = _close(y, na.instance_norm_act_plain(x, w, b, act, in_bias=ib), dname)
             run.err["instance_norm_act"] = max(run.err["instance_norm_act"], err)
-            run.check(ok, f"K2 {label} {act} {dname}: max_abs_err {err:.3e} "
-                          f"(tol atol {TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|)")
+            run.check(ok, f"K2 {label} {act}{' in_bias' if with_ib else ''} {dname}: max_abs_err "
+                          f"{err:.3e} (tol atol {TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|)")
             if label.startswith("decoder"):
-                total += _time_ms(lambda: na.instance_norm_act(x, w, b, act), 5)
-                total_plain += _time_ms(lambda: na.instance_norm_act_plain(x, w, b, act), 5)
+                total += _time_ms(lambda: na.instance_norm_act(x, w, b, act, in_bias=ib), 5)
+                total_plain += _time_ms(
+                    lambda: na.instance_norm_act_plain(x, w, b, act, in_bias=ib), 5)
                 wl, bl = w.to(dtype), b.to(dtype)
                 total_lib += _time_ms(lambda: F.leaky_relu(
                     F.instance_norm(x, weight=wl, bias=bl, eps=1e-5), 0.1), 5)
@@ -816,46 +828,52 @@ def phase_kernels(run: Run, seed: int, timings: dict):
         # no one PyTorch call computes K2: the yardstick is the nearest pair,
         # F.instance_norm then F.leaky_relu (two calls, not one)
         timings[("instance_norm_act", dname)] = (total, total_plain, *bound, None)
-        print(f"[time] K2 ten decoder norms at N=16 {dname}: kernel {total:.3f} ms, "
-              f"plain {total_plain:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), yardstick "
+        print(f"[time] K2 ten decoder norms at N=16 (norm2s with in_bias) {dname}: kernel "
+              f"{total:.3f} ms, plain {total_plain:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), yardstick "
               f"{total_lib:.3f} ms (instance_norm + leaky_relu, two calls, not gated)")
 
-    head_cases = [("flagship", HEAD["shape"], HEAD["co"], HEAD["pool"], "LeakyReLU")]
-    head_cases += [("ragged", (2, 5, 36, 44), 3, f, act)
-                   for f, act in ((1, "LeakyReLU"), (2, "ReLU"), (4, "LeakyReLU"))]
-    head_cases += [("ragged", (1, 7, 30, 42), 2, 3, "LeakyReLU"),
-                   ("one cell a block", (1, 3, 128, 192), 4, 64, "ReLU")]
+    # each case's last field: whether it takes a pair bias, as the eval
+    # decoder's head always does; the cases without keep the null pointer's
+    # path covered
+    head_cases = [("flagship", HEAD["shape"], HEAD["co"], HEAD["pool"], "LeakyReLU", True)]
+    head_cases += [("ragged", (2, 5, 36, 44), 3, f, act, pb)
+                   for f, act, pb in ((1, "LeakyReLU", True), (2, "ReLU", False),
+                                      (4, "LeakyReLU", True))]
+    head_cases += [("ragged", (1, 7, 30, 42), 2, 3, "LeakyReLU", True),
+                   ("one cell a block", (1, 3, 128, 192), 4, 64, "ReLU", False)]
     # the tensor-core route (bf16) at ragged shapes: C off its 16-channel
     # chunk, H off its 16- and 32-row tiles, W of one 64-column tile and of
     # one and a bit (72: the right halo of the 8-column tile is column W
     # reflected), co 1, 2, 4, f 1, 2, 8, 32
-    head_cases += [("ragged", (2, 20, 96 if f == 32 else 24, w), co, f, act)
-                   for co, f, w, act in ((1, 1, 64, "LeakyReLU"), (2, 2, 72, "ReLU"),
-                                         (4, 8, 72, "LeakyReLU"), (1, 32, 64, "ReLU"),
-                                         (4, 1, 72, "ReLU"), (2, 8, 64, "LeakyReLU"),
-                                         (4, 32, 64, "LeakyReLU"), (1, 2, 64, "ReLU"))]
+    head_cases += [("ragged", (2, 20, 96 if f == 32 else 24, w), co, f, act, i % 2 == 0)
+                   for i, (co, f, w, act) in enumerate((
+                       (1, 1, 64, "LeakyReLU"), (2, 2, 72, "ReLU"), (4, 8, 72, "LeakyReLU"),
+                       (1, 32, 64, "ReLU"), (4, 1, 72, "ReLU"), (2, 8, 64, "LeakyReLU"),
+                       (4, 32, 64, "LeakyReLU"), (1, 2, 64, "ReLU")))]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for label, shape, co, f, act in head_cases:
+        for label, shape, co, f, act, with_pb in head_cases:
             c = shape[1]
             h = (torch.randn(shape, device=dev, generator=gen) * 2).to(dtype)
             s = torch.randn(shape, device=dev, generator=gen).to(dtype)
             w = torch.randn(co, c, 3, 3, device=dev, generator=gen) / (3 * c ** 0.5)
             b = torch.randn(co, device=dev, generator=gen) * 0.1
+            pb = torch.randn(c, device=dev, generator=gen) if with_pb else None
             route = oh.output_head_route(shape, dtype, f)
             want = ("mma_sync" if dtype == torch.bfloat16 and shape[3] % 8 == 0 and f <= 32
                     and f & (f - 1) == 0 else "cuda_cores")
             run.check(route == want, f"K3 {label} {list(shape)} f={f} {dname} takes the {want} "
                                      f"route (route {route})")
-            y = oh.output_head(h, s, w, b, act, f)
+            y = oh.output_head(h, s, w, b, act, f, pb)
             torch.cuda.synchronize()
-            ok, err = _close(y, oh.output_head_plain(h, s, w, b, act, f), dname)
+            ok, err = _close(y, oh.output_head_plain(h, s, w, b, act, f, pb), dname)
             run.err["output_head"] = max(run.err["output_head"], err)
-            run.check(ok, f"K3 {label} {list(shape)} co={co} f={f} {act} {dname}: max_abs_err "
-                          f"{err:.3e} (tol atol {TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|)")
+            run.check(ok, f"K3 {label} {list(shape)} co={co} f={f} {act}"
+                          f"{' pair_bias' if with_pb else ''} {dname}: max_abs_err {err:.3e} "
+                          f"(tol atol {TOL[dname][0]} + rtol {TOL[dname][1]:.3e}*|ref|)")
             if label == "flagship":
-                ms = _time_ms(lambda: oh.output_head(h, s, w, b, act, f), 10)
-                plain_ms = _time_ms(lambda: oh.output_head_plain(h, s, w, b, act, f), 5)
+                ms = _time_ms(lambda: oh.output_head(h, s, w, b, act, f, pb), 10)
+                plain_ms = _time_ms(lambda: oh.output_head_plain(h, s, w, b, act, f, pb), 5)
                 # h and s read once, the pooled image written once; 9 C co
                 # multiply-adds a pixel, on the tensor cores in bf16 (route
                 # mma_sync) and on the CUDA cores in f32
@@ -863,11 +881,67 @@ def phase_kernels(run: Run, seed: int, timings: dict):
                 bound = _bound(2 * h.numel() * h.element_size() + y.numel() * y.element_size(),
                                flops, BF16_RATE if route == "mma_sync" else F32_RATE)
                 timings[("output_head", dname)] = (ms, plain_ms, *bound, None)
-                print(f"[time] K3 flagship {dname} ({route}): kernel {ms:.3f} ms, plain "
+                print(f"[time] K3 flagship with its pair bias {dname} ({route}): kernel "
+                      f"{ms:.3f} ms, plain "
                       f"{plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
             del h, s, y
         torch.cuda.empty_cache()
+    phase_residual(run, gen, timings)
     _phase_decoder_tail(run, gen, timings)
+
+
+# the residual sum at the flagship decoder's four dense blocks (N = 16): the
+# bypass of blocks 0 and 2 writes channels-last, as their input arrives so
+RESIDUAL_BLOCKS = [((16, 256, 64, 64), True), ((16, 256, 128, 128), False),
+                   ((16, 128, 256, 256), True), ((16, 64, 512, 512), False)]
+
+
+def phase_residual(run: Run, gen, timings: dict):
+    """The residual sum's kernel bit for bit against its plain version on
+    each route, and its time at the flagship's four blocks beside its bound,
+    its plain version and the library pair it replaces: h + s, then the
+    biases' broadcast add."""
+    import torch
+
+    from face_mask_inpaint_tpu_torch.kernels import residual_add as ra
+
+    dev = torch.device("cuda")
+    cases = [(f"block N=16 C={shape[1]} H=W={shape[2]}", shape, cl)
+             for shape, cl in RESIDUAL_BLOCKS]
+    cases += [("ragged", (3, 5, 37, 41), False), ("ragged", (2, 40, 9, 7), True),
+              ("flat", (2, 3, 5, 7), False)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        total, total_plain, total_lib, nbytes = 0.0, 0.0, 0.0, 0.0
+        for label, shape, cl in cases:
+            h, s = ((torch.randn(shape, device=dev, generator=gen) * 2).to(dtype)
+                    for _ in range(2))
+            if cl:
+                s = s.contiguous(memory_format=torch.channels_last)
+            # conv2's and the bypass's biases, summed in f32 as the block sums them
+            b = sum(torch.randn(shape[1], device=dev, generator=gen) for _ in range(2))
+            route = ra.residual_bias_add_route(h, s)
+            y = ra.residual_bias_add(h, s, b)
+            torch.cuda.synchronize()
+            plain = ra.residual_bias_add_plain(h, s, b)
+            same = torch.equal(y, plain)
+            run.err["residual_bias_add"] = max(run.err["residual_bias_add"],
+                                               float((y.float() - plain.float()).abs().max()))
+            run.check(same, f"residual sum {label} {dname} ({route}): bit for bit the plain "
+                            f"version")
+            if label.startswith("block"):
+                bias = b.to(dtype).view(1, -1, 1, 1)
+                total += _time_ms(lambda: ra.residual_bias_add(h, s, b), 10)
+                total_plain += _time_ms(lambda: ra.residual_bias_add_plain(h, s, b), 5)
+                total_lib += _time_ms(lambda: (h + s).add_(bias), 10)
+                nbytes += 3 * h.numel() * h.element_size()  # h, s read once, y written once
+            del h, s, y, plain
+        torch.cuda.empty_cache()
+        bound = _bound(nbytes, 0.0, F32_RATE)
+        timings[("residual_bias_add", dname)] = (total, total_plain, *bound, total_lib)
+        print(f"[time] residual sum, four flagship blocks at N=16 {dname}: kernel {total:.3f} ms, "
+              f"plain {total_plain:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), library pair "
+              f"{total_lib:.3f} ms (h + s, then add_ of the biases)", flush=True)
 
 
 def _stats_close(got, want, dname):

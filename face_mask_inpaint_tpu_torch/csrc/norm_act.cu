@@ -6,11 +6,15 @@
 // the JAX package leaves to XLA).
 //
 // Computes, for x [N, C, H, W] contiguous of type T in {f32, bf16}, an
-// optional affine weight, bias [C] (f32) and act in {LeakyReLU(slope), ReLU,
-// none}, per plane (n, c) of HW elements:
-//     s1 = sum x, s2 = sum x^2                   in f32
+// optional affine weight, bias [C] (f32), an optional input bias ib [C]
+// (f32: the bias of the conv that wrote x, which that conv leaves to this
+// kernel) and act in {LeakyReLU(slope), ReLU, none}, per plane (n, c) of HW
+// elements:
+//     v = x + ib[c]                              in f32, as each element is
+//                                                loaded (v = x without ib)
+//     s1 = sum v, s2 = sum v^2                   in f32
 //     mean = s1 / HW, var = max(s2 / HW - mean^2, 0), a = rsqrt(var + eps) weight
-//     y = act(a (x - mean) + bias)               rounded once to T
+//     y = act(a (v - mean) + bias)               rounded once to T
 // The variance is clamped at 0 as instance_norm_act_reference clamps it
 // (norm_act.py:52; the Pallas `_forward` does not, :105-106). The affine is
 // taken on x - mean rather than as a x + (bias - a mean): the same function,
@@ -149,14 +153,16 @@ struct Span {
   }
 };
 
-// s1 += the piece's elements in the range, s2 += their squares, in element
-// order
+// s1 += the piece's elements in the range, each plus `shift` (the input
+// bias, 0 without one), s2 += their squares, in element order
 template <typename T>
-__device__ __forceinline__ void add_piece(const uint4& v, const Span<T>& sp, int j, float& s1,
-                                          float& s2) {
+__device__ __forceinline__ void add_piece(const uint4& v, const Span<T>& sp, int j, float shift,
+                                          float& s1, float& s2) {
   constexpr int E = Vec<T>::E;
   float f[E];
   unpack(v, f);
+#pragma unroll
+  for (int k = 0; k < E; ++k) f[k] += shift;
   if (sp.full(j)) {
 #pragma unroll
     for (int k = 0; k < E; ++k) {
@@ -173,19 +179,19 @@ __device__ __forceinline__ void add_piece(const uint4& v, const Span<T>& sp, int
   }
 }
 
-// y = act(a (x - mean) + beta) of the piece's elements in the range, stored
+// y = act(a (x + shift - mean) + beta) of the piece's elements in the range, stored
 // at the same offsets from `dst` (the range's first output element) as the
 // inputs lie from the range's first input; a whole piece goes out in one
 // 16-byte store where x and y lie alike modulo 16 bytes (`vec`)
 template <typename T, int ACT>
 __device__ __forceinline__ void store_piece(const uint4& v, const Span<T>& sp, int j, T* dst,
-                                            bool vec, float a, float mean, float beta,
-                                            float slope) {
+                                            bool vec, float shift, float a, float mean,
+                                            float beta, float slope) {
   constexpr int E = Vec<T>::E;
   float f[E];
   unpack(v, f);
 #pragma unroll
-  for (int k = 0; k < E; ++k) f[k] = activate<ACT>(fmaf(a, f[k] - mean, beta), slope);
+  for (int k = 0; k < E; ++k) f[k] = activate<ACT>(fmaf(a, (f[k] + shift) - mean, beta), slope);
   if (vec && sp.full(j)) {
     const uintptr_t p = reinterpret_cast<uintptr_t>(dst) - sp.lead * sizeof(T) + 16 * j;
     *reinterpret_cast<uint4*>(p) = pack(f);
@@ -244,8 +250,9 @@ __device__ __forceinline__ void finish(float s1, float s2, int hw, const float* 
 template <typename T, int ACT>
 __global__ void __launch_bounds__(kThreads)
 norm_act_cluster_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                        const float* __restrict__ b, T* __restrict__ y, int planes, int C, int hw,
-                        int cs, int ppb, int slice, float slope, float eps) {
+                        const float* __restrict__ b, const float* __restrict__ ib,
+                        T* __restrict__ y, int planes, int C, int hw, int cs, int ppb, int slice,
+                        float slope, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t bars[kWarps];
   __shared__ float red[2][kWarps];
@@ -264,6 +271,7 @@ norm_act_cluster_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const T* src = x + (live ? static_cast<size_t>(plane) * hw + e0 : 0);
   const Span<T> sp(src, len);
   const bool bulk = live && sp.lead == 0 && (len * sizeof(T)) % 16 == 0;
+  const float shift = live && ib != nullptr ? ib[plane % C] : 0.f;
 
   if (tid < ppb) mbar_init(&bars[tid], 1);
   mbar_fence_init();
@@ -285,7 +293,7 @@ norm_act_cluster_kernel(const T* __restrict__ x, const float* __restrict__ w,
   float s1 = 0.f, s2 = 0.f;
   if (live)
     for (int j = gt; j < sp.pieces; j += G)
-      add_piece(*reinterpret_cast<const uint4*>(buf + 16 * j), sp, j, s1, s2);
+      add_piece(*reinterpret_cast<const uint4*>(buf + 16 * j), sp, j, shift, s1, s2);
   group_sum(s1, s2, red, g, gw);
   if (cs > 1) {
     if (tid == 0) {
@@ -315,8 +323,8 @@ norm_act_cluster_kernel(const T* __restrict__ x, const float* __restrict__ w,
         ((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(y)) & 15) == 0;
     T* dst = y + static_cast<size_t>(plane) * hw + e0;
     for (int j = gt; j < sp.pieces; j += G)
-      store_piece<T, ACT>(*reinterpret_cast<const uint4*>(buf + 16 * j), sp, j, dst, vec, a,
-                          mean, beta, slope);
+      store_piece<T, ACT>(*reinterpret_cast<const uint4*>(buf + 16 * j), sp, j, dst, vec, shift,
+                          a, mean, beta, slope);
   }
   if (cs > 1) cluster_wait();  // no block leaves while another may read its sums
 }
@@ -325,15 +333,16 @@ norm_act_cluster_kernel(const T* __restrict__ x, const float* __restrict__ w,
 // parts[p * chunks + k][2] (blockIdx.x = p * chunks + k)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-norm_act_sums_kernel(const T* __restrict__ x, float* __restrict__ parts, int hw, int chunks,
-                     int chunk) {
+norm_act_sums_kernel(const T* __restrict__ x, const float* __restrict__ ib,
+                     float* __restrict__ parts, int C, int hw, int chunks, int chunk) {
   __shared__ float red[2][kWarps];
   const int plane = blockIdx.x / chunks, k = blockIdx.x - plane * chunks;
   const int e0 = k * chunk;
   const Span<T> sp(x + static_cast<size_t>(plane) * hw + e0, min(hw - e0, chunk));
+  const float shift = ib != nullptr ? ib[plane % C] : 0.f;
   float s1 = 0.f, s2 = 0.f;
   for (int j = threadIdx.x; j < sp.pieces; j += kThreads)
-    add_piece(__ldg(reinterpret_cast<const uint4*>(sp.base + 16 * j)), sp, j, s1, s2);
+    add_piece(__ldg(reinterpret_cast<const uint4*>(sp.base + 16 * j)), sp, j, shift, s1, s2);
   group_sum(s1, s2, red, 0, kWarps);
   if (threadIdx.x == 0) {
     parts[2 * static_cast<size_t>(blockIdx.x)] = s1;
@@ -346,9 +355,9 @@ norm_act_sums_kernel(const T* __restrict__ x, float* __restrict__ parts, int hw,
 template <typename T, int ACT>
 __global__ void __launch_bounds__(kThreads)
 norm_act_scale_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ b, const float* __restrict__ parts,
-                      T* __restrict__ y, int C, int hw, int chunks, int chunk, float slope,
-                      float eps) {
+                      const float* __restrict__ b, const float* __restrict__ ib,
+                      const float* __restrict__ parts, T* __restrict__ y, int C, int hw,
+                      int chunks, int chunk, float slope, float eps) {
   __shared__ float tot[2];
   const int plane = blockIdx.x / chunks, k = blockIdx.x - plane * chunks;
   if (threadIdx.x == 0) {
@@ -368,9 +377,10 @@ norm_act_scale_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const size_t off = static_cast<size_t>(plane) * hw + e0;
   const Span<T> sp(x + off, min(hw - e0, chunk));
   const bool vec = ((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const float shift = ib != nullptr ? ib[plane % C] : 0.f;
   for (int j = threadIdx.x; j < sp.pieces; j += kThreads)
     store_piece<T, ACT>(__ldg(reinterpret_cast<const uint4*>(sp.base + 16 * j)), sp, j, y + off,
-                        vec, a, mean, beta, slope);
+                        vec, shift, a, mean, beta, slope);
 }
 
 // the route's shared memory a block: ppb regions of one slice each
@@ -379,9 +389,9 @@ size_t cluster_smem(int slice, int ppb, size_t es) {
 }
 
 template <typename T, int ACT>
-int launch_act(const T* x, const float* w, const float* b, T* y, float* parts, int planes,
-               int C, int hw, int route, int cs, int ppb, int slice, float slope, float eps,
-               cudaStream_t stream) {
+int launch_act(const T* x, const float* w, const float* b, const float* ib, T* y, float* parts,
+               int planes, int C, int hw, int route, int cs, int ppb, int slice, float slope,
+               float eps, cudaStream_t stream) {
   if (route == 0) {
     const size_t smem = cluster_smem(slice, ppb, sizeof(T));
     const int blocks = (planes + ppb - 1) / ppb;
@@ -404,23 +414,25 @@ int launch_act(const T* x, const float* w, const float* b, T* y, float* parts, i
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return static_cast<int>(
-        cudaLaunchKernelEx(&cfg, kernel, x, w, b, y, planes, C, hw, cs, ppb, slice, slope, eps));
+        cudaLaunchKernelEx(&cfg, kernel, x, w, b, ib, y, planes, C, hw, cs, ppb, slice, slope,
+                           eps));
   }
   const int chunks = cs, chunk = slice;
   if (static_cast<long long>(planes) * chunks > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  norm_act_sums_kernel<T><<<planes * chunks, kThreads, 0, stream>>>(x, parts, hw, chunks, chunk);
+  norm_act_sums_kernel<T><<<planes * chunks, kThreads, 0, stream>>>(x, ib, parts, C, hw, chunks,
+                                                                    chunk);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   norm_act_scale_kernel<T, ACT><<<planes * chunks, kThreads, 0, stream>>>(
-      x, w, b, parts, y, C, hw, chunks, chunk, slope, eps);
+      x, w, b, ib, parts, y, C, hw, chunks, chunk, slope, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* x, const void* w, const void* b, void* y, void* parts, int planes, int C,
-           int hw, int route, int cs, int ppb, int slice, int act, float slope, float eps,
-           void* stream) {
+int launch(const void* x, const void* w, const void* b, const void* ib, void* y, void* parts,
+           int planes, int C, int hw, int route, int cs, int ppb, int slice, int act, float slope,
+           float eps, void* stream) {
   const long long covered = static_cast<long long>(slice) * cs;
   bool ok = planes >= 1 && C >= 1 && planes % C == 0 && hw >= 1 && slice >= 1 && cs >= 1 &&
             covered >= hw && covered - slice < hw && (w == nullptr) == (b == nullptr);
@@ -434,19 +446,20 @@ int launch(const void* x, const void* w, const void* b, void* y, void* parts, in
   const T* xp = static_cast<const T*>(x);
   const float* wp = static_cast<const float*>(w);
   const float* bp = static_cast<const float*>(b);
+  const float* ibp = static_cast<const float*>(ib);
   T* yp = static_cast<T*>(y);
   float* pp = static_cast<float*>(parts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (act) {
     case 0:
-      return launch_act<T, 0>(xp, wp, bp, yp, pp, planes, C, hw, route, cs, ppb, slice, slope,
-                              eps, st);
+      return launch_act<T, 0>(xp, wp, bp, ibp, yp, pp, planes, C, hw, route, cs, ppb, slice,
+                              slope, eps, st);
     case 1:
-      return launch_act<T, 1>(xp, wp, bp, yp, pp, planes, C, hw, route, cs, ppb, slice, slope,
-                              eps, st);
+      return launch_act<T, 1>(xp, wp, bp, ibp, yp, pp, planes, C, hw, route, cs, ppb, slice,
+                              slope, eps, st);
     case 2:
-      return launch_act<T, 2>(xp, wp, bp, yp, pp, planes, C, hw, route, cs, ppb, slice, slope,
-                              eps, st);
+      return launch_act<T, 2>(xp, wp, bp, ibp, yp, pp, planes, C, hw, route, cs, ppb, slice,
+                              slope, eps, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -455,23 +468,24 @@ int launch(const void* x, const void* w, const void* b, void* y, void* parts, in
 }  // namespace
 
 // x, y [planes, hw] contiguous of one type (planes = N C); w, b [C] f32, or
-// both null for no affine; parts f32 [planes, cs, 2] scratch for route 1.
+// both null for no affine; ib [C] f32 added to x as it is loaded, or null;
+// parts f32 [planes, cs, 2] scratch for route 1.
 // route 0 "cluster": cs blocks a cluster, ppb planes a block, slices of
 // `slice` elements; route 1 "two_pass": cs chunks of `slice` elements a
 // plane. act: 0 LeakyReLU(slope), 1 ReLU, 2 none. Returns a cudaError_t
 // code; 0 means launched.
-extern "C" int fmi_norm_act_f32(const void* x, const void* w, const void* b, void* y,
-                                void* parts, int planes, int C, int hw, int route, int cs,
-                                int ppb, int slice, int act, float slope, float eps,
+extern "C" int fmi_norm_act_f32(const void* x, const void* w, const void* b, const void* ib,
+                                void* y, void* parts, int planes, int C, int hw, int route,
+                                int cs, int ppb, int slice, int act, float slope, float eps,
                                 void* stream) {
-  return launch<float>(x, w, b, y, parts, planes, C, hw, route, cs, ppb, slice, act, slope, eps,
-                       stream);
+  return launch<float>(x, w, b, ib, y, parts, planes, C, hw, route, cs, ppb, slice, act, slope,
+                       eps, stream);
 }
 
-extern "C" int fmi_norm_act_bf16(const void* x, const void* w, const void* b, void* y,
-                                 void* parts, int planes, int C, int hw, int route, int cs,
-                                 int ppb, int slice, int act, float slope, float eps,
+extern "C" int fmi_norm_act_bf16(const void* x, const void* w, const void* b, const void* ib,
+                                 void* y, void* parts, int planes, int C, int hw, int route,
+                                 int cs, int ppb, int slice, int act, float slope, float eps,
                                  void* stream) {
-  return launch<__nv_bfloat16>(x, w, b, y, parts, planes, C, hw, route, cs, ppb, slice, act,
+  return launch<__nv_bfloat16>(x, w, b, ib, y, parts, planes, C, hw, route, cs, ppb, slice, act,
                                slope, eps, stream);
 }

@@ -10,10 +10,13 @@
 // and reflects at the border itself, so there are no edge blocks.
 //
 // Computes, for the last decoder block's pre-add pair h, s [N, C, H, W]
-// (contiguous, one dtype T in {f32, bf16}), a weight w [co, C, 3, 3] and a
-// bias b [co]:
-//     a   = act(h + s)        sum and act each rounded to T, as the TPU kernel
-//                             adds and activates in the stream dtype
+// (contiguous, one dtype T in {f32, bf16}), a weight w [co, C, 3, 3], a
+// bias b [co] and an optional pair bias pb [C] (f32: the block's two
+// transposed convs' biases, summed, which those convs leave to this kernel):
+//     a   = act(h + s + pb)   (h + s) + pb[c] in f32, rounded once to T, and
+//                             act rounded to T, as the TPU kernel adds and
+//                             activates in the stream dtype; without pb the
+//                             sum is h + s, the same bits as T's own add
 //     y   = tanh(conv3x3(reflect_pad1(a), w) + b)   accumulated in f32
 //     out = mean of y over each f x f cell -> [N, co, H/f, W/f], rounded to T
 // act is LeakyReLU(0.1) or ReLU; co <= 4.
@@ -125,10 +128,21 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
-// act(h + s) with the sum and the activation each rounded to T
+// The pair bias of a call without one, and of the channels past C: -0
+// leaves every f32 sum as it is, -0 included. Rounding the f32 sum of two
+// bf16 to bf16 gives their bf16 sum, rounded once (f32 holds more than
+// twice bf16's precision), so the sum is T's own h + s.
+constexpr float kNoBias = -0.f;
+
+__device__ __forceinline__ float pair_bias(const float* __restrict__ pb, int c, int C) {
+  return pb != nullptr && c < C ? __ldg(pb + c) : kNoBias;
+}
+
+// act(h + s + pb) with (h + s) + pb in f32, rounded once to T, and the
+// activation rounded to T
 template <typename T>
-__device__ __forceinline__ float act_sum(T hv, T sv, bool leaky) {
-  const float a = round_to<T>(to_f(hv) + to_f(sv));
+__device__ __forceinline__ float act_sum(T hv, T sv, float pb, bool leaky) {
+  const float a = round_to<T>(__fadd_rn(__fadd_rn(to_f(hv), to_f(sv)), pb));
   return a >= 0.f ? a : (leaky ? round_to<T>(a * 0.1f) : 0.f);
 }
 
@@ -169,18 +183,22 @@ struct Stager {
     }
   }
 
-  // act(h + s) of the loaded channels into one stage buffer, and the
+  // act(h + s + pb) of the loaded channels into one stage buffer, and the
   // chunk's weights (ws[ch][tap][o], zero past C and co) beside it
   template <int CO>
   __device__ __forceinline__ void store(float* stage, float* ws, const float* __restrict__ w,
-                                        int c0, int C, bool leaky) const {
+                                        const float* __restrict__ pb, int c0, int C,
+                                        bool leaky) const {
+    float b[kCK];
+#pragma unroll
+    for (int ch = 0; ch < kCK; ++ch) b[ch] = pair_bias(pb, c0 + ch, C);
 #pragma unroll
     for (int i = 0; i < kStageIters; ++i) {
       const int p = threadIdx.x + i * kThreads;
       if (p < kPlane)
 #pragma unroll
         for (int ch = 0; ch < kCK; ++ch)
-          stage[ch * kPlane + p] = act_sum<T>(hv[i][ch], sv[i][ch], leaky);
+          stage[ch * kPlane + p] = act_sum<T>(hv[i][ch], sv[i][ch], b[ch], leaky);
     }
     const int tid = threadIdx.x;
     if (tid < kCK * 9 * kCoMax) {
@@ -198,7 +216,8 @@ struct Stager {
 // ends the call holding nothing the caller needs.
 template <typename T, int CO>
 __device__ __forceinline__ void conv_tile(const T* __restrict__ hn, const T* __restrict__ sn,
-                                          const float* __restrict__ w, float* stage,
+                                          const float* __restrict__ w,
+                                          const float* __restrict__ pb, float* stage,
                                           float* ws, float (&acc)[kRows][CO], int C,
                                           int H, int W, int y0, int x0, int th, int tw,
                                           bool leaky) {
@@ -212,7 +231,7 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ hn, const T* __r
 
   Stager<T> st(H, W, y0, x0, th, tw);
   st.load(hn, sn, plane, 0, C);
-  st.template store<CO>(stage, ws, w, 0, C, leaky);
+  st.template store<CO>(stage, ws, w, pb, 0, C, leaky);
   __syncthreads();
   for (int c0 = 0, buf = 0; c0 < C; c0 += kCK, buf ^= 1) {
     const bool more = c0 + kCK < C;
@@ -252,7 +271,7 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ hn, const T* __r
     // the other buffer was last read before the previous barrier
     if (more)
       st.template store<CO>(stage + (buf ^ 1) * kCK * kPlane, ws + (buf ^ 1) * kCK * 9 * kCoMax,
-                            w, c0 + kCK, C, leaky);
+                            w, pb, c0 + kCK, C, leaky);
     __syncthreads();
   }
 }
@@ -262,8 +281,8 @@ template <typename T, int CO>
 __global__ void __launch_bounds__(kThreads, 2)
 output_head_tile_kernel(const T* __restrict__ h, const T* __restrict__ s,
                         const float* __restrict__ w, const float* __restrict__ bias,
-                        T* __restrict__ out, int C, int H, int W, int f, int cells_x,
-                        int cells_y, int leaky) {
+                        const float* __restrict__ pb, T* __restrict__ out, int C, int H,
+                        int W, int f, int cells_x, int cells_y, int leaky) {
   __shared__ __align__(16) float stage[kStageFloats];
   __shared__ __align__(16) float ws[2 * kCK * 9 * kCoMax];
   const int n = blockIdx.z;
@@ -272,7 +291,7 @@ output_head_tile_kernel(const T* __restrict__ h, const T* __restrict__ s,
   const int ncx = min(cells_x, wc - cx0), ncy = min(cells_y, hc - cy0);
   const size_t image = static_cast<size_t>(C) * H * W;
   float acc[kRows][CO];
-  conv_tile<T, CO>(h + n * image, s + n * image, w, stage, ws, acc, C, H, W, cy0 * f,
+  conv_tile<T, CO>(h + n * image, s + n * image, w, pb, stage, ws, acc, C, H, W, cy0 * f,
                    cx0 * f, ncy * f, ncx * f, leaky != 0);
 
   const int tx = threadIdx.x % kTW, ty = threadIdx.x / kTW;
@@ -303,7 +322,8 @@ template <typename T, int CO>
 __global__ void __launch_bounds__(kThreads, 2)
 output_head_cell_kernel(const T* __restrict__ h, const T* __restrict__ s,
                         const float* __restrict__ w, const float* __restrict__ bias,
-                        T* __restrict__ out, int C, int H, int W, int f, int leaky) {
+                        const float* __restrict__ pb, T* __restrict__ out, int C, int H,
+                        int W, int f, int leaky) {
   __shared__ __align__(16) float stage[kStageFloats];
   __shared__ __align__(16) float ws[2 * kCK * 9 * kCoMax];
   __shared__ float red[kWarps][CO];
@@ -320,7 +340,7 @@ output_head_cell_kernel(const T* __restrict__ h, const T* __restrict__ s,
     for (int sx = 0; sx < f; sx += kTW) {
       const int th = min(kTH, f - sy), tw = min(kTW, f - sx);
       float acc[kRows][CO];
-      conv_tile<T, CO>(h + n * image, s + n * image, w, stage, ws, acc, C, H, W,
+      conv_tile<T, CO>(h + n * image, s + n * image, w, pb, stage, ws, acc, C, H, W,
                        blockIdx.y * f + sy, blockIdx.x * f + sx, th, tw, leaky != 0);
       float part[CO];
 #pragma unroll
@@ -355,40 +375,41 @@ output_head_cell_kernel(const T* __restrict__ h, const T* __restrict__ s,
 }
 
 template <typename T, int CO>
-int launch_co(const void* h, const void* s, const void* w, const void* b, void* out, int N,
-              int C, int H, int W, int f, int leaky, cudaStream_t stream) {
+int launch_co(const void* h, const void* s, const void* w, const void* b, const void* pb,
+              void* out, int N, int C, int H, int W, int f, int leaky, cudaStream_t stream) {
   const int hc = H / f, wc = W / f;
   const T* hp = static_cast<const T*>(h);
   const T* sp = static_cast<const T*>(s);
   const float* wp = static_cast<const float*>(w);
   const float* bp = static_cast<const float*>(b);
+  const float* pbp = static_cast<const float*>(pb);
   T* op = static_cast<T*>(out);
   if (f <= kTH) {
     const int cells_x = kTW / f, cells_y = kTH / f;
     const dim3 grid((wc + cells_x - 1) / cells_x, (hc + cells_y - 1) / cells_y, N);
     if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
     output_head_tile_kernel<T, CO><<<grid, kThreads, 0, stream>>>(
-        hp, sp, wp, bp, op, C, H, W, f, cells_x, cells_y, leaky);
+        hp, sp, wp, bp, pbp, op, C, H, W, f, cells_x, cells_y, leaky);
   } else {
     const dim3 grid(wc, hc, N);
     output_head_cell_kernel<T, CO><<<grid, kThreads, 0, stream>>>(
-        hp, sp, wp, bp, op, C, H, W, f, leaky);
+        hp, sp, wp, bp, pbp, op, C, H, W, f, leaky);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* h, const void* s, const void* w, const void* b, void* out, int N,
-           int C, int H, int W, int co, int f, int leaky, void* stream) {
+int launch(const void* h, const void* s, const void* w, const void* b, const void* pb,
+           void* out, int N, int C, int H, int W, int co, int f, int leaky, void* stream) {
   if (N < 1 || N > 65535 || C < 1 || H < 2 || W < 2 || f < 1 || H % f || W % f ||
       static_cast<long long>(H) * W > 0x7fffffff)  // offsets in a plane are ints
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (co) {
-    case 1: return launch_co<T, 1>(h, s, w, b, out, N, C, H, W, f, leaky, st);
-    case 2: return launch_co<T, 2>(h, s, w, b, out, N, C, H, W, f, leaky, st);
-    case 3: return launch_co<T, 3>(h, s, w, b, out, N, C, H, W, f, leaky, st);
-    case 4: return launch_co<T, 4>(h, s, w, b, out, N, C, H, W, f, leaky, st);
+    case 1: return launch_co<T, 1>(h, s, w, b, pb, out, N, C, H, W, f, leaky, st);
+    case 2: return launch_co<T, 2>(h, s, w, b, pb, out, N, C, H, W, f, leaky, st);
+    case 3: return launch_co<T, 3>(h, s, w, b, pb, out, N, C, H, W, f, leaky, st);
+    case 4: return launch_co<T, 4>(h, s, w, b, pb, out, N, C, H, W, f, leaky, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -434,17 +455,19 @@ struct MmaCfg {
   static_assert(sizeof(bf16) * kRaw % 128 == 0 && kStageBytes % 16 == 0, "TMA and 16-byte alignment");
 };
 
-// act(h + s) of two bf16 pairs, with act_sum's roundings: a bf16 add rounds
-// the exact sum once, as rounding the f32 sum of two bf16 does; LeakyReLU
-// is max(a, round(0.1 a)) with 0.1 a taken in f32, which is a for a >= 0
-// and round(0.1 a) below; ReLU is max(a, 0)
+// act(h + s + pb) of two bf16 pairs of one channel, with act_sum's
+// roundings: (h + s) + pb in f32, rounded once to bf16; LeakyReLU is
+// max(a, round(0.1 a)) with 0.1 a taken in f32, which is a for a >= 0 and
+// round(0.1 a) below; ReLU is max(a, 0)
 template <bool LEAKY>
-__device__ __forceinline__ unsigned act_sum2(unsigned h, unsigned s) {
-  const __nv_bfloat162 a = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&h),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&s));
+__device__ __forceinline__ unsigned act_sum2(unsigned h, unsigned s, float pb) {
+  const unsigned aw = fmi_mma::pack_bf16(
+      __fadd_rn(__fadd_rn(__uint_as_float(h << 16), __uint_as_float(s << 16)), pb),
+      __fadd_rn(__fadd_rn(__uint_as_float(h & 0xffff0000u), __uint_as_float(s & 0xffff0000u)),
+                pb));
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&aw);
   __nv_bfloat162 r;
   if constexpr (LEAKY) {
-    const unsigned aw = *reinterpret_cast<const unsigned*>(&a);
     const unsigned rw = fmi_mma::pack_bf16(__uint_as_float(aw << 16) * 0.1f,
                                            __uint_as_float(aw & 0xffff0000u) * 0.1f);
     r = *reinterpret_cast<const __nv_bfloat162*>(&rw);
@@ -465,15 +488,20 @@ __device__ __forceinline__ unsigned word(const uint4& v, int i) {
 // the staged tile [SH][SW][SP], channel-innermost, its halo reflected (row
 // -1 reads row 1, row H row H - 2, column -1 column 1, column W column
 // W - 2, all of which the raw unit holds); with half 0, also the chunk's
-// weights into ws [9][16][8].
+// weights into ws [9][16][8]; pb [C] f32 (or null) is added to each
+// channel's sum.
 template <int TH, bool LEAKY>
 __device__ __forceinline__ void stage_unit(const bf16* rh, const bf16* rs, bf16* stage, bf16* ws,
-                                           const bf16* __restrict__ wp, int half, int c0,
-                                           int c_pad, int H, int W, int y0, int x0) {
+                                           const bf16* __restrict__ wp,
+                                           const float* __restrict__ pb, int half, int c0,
+                                           int C, int c_pad, int H, int W, int y0, int x0) {
   using Cfg = MmaCfg<TH>;
   constexpr int SH = Cfg::SH, SW = Cfg::SW, SP = Cfg::SP, CK = Cfg::CK, TW = Cfg::TW;
   constexpr int kRunSlots = 32 * ((SH + 3) / 4);  // (4-row group, 8-pixel run) slots
   const int tid = threadIdx.x;
+  float b[8];  // the unit's channels' pair bias
+#pragma unroll
+  for (int k = 0; k < 8; ++k) b[k] = pair_bias(pb, c0 + 8 * half + k, C);
   // the raw row that staged row r reads
   auto raw_row = [&](int r) {
     const int y = y0 - 1 + r;
@@ -507,7 +535,8 @@ __device__ __forceinline__ void stage_unit(const bf16* rh, const bf16* rs, bf16*
 #pragma unroll
     for (int k = 0; k < 8; ++k)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[k][i] = act_sum2<LEAKY>(word(hv[k], i), word(sv[k], i));
+      for (int i = 0; i < 4; ++i)
+        a[k][i] = act_sum2<LEAKY>(word(hv[k], i), word(sv[k], i), b[k]);
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
       const unsigned sel = p & 1 ? 0x7632u : 0x5410u;  // the pixel's half of each word
@@ -528,7 +557,8 @@ __device__ __forceinline__ void stage_unit(const bf16* rh, const bf16* rs, bf16*
     float v[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      v[k] = act_sum<bf16>(rh[(k * SH + rr) * kRawW + rc], rs[(k * SH + rr) * kRawW + rc], LEAKY);
+      v[k] = act_sum<bf16>(rh[(k * SH + rr) * kRawW + rc], rs[(k * SH + rr) * kRawW + rc], b[k],
+                           LEAKY);
     *reinterpret_cast<uint4*>(stage + (r * SW + (side ? SW - 1 : 0)) * SP + half * 8) =
         make_uint4(fmi_mma::pack_bf16(v[0], v[1]), fmi_mma::pack_bf16(v[2], v[3]),
                    fmi_mma::pack_bf16(v[4], v[5]), fmi_mma::pack_bf16(v[6], v[7]));
@@ -543,8 +573,8 @@ __device__ __forceinline__ void stage_unit(const bf16* rh, const bf16* rs, bf16*
 
 // h, s: 4-d tensor maps of [N, C, H, W] bf16 (W % 8 == 0) with [1][8][SH][80]
 // boxes, zeros outside; wp [9][c_pad][8] bf16 (tap ky * 3 + kx, input
-// channel, output channel; zero past C and co); bias [co] f32; out [N, co,
-// H/f, W/f] bf16; f a power of two, f <= TH. A persistent grid: block b takes
+// channel, output channel; zero past C and co); bias [co] f32; pb [C] f32
+// added to each channel's h + s, or null; out [N, co, H/f, W/f] bf16; f a power of two, f <= TH. A persistent grid: block b takes
 // tiles b, b + gridDim.x, ...; each tile's channels arrive as raw units of 8,
 // NBUF in flight, each refilled by TMA as soon as it has been staged, so the
 // loads run under the staging, the products and the epilogue.
@@ -552,8 +582,9 @@ template <int TH_, bool LEAKY>
 __global__ void __launch_bounds__(kThreads, TH_ == 16 ? 2 : 1)
 output_head_mma_kernel(const __grid_constant__ CUtensorMap hmap,
                        const __grid_constant__ CUtensorMap smap, const bf16* __restrict__ wp,
-                       const float* __restrict__ bias, bf16* __restrict__ out, int N, int c_pad,
-                       int H, int W, int co, int f) {
+                       const float* __restrict__ bias, const float* __restrict__ pb,
+                       bf16* __restrict__ out, int N, int C, int c_pad, int H, int W, int co,
+                       int f) {
   using namespace fmi_mma;
   using namespace fmi_wgmma;
   using Cfg = MmaCfg<TH_>;
@@ -606,8 +637,8 @@ output_head_mma_kernel(const __grid_constant__ CUtensorMap hmap,
         for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
     const int b = i % NBUF;
     mbar_wait(&full[b], (i / NBUF) & 1);
-    stage_unit<TH, LEAKY>(raw + 2 * b * kRaw, raw + (2 * b + 1) * kRaw, stage, ws, wp, half,
-                          chunk * CK, c_pad, H, W, y0, x0);
+    stage_unit<TH, LEAKY>(raw + 2 * b * kRaw, raw + (2 * b + 1) * kRaw, stage, ws, wp, pb, half,
+                          chunk * CK, C, c_pad, H, W, y0, x0);
     __syncthreads();  // the raw unit is staged: refill it
     if (tid == 0 && i + NBUF < units) {
       fence_proxy_async();
@@ -697,8 +728,9 @@ bool head_map(CUtensorMap* map, const void* base, int N, int C, int H, int W, in
 }
 
 template <int TH, bool LEAKY>
-int launch_mma(const void* h, const void* s, const void* wp, const void* b, void* out, int N,
-               int C, int c_pad, int H, int W, int co, int f, cudaStream_t stream) {
+int launch_mma(const void* h, const void* s, const void* wp, const void* b, const void* pb,
+               void* out, int N, int C, int c_pad, int H, int W, int co, int f,
+               cudaStream_t stream) {
   using Cfg = MmaCfg<TH>;
   CUtensorMap hmap, smap;
   if (!head_map(&hmap, h, N, C, H, W, Cfg::SH) || !head_map(&smap, s, N, C, H, W, Cfg::SH))
@@ -722,25 +754,26 @@ int launch_mma(const void* h, const void* s, const void* wp, const void* b, void
   const int grid = static_cast<int>(tiles < slots ? tiles : slots);
   output_head_mma_kernel<TH, LEAKY><<<grid, kThreads, Cfg::kSmem, stream>>>(
       hmap, smap, static_cast<const bf16*>(wp), static_cast<const float*>(b),
-      static_cast<bf16*>(out), N, c_pad, H, W, co, f);
+      static_cast<const float*>(pb), static_cast<bf16*>(out), N, C, c_pad, H, W, co, f);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // h, s [N, C, H, W] and out [N, co, H/f, W/f] contiguous, all of one type;
-// w [C, 9, 4] f32 (tap-major, co padded to 4), b [co] f32; leaky != 0 picks
-// LeakyReLU(0.1), else ReLU. Returns a cudaError_t code; 0 means launched.
+// w [C, 9, 4] f32 (tap-major, co padded to 4), b [co] f32; pb [C] f32 added
+// to h + s, or null; leaky != 0 picks LeakyReLU(0.1), else ReLU. Returns a
+// cudaError_t code; 0 means launched.
 extern "C" int fmi_output_head_f32(const void* h, const void* s, const void* w,
-                                   const void* b, void* out, int N, int C, int H, int W,
-                                   int co, int f, int leaky, void* stream) {
-  return launch<float>(h, s, w, b, out, N, C, H, W, co, f, leaky, stream);
+                                   const void* b, const void* pb, void* out, int N, int C,
+                                   int H, int W, int co, int f, int leaky, void* stream) {
+  return launch<float>(h, s, w, b, pb, out, N, C, H, W, co, f, leaky, stream);
 }
 
 extern "C" int fmi_output_head_bf16(const void* h, const void* s, const void* w,
-                                    const void* b, void* out, int N, int C, int H, int W,
-                                    int co, int f, int leaky, void* stream) {
-  return launch<__nv_bfloat16>(h, s, w, b, out, N, C, H, W, co, f, leaky, stream);
+                                    const void* b, const void* pb, void* out, int N, int C,
+                                    int H, int W, int co, int f, int leaky, void* stream) {
+  return launch<__nv_bfloat16>(h, s, w, b, pb, out, N, C, H, W, co, f, leaky, stream);
 }
 
 // Which kernel takes a call: 1 the tensor-core kernel ("mma_sync": bf16,
@@ -750,12 +783,13 @@ extern "C" int fmi_output_head_route(int is_bf16, const void* h, const void* s, 
   return is_bf16 && W % 8 == 0 && aligned16(h) && aligned16(s) && pow2_upto32(f) ? 1 : 0;
 }
 
-// The "mma_sync" route: as fmi_output_head_bf16, but w is bf16 [9][c_pad][8]
+// The "mma_sync" route: as fmi_output_head_bf16 (pb too), but w is bf16 [9][c_pad][8]
 // (tap ky * 3 + kx, input channel, output channel; zero past C and co;
 // c_pad = C rounded up to 16) and 16-byte aligned.
 extern "C" int fmi_output_head_bf16_mma(const void* h, const void* s, const void* w,
-                                        const void* b, void* out, int N, int C, int c_pad, int H,
-                                        int W, int co, int f, int leaky, void* stream) {
+                                        const void* b, const void* pb, void* out, int N, int C,
+                                        int c_pad, int H, int W, int co, int f, int leaky,
+                                        void* stream) {
   if (N < 1 || N > 65535 || C < 1 || c_pad % kMmaCK || c_pad < C || c_pad >= C + kMmaCK ||
       H < 2 || co < 1 || co > kCoMax || H % f || W % f ||
       !fmi_output_head_route(1, h, s, W, f) || !aligned16(w) ||
@@ -763,8 +797,8 @@ extern "C" int fmi_output_head_bf16_mma(const void* h, const void* s, const void
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f == 32)
-    return leaky ? launch_mma<32, true>(h, s, w, b, out, N, C, c_pad, H, W, co, f, st)
-                 : launch_mma<32, false>(h, s, w, b, out, N, C, c_pad, H, W, co, f, st);
-  return leaky ? launch_mma<16, true>(h, s, w, b, out, N, C, c_pad, H, W, co, f, st)
-               : launch_mma<16, false>(h, s, w, b, out, N, C, c_pad, H, W, co, f, st);
+    return leaky ? launch_mma<32, true>(h, s, w, b, pb, out, N, C, c_pad, H, W, co, f, st)
+                 : launch_mma<32, false>(h, s, w, b, pb, out, N, C, c_pad, H, W, co, f, st);
+  return leaky ? launch_mma<16, true>(h, s, w, b, pb, out, N, C, c_pad, H, W, co, f, st)
+               : launch_mma<16, false>(h, s, w, b, pb, out, N, C, c_pad, H, W, co, f, st);
 }

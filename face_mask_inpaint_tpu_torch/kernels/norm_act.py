@@ -7,6 +7,12 @@ Replaces face_mask_inpaint_tpu/ops/pallas/norm_act.py ``instance_norm_act``
     at 0, a = rsqrt(var + eps) * weight; y = act(a * (x - mean) + bias),
     act in LeakyReLU(slope) | ReLU | none, rounded once to x's dtype
 
+with an optional input bias ``in_bias`` [C] added to x in f32 as it is
+loaded (x + in_bias[c] in place of x above): the bias of the conv that
+wrote x, which ``ResBlockDecoder`` leaves to this kernel in eval mode rather
+than have cuDNN's convolution add it in a pass of its own. The kernel's
+bytes do not change.
+
 The CUDA source says what bounds the kernel on the card and what its design
 does about that. ``_plan`` chooses its route by the plane's size:
 "cluster" (one launch a call; each plane read once into the shared memory of
@@ -107,10 +113,14 @@ def _act(y: torch.Tensor, act: str, slope: float) -> torch.Tensor:
 
 def instance_norm_act_plain(x: torch.Tensor, weight: Optional[torch.Tensor],
                             bias: Optional[torch.Tensor], act: str = "LeakyReLU",
-                            slope: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
+                            slope: float = 0.1, eps: float = 1e-5,
+                            in_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version over NCHW: f32 stats (f64 for an f64 input),
-    E[x^2] - mu^2 clamped at 0."""
+    E[x^2] - mu^2 clamped at 0; ``in_bias`` [C] added to x in that precision
+    first."""
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    if in_bias is not None:
+        x32 = x32 + in_bias.to(x32.dtype)[None, :, None, None]
     mean = x32.mean(dim=(2, 3), keepdim=True)
     sq = x32.square().mean(dim=(2, 3), keepdim=True)
     var = torch.clamp_min(sq - mean.square(), 0.0)
@@ -124,13 +134,13 @@ def instance_norm_act_plain(x: torch.Tensor, weight: Optional[torch.Tensor],
 @functools.lru_cache(maxsize=None)
 def _function(dtype: torch.dtype):
     fn = getattr(build.load("norm_act"), _SYMBOLS[dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(x, weight, bias, act) -> None:
+def _check(x, weight, bias, act, in_bias) -> None:
     norm_act_route(x.shape, x.dtype)
     if not x.is_contiguous():
         raise ValueError("instance_norm_act takes a contiguous NCHW tensor")
@@ -138,32 +148,35 @@ def _check(x, weight, bias, act) -> None:
         raise NotImplementedError(act)
     if (weight is None) != (bias is None):
         raise ValueError("give both weight and bias, or neither")
-    for p in (weight, bias):
+    for p in (weight, bias, in_bias):
         if p is not None and (p.shape != (x.shape[1],) or p.device != x.device):
-            raise ValueError("weight/bias must be [C] on the input's device")
+            raise ValueError("weight/bias/in_bias must be [C] on the input's device")
 
 
-def _forward(x, weight, bias, act, slope, eps) -> torch.Tensor:
+def _forward(x, weight, bias, act, slope, eps, in_bias) -> torch.Tensor:
     """K2 for CUDA tensors, the plain version for CPU tensors (no autograd)."""
     if x.device.type == "cpu":
-        return instance_norm_act_plain(x, weight, bias, act, slope, eps)
+        return instance_norm_act_plain(x, weight, bias, act, slope, eps, in_bias)
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm_act runs on cpu or cuda, not {x.device}")
-    _check(x, weight, bias, act)
+    _check(x, weight, bias, act, in_bias)
     n, c, h, w = x.shape
     plan = _plan(h * w, x.element_size())
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    w32 = b32 = parts = None
+    w32 = b32 = ib32 = parts = None
     with torch.cuda.device(x.device):
         if weight is not None:
             w32, b32 = weight.float().contiguous(), bias.float().contiguous()
+        if in_bias is not None:
+            ib32 = in_bias.float().contiguous()
         if plan.route == "two_pass":
             parts = torch.empty((n * c, plan.cluster, 2), dtype=torch.float32, device=x.device)
         rc = _function(x.dtype)(
             x.data_ptr(), None if w32 is None else w32.data_ptr(),
-            None if b32 is None else b32.data_ptr(), y.data_ptr(),
+            None if b32 is None else b32.data_ptr(), None if ib32 is None else ib32.data_ptr(),
+            y.data_ptr(),
             None if parts is None else parts.data_ptr(), n * c, c, h * w, _ROUTES[plan.route],
             plan.cluster, plan.planes_per_block, plan.slice, ACTS.index(act), float(slope),
             float(eps), torch.cuda.current_stream().cuda_stream)
@@ -178,36 +191,38 @@ class _InstanceNormAct(torch.autograd.Function):
     from the saved input (JAX ``_ina_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, act, slope, eps):
-        ctx.save_for_backward(x, weight, bias)
+    def forward(ctx, x, weight, bias, in_bias, act, slope, eps):
+        ctx.save_for_backward(x, weight, bias, in_bias)
         ctx.config = (act, slope, eps)
-        return _forward(x, weight, bias, act, slope, eps)
+        return _forward(x, weight, bias, act, slope, eps, in_bias)
 
     @staticmethod
     def backward(ctx, dy):
         inputs = [t.detach().requires_grad_() if need else t
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         with torch.enable_grad():
-            y = instance_norm_act_plain(*inputs, *ctx.config)
+            y = instance_norm_act_plain(*inputs[:3], *ctx.config, in_bias=inputs[3])
             grads = iter(torch.autograd.grad(
                 y, [t for t, need in zip(inputs, ctx.needs_input_grad) if need], dy))
         return (*(next(grads) if need else None
-                  for need in ctx.needs_input_grad[:3]), None, None, None)
+                  for need in ctx.needs_input_grad[:4]), None, None, None)
 
 
 def instance_norm_act(x: torch.Tensor, weight: Optional[torch.Tensor],
                       bias: Optional[torch.Tensor], act: str = "LeakyReLU",
-                      slope: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
+                      slope: float = 0.1, eps: float = 1e-5,
+                      in_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused instance norm (+ optional affine) + activation over NCHW.
 
-    x: [N, C, H, W] float32 or bfloat16; weight/bias: [C] or None. CPU
-    tensors take the plain version; CUDA tensors launch K2 on the route
-    ``norm_act_route`` names. Differentiable in x, weight and bias.
+    x: [N, C, H, W] float32 or bfloat16; weight/bias: [C] or None; in_bias:
+    [C] added to x in f32 first, or None. CPU tensors take the plain
+    version; CUDA tensors launch K2 on the route ``norm_act_route`` names.
+    Differentiable in x, weight, bias and in_bias.
     """
     if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, weight, bias)):
-        return _InstanceNormAct.apply(x, weight, bias, act, slope, eps)
-    return _forward(x, weight, bias, act, slope, eps)
+            t is not None and t.requires_grad for t in (x, weight, bias, in_bias)):
+        return _InstanceNormAct.apply(x, weight, bias, in_bias, act, slope, eps)
+    return _forward(x, weight, bias, act, slope, eps, in_bias)
 
 
 instance_norm_act.launches = 0

@@ -8,7 +8,10 @@ pool that its caller adds (nn/blocks.py ``Output`` on the decoder's pair):
 
 for the last decoder block's pre-add pair h, s [N, C, H, W]. The sum and the
 activation are rounded to the input dtype, as the TPU kernel adds and
-activates in the stream dtype (packed_convt.py:592-606); the conv accumulates
+activates in the stream dtype (packed_convt.py:592-606). ``pair_bias`` [C],
+the block's two transposed convs' biases summed (which ``ResBlockDecoder``
+leaves to this kernel in eval mode), joins the sum: (h + s) + pair_bias in
+f32, rounded once to the input dtype. The conv accumulates
 in f32, bias, tanh and the mean stay in f32, and the result is rounded once
 (packed_convt.py:634-655). The weight is rounded to the input dtype first, as
 the TPU kernel casts its packed weight to the stream dtype. The CUDA source
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,7 +51,7 @@ _MMA_POOLS = (1, 2, 4, 8, 16, 32)  # f a power of two up to 32: a tile holds who
 
 
 def _check(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-           act: str, pool: int) -> None:
+           act: str, pool: int, pair_bias: Optional[torch.Tensor]) -> None:
     if h.dim() != 4 or h.shape != s.shape:
         raise ValueError(f"h and s must be one [N, C, H, W] shape, got {tuple(h.shape)} "
                          f"and {tuple(s.shape)}")
@@ -62,6 +66,8 @@ def _check(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor, bias: torch.T
                          f"got {weight.shape[0]}")
     if bias.shape != (weight.shape[0],):
         raise ValueError(f"bias must be [{weight.shape[0]}], got {tuple(bias.shape)}")
+    if pair_bias is not None and pair_bias.shape != (c,):
+        raise ValueError(f"pair_bias must be [{c}], got {tuple(pair_bias.shape)}")
     if act not in ACTS:
         raise NotImplementedError(f"output_head activation {act!r}: one of {ACTS}")
     if not isinstance(pool, int) or pool < 1:
@@ -73,11 +79,16 @@ def _check(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor, bias: torch.T
 
 
 def output_head_plain(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor,
-                      bias: torch.Tensor, act: str = "LeakyReLU", pool: int = 1) -> torch.Tensor:
-    """Plain PyTorch version: act(h + s) -> reflect pad -> conv -> tanh ->
-    avg_pool2d(pool), rounding where the kernel rounds."""
-    _check(h, s, weight, bias, act, pool)
-    a = h + s
+                      bias: torch.Tensor, act: str = "LeakyReLU", pool: int = 1,
+                      pair_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version: act(h + s [+ pair_bias]) -> reflect pad ->
+    conv -> tanh -> avg_pool2d(pool), rounding where the kernel rounds."""
+    _check(h, s, weight, bias, act, pool, pair_bias)
+    if pair_bias is None:
+        a = h + s
+    else:
+        acc = torch.promote_types(h.dtype, torch.float32)
+        a = ((h.to(acc) + s.to(acc)) + pair_bias.to(acc)[None, :, None, None]).to(h.dtype)
     a = F.leaky_relu(a, _SLOPE) if act == "LeakyReLU" else F.relu(a)
     a = F.pad(a, (1, 1, 1, 1), mode="reflect").float()
     y = F.conv2d(a, weight.to(h.dtype).float(), bias.float())
@@ -105,7 +116,7 @@ def output_head_route(shape, dtype: torch.dtype, pool: int, aligned: bool = True
 @functools.lru_cache(maxsize=None)
 def _function(symbol: str, n_ints: int):
     fn = getattr(build.load("output_head"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -119,22 +130,25 @@ def _weights_mma(weight: torch.Tensor, c_pad: int) -> torch.Tensor:
 
 
 def output_head(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor,
-                bias: torch.Tensor, act: str = "LeakyReLU", pool: int = 1) -> torch.Tensor:
-    """avg_pool(tanh(conv3x3(reflect_pad(act(h + s))))) -> [N, co, H/pool, W/pool].
+                bias: torch.Tensor, act: str = "LeakyReLU", pool: int = 1,
+                pair_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """avg_pool(tanh(conv3x3(reflect_pad(act(h + s [+ pair_bias])))))
+    -> [N, co, H/pool, W/pool].
 
     h, s: [N, C, H, W] contiguous, float32 or bfloat16; weight [co, C, 3, 3]
     (the effective, spectral-normed weight) and bias [co] in any float
-    dtype. CPU tensors take the plain version; CUDA tensors launch K3.
+    dtype; pair_bias [C] or None. CPU tensors take the plain version; CUDA
+    tensors launch K3.
     """
     if h.device.type == "cpu":
-        return output_head_plain(h, s, weight, bias, act, pool)
+        return output_head_plain(h, s, weight, bias, act, pool, pair_bias)
     if h.device.type != "cuda":
         raise ValueError(f"output_head runs on cpu or cuda, not {h.device}")
-    _check(h, s, weight, bias, act, pool)
-    _no_grad_needed("output_head", (h, s, weight, bias))
-    for t in (s, weight, bias):
-        if t.device != h.device:
-            raise ValueError("h, s, weight and bias must lie on one device")
+    _check(h, s, weight, bias, act, pool, pair_bias)
+    _no_grad_needed("output_head", (h, s, weight, bias, pair_bias))
+    for t in (s, weight, bias, pair_bias):
+        if t is not None and t.device != h.device:
+            raise ValueError("h, s, weight, bias and pair_bias must lie on one device")
     if not (h.is_contiguous() and s.is_contiguous()):
         raise ValueError("output_head takes contiguous NCHW tensors")
     n, c, height, width = h.shape
@@ -145,12 +159,14 @@ def output_head(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor,
     leaky = int(act == "LeakyReLU")
     with torch.cuda.device(h.device):
         b = bias.float().contiguous()
+        pb = None if pair_bias is None else pair_bias.float().contiguous()
+        pb_ptr = None if pb is None else pb.data_ptr()
         stream = torch.cuda.current_stream().cuda_stream
         if route == "mma_sync":
             c_pad = -(-c // _CK) * _CK
             w = _weights_mma(weight, c_pad)
             rc = _function("fmi_output_head_bf16_mma", 8)(
-                h.data_ptr(), s.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                h.data_ptr(), s.data_ptr(), w.data_ptr(), b.data_ptr(), pb_ptr, out.data_ptr(),
                 n, c, c_pad, height, width, co, pool, leaky, stream)
         else:
             # [C, 9, 4] f32, tap-major, co padded to four: the weight rounded
@@ -158,7 +174,7 @@ def output_head(h: torch.Tensor, s: torch.Tensor, weight: torch.Tensor,
             w = torch.zeros((c, 9, _CO_MAX), dtype=torch.float32, device=h.device)
             w[:, :, :co] = weight.to(h.dtype).float().permute(1, 2, 3, 0).reshape(c, 9, co)
             rc = _function(_SYMBOLS[h.dtype], 7)(
-                h.data_ptr(), s.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                h.data_ptr(), s.data_ptr(), w.data_ptr(), b.data_ptr(), pb_ptr, out.data_ptr(),
                 n, c, height, width, co, pool, leaky, stream)
     if rc != 0:
         raise RuntimeError(f"output_head launch failed: cudaError {rc}")

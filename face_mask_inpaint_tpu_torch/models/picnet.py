@@ -169,7 +169,8 @@ class ResGenerator(nn.Module):
         attention's resolution (decoder 1's output), feed its ``pre`` branch.
         fuse_pool: an integer factor of the caller's average pool. In eval
         mode the last decoder then hands the Output head its (h, bypass)
-        pair, and the head returns the pooled image through kernel K3 (JAX
+        pair with the pair's conv biases, and the head returns the pooled
+        image through kernel K3 (JAX
         picnet.py:243-262, without the packing conditions). When the last
         decoder runs its fused tail instead, it hands the head one
         pre-activated map, as in JAX; the head then works at full size and

@@ -19,6 +19,14 @@ their outputs equal the dense math computed here: the space-to-depth packing
 of the decoder tail and the conv->avg-pool fold (``fuse_avgpool2``: conv then
 ``avg_pool2d`` here).
 
+In eval mode the dense decoder block adds no conv bias in a pass of its own
+(cuDNN would run each biased conv as the conv and then a broadcast add over
+its output): conv1's bias goes to norm2's kernel K2 as its ``in_bias``,
+where norm2 runs as K2; conv2's and the bypass's go to the residual sum's
+kernel (kernels/residual_add.py), or, with ``return_pair``, to K3 as its
+``pair_bias``. Training mode keeps the biased convs and the differentiable
+``h + s``.
+
 CoordConv (``use_coord``) appends coordinate channels to a conv's input.
 Under it the fused forms are off (K3's pair head, the fused tail), as the
 JAX blocks turn theirs off, and the dense forms run.
@@ -33,6 +41,7 @@ from torch import nn
 
 from face_mask_inpaint_tpu_torch.kernels import decoder_conv as dc
 from face_mask_inpaint_tpu_torch.kernels import output_head as oh
+from face_mask_inpaint_tpu_torch.kernels import residual_add as ra
 from face_mask_inpaint_tpu_torch.nn.layers import (
     Activation, Conv2d, ConvTranspose2d, InstanceNorm2d, make_norm)
 from face_mask_inpaint_tpu_torch.ops.attention import attention_apply
@@ -200,8 +209,10 @@ class ResBlockDecoder(nn.Module):
 
     def forward(self, x: torch.Tensor, return_pair: bool = False, fused: bool = False,
                 in_stats=None, want_stats: bool = False, fuse_act: Optional[str] = None):
-        """Returns h + bypass(x), or with ``return_pair`` the pair (h,
-        bypass(x)) before the add, for the Output head's kernel.
+        """Returns h + bypass(x), or, in eval mode with ``return_pair``, the
+        triple (h, bypass(x), pair bias) before the add, for the Output
+        head's kernel: both convs' biases left out of h and bypass(x) and
+        summed in f32 (f64 for f64 biases) as the pair bias.
 
         ``fused`` runs the block as kernels K4b and K4a (JAX
         ``_fused_tail``): ``in_stats`` are the f32 per-(n, c) (sum x,
@@ -210,10 +221,29 @@ class ResBlockDecoder(nn.Module):
         ``fuse_act`` applies that activation to the output."""
         if fused:
             return self._fused_tail(x, in_stats, want_stats, fuse_act)
+        if not self.training:
+            return self._biases_to_kernels(x, return_pair)
+        assert not return_pair, "the Output head takes the decoder's pair in eval mode only"
         h = self.conv1(_norm_act(x, self.norm1, self.act))
         h = self.conv2(_norm_act(h, self.norm2, self.act))
-        s = self.bypass(x)
-        return (h, s) if return_pair else h + s
+        return h + self.bypass(x)
+
+    def _biases_to_kernels(self, x, return_pair):
+        """The dense block in eval mode, each conv's bias added by the kernel
+        that next reads the conv's output: conv1's by K2 (norm2), where
+        norm2 runs as K2; conv2's and the bypass's by the residual sum's
+        kernel, or, with ``return_pair``, by K3."""
+        in_bias = isinstance(self.norm2, InstanceNorm2d) and self.norm2.fuses_in_bias()
+        h = self.conv1(_norm_act(x, self.norm1, self.act), with_bias=not in_bias)
+        h = (self.norm2(h, in_bias=self.conv1.bias) if in_bias
+             else _norm_act(h, self.norm2, self.act))
+        h = self.conv2(h, with_bias=False)
+        s = self.bypass(x, with_bias=False)
+        acc = torch.promote_types(self.conv2.bias.dtype, torch.float32)
+        pair_bias = self.conv2.bias.to(acc) + self.bypass.bias.to(acc)
+        if return_pair:
+            return h, s, pair_bias
+        return ra.residual_bias_add(h, s, pair_bias)
 
     def _fused_tail(self, x, in_stats, want_stats, fuse_act):
         assert self.fused_ok(), "the fused tail needs instance norm or none and a (Leaky)ReLU"
@@ -278,19 +308,20 @@ class Output(nn.Module):
 
     def forward(self, x, pool: Optional[int] = None,
                 pre_activated: bool = False) -> torch.Tensor:
-        """x: a map [N, C, H, W] -> [N, co, H, W]; or the decoder's pair
-        (h, s) with an integer ``pool``, which runs act(h + s) -> conv ->
-        tanh -> pool as kernel K3 -> [N, co, H/pool, W/pool].
+        """x: a map [N, C, H, W] -> [N, co, H, W]; or the decoder's triple
+        (h, s, pair bias [C]) with an integer ``pool``, which runs
+        act(h + s + pair bias) -> conv -> tanh -> pool as kernel K3 ->
+        [N, co, H/pool, W/pool].
         ``pre_activated``: the decoder's fused tail already applied this
         head's leading activation (norm 'none' only)."""
         if isinstance(x, (tuple, list)):
             assert self.pair_ok() and isinstance(pool, int), \
                 "the pair head needs norm 'none', a 3x3 conv without CoordConv, " \
                 "a (Leaky)ReLU and an integer pool"
-            h, s = x
+            h, s, pair_bias = x
             conv = self.conv1.conv
             return oh.output_head(h.contiguous(), s.contiguous(), conv.effective_weight(),
-                                  conv.bias, self.activation, pool)
+                                  conv.bias, self.activation, pool, pair_bias)
         if pre_activated:
             assert self.norm1 is None, "a pre-activated input needs norm 'none'"
         else:

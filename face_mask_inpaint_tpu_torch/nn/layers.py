@@ -168,8 +168,10 @@ class Conv2d(nn.Module, _SpectralMixin):
     def effective_weight(self) -> torch.Tensor:
         return self._spectral_normalize(self.weight) if self.use_spect else self.weight
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = self.bias.to(x.dtype) if self.bias is not None else None
+    def forward(self, x: torch.Tensor, with_bias: bool = True) -> torch.Tensor:
+        """``with_bias=False`` leaves the bias to the caller, which hands it
+        to the kernel that next reads the output."""
+        b = self.bias.to(x.dtype) if with_bias and self.bias is not None else None
         return conv2d(x, self.effective_weight().to(x.dtype), b, self.stride,
                       self.padding, self.dilation, self.groups)
 
@@ -205,8 +207,9 @@ class ConvTranspose2d(nn.Module, _SpectralMixin):
     def effective_weight(self) -> torch.Tensor:
         return self._spectral_normalize(self.weight) if self.use_spect else self.weight
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = self.bias.to(x.dtype) if self.bias is not None else None
+    def forward(self, x: torch.Tensor, with_bias: bool = True) -> torch.Tensor:
+        """``with_bias=False`` leaves the bias to the caller, as Conv2d's."""
+        b = self.bias.to(x.dtype) if with_bias and self.bias is not None else None
         return conv_transpose2d(x, self.effective_weight().to(x.dtype), b, self.stride,
                                 self.padding, self.output_padding)
 
@@ -297,6 +300,8 @@ class InstanceNorm2d(nn.Module):
     ``fuse_act`` ('LeakyReLU' | 'ReLU') fuses the following activation: the
     normalization then runs as kernel K2 (kernels/norm_act.py), the port of
     the JAX package's ``norm_act.set_impl("pallas")`` configuration.
+    ``forward``'s ``in_bias`` [C] is added to x first, in f32: the bias of
+    the conv that wrote x, when that conv left it out (``fuses_in_bias``).
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, affine: bool = True,
@@ -316,11 +321,17 @@ class InstanceNorm2d(nn.Module):
                 self.weight.fill_(1.0)
                 self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fuse_act is not None and self.affine:
+    def fuses_in_bias(self) -> bool:
+        """Whether the norm runs as K2, which takes ``in_bias`` as it loads x."""
+        return self.fuse_act is not None and self.affine
+
+    def forward(self, x: torch.Tensor, in_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.fuses_in_bias():
             return na.instance_norm_act(x.contiguous(), self.weight, self.bias,
-                                        self.fuse_act, self.act_slope, self.eps)
-        y = na.instance_norm_act_plain(x, self.weight, self.bias, "none", 0.0, self.eps)
+                                        self.fuse_act, self.act_slope, self.eps,
+                                        in_bias=in_bias)
+        y = na.instance_norm_act_plain(x, self.weight, self.bias, "none", 0.0, self.eps,
+                                       in_bias=in_bias)
         if self.fuse_act == "LeakyReLU":
             return F.leaky_relu(y, self.act_slope)
         if self.fuse_act == "ReLU":

@@ -14,7 +14,8 @@ output. Each computes a wrong result, so its time says what that part
 costs, not what a kernel could do; the committed source is checked against
 ``output_head_plain`` at the bf16 gate. Every variant is timed with CUDA
 events through its C entry point (without the wrapper's weight packing) at
-the flagship head ([16, 32, 1024, 1024], co = 3, f = 4, bf16), twice, in
+the flagship head ([16, 32, 1024, 1024], co = 3, f = 4, bf16, with the
+pair bias the decoder hands it), twice, in
 turns (a, b, ..., b, a), beside the wrapper's own call and the CUDA-core
 kernel's entry point on the same inputs. Prints one line with the bytes and
 bound, and the card's name and power limit. Exits non-zero without CUDA.
@@ -33,8 +34,8 @@ from face_mask_inpaint_tpu_torch.tools import tensor_core_variants as tcv
 
 _MMA = ("              mma_bf16(acc[(R - ky) * CB + cb], a, bw[ky * 3 + kx][0], "
         "bw[ky * 3 + kx][1]);")
-_ACT = ("      for (int i = 0; i < 4; ++i) a[k][i] = act_sum2<LEAKY>(word(hv[k], i), "
-        "word(sv[k], i));")
+_ACT = """      for (int i = 0; i < 4; ++i)
+        a[k][i] = act_sum2<LEAKY>(word(hv[k], i), word(sv[k], i), b[k]);"""
 _STAGE = "      *reinterpret_cast<uint4*>(stage + (r * SW + 1 + 8 * j + p) * SP + half * 8) ="
 _TMA = """    mbar_expect_tx(&full[b], 2 * kRaw * static_cast<unsigned>(sizeof(bf16)));
     tma_load_4d(raw + 2 * b * kRaw, &hmap, &full[b], x0 - 8, y0 - 1, c, n);
@@ -43,7 +44,8 @@ _TANH = "          ot[(ch * TH + row) * TW + col] = tanhf(acc[mt][e] + bias[ch])
 _STORE = """      out[((static_cast<size_t>(n) * co + o) * hc + cy0 + cy) * wc + cx0 + cx] =
           __float2bfloat16(sum * inv);"""
 _CHUNKS = "  const int tiles = tiles_x * tiles_y * N, chunks = c_pad / CK;"
-_STAGING = "    stage_unit<TH, LEAKY>(raw + 2 * b * kRaw, raw + (2 * b + 1) * kRaw, stage, ws, wp, half,"
+_STAGING = ("    stage_unit<TH, LEAKY>(raw + 2 * b * kRaw, raw + (2 * b + 1) * kRaw, stage, ws, wp, "
+            "pb, half,")
 _CELLS = "    for (int task = tid; task < cells * co; task += kThreads) {"
 VARIANTS = {
     "as committed": {},
@@ -76,6 +78,7 @@ def main() -> int:
     s = torch.randn(SHAPE, device="cuda", generator=gen).bfloat16()
     w = torch.randn(CO, c, 3, 3, device="cuda", generator=gen) / (3 * c ** 0.5)
     b = torch.randn(CO, device="cuda", generator=gen) * 0.1
+    pb = torch.randn(c, device="cuda", generator=gen)
     assert oh.output_head_route(SHAPE, torch.bfloat16, POOL) == "mma_sync"
     c_pad = -(-c // 16) * 16
     wp, bias = oh._weights_mma(w, c_pad), b.float().contiguous()
@@ -86,24 +89,24 @@ def main() -> int:
     calls = {}
     for variant, lib in libs.items():
         fn = tcv._c_function(lib, "fmi_output_head_bf16_mma",
-                             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
         def call(fn=fn):
-            tcv._checked(fn(h.data_ptr(), s.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+            tcv._checked(fn(h.data_ptr(), s.data_ptr(), wp.data_ptr(), bias.data_ptr(), pb.data_ptr(),
                             out.data_ptr(), n, c, c_pad, height, width, CO, POOL, 1, stream))
         calls[variant] = call
     calls["as committed"]()
     torch.cuda.synchronize()
-    ref = oh.output_head_plain(h, s, w, b, "LeakyReLU", POOL).float()
+    ref = oh.output_head_plain(h, s, w, b, "LeakyReLU", POOL, pb).float()
     err = (out.float() - ref).abs()
     if not bool((err <= 1e-3 + 2.0 ** -7 * ref.abs()).all()):
         raise RuntimeError(f"K3: the committed kernel misses the bf16 gate ({float(err.max())})")
     cores = tcv._c_function(libs["as committed"], "fmi_output_head_bf16",
-                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     calls["CUDA-core kernel"] = lambda: tcv._checked(cores(
-        h.data_ptr(), s.data_ptr(), w_cores.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c,
-        height, width, CO, POOL, 1, stream))
-    calls["wrapper"] = lambda: oh.output_head(h, s, w, b, "LeakyReLU", POOL)
+        h.data_ptr(), s.data_ptr(), w_cores.data_ptr(), bias.data_ptr(), pb.data_ptr(), out.data_ptr(), n,
+        c, height, width, CO, POOL, 1, stream))
+    calls["wrapper"] = lambda: oh.output_head(h, s, w, b, "LeakyReLU", POOL, pb)
     nbytes = 2 * h.numel() * h.element_size() + out.numel() * out.element_size()
     tcv._report(f"K3 flagship head {list(SHAPE)} co={CO} f={POOL} bf16 ({nbytes / 1e9:.3f} GB, "
                 f"bound {nbytes / 3.35e12 * 1e3:.3f} ms at 3.35 TB/s)",

@@ -7,15 +7,19 @@ a reference written apart from both: softmax(q q^T) v by ``torch.matmul``,
 instance norm from its definition, the output head and the decoder convs by
 ``F.conv2d``/``F.conv_transpose2d``, upfirdn2d as a zero-insert, pad and
 depthwise ``F.conv2d`` of the flipped 2-D kernel, the activation by
-``torch.where``, all in float64 on the same device from the rounded inputs.
+``torch.where``, the residual sum as a sum, all in float64 on the same device
+from the rounded inputs.
 
     python -m face_mask_inpaint_tpu_torch.tools.validate_kernels [--out PATH]
         [--device cuda|cpu]
 
-One check a kernel: K1, K2, K3, K4a, K4b, K5, K6, K6's backward, K7a and
-K7b, each at small shapes in float32 and bfloat16. K5 is the gradient of K1's
-autograd Function, K6_bwd that of K6's, K7b that of K7a's; K2's gradient
-(its Function differentiates the plain version) is checked with K2. A check
+One check a kernel: K1, K2, K3, K4a, K4b, K5, K6, K6's backward, K7a, K7b
+and the decoder's residual sum (RES), each at small shapes in float32 and
+bfloat16. K5 is the gradient of K1's autograd Function, K6_bwd that of K6's,
+K7b that of K7a's; K2's gradient (its Function differentiates the plain
+version) is checked with K2. K2 runs with and without its input bias, K3
+with and without its pair bias, RES with both maps NCHW and with the second
+channels-last. A check
 passes when max |kernel - reference| <= tol * max |reference| for every
 output in both types (``TOL``), and, on the card, when its kernels launched.
 The JSON (default ``build/kernel_validation.json``) holds the device (the
@@ -136,7 +140,15 @@ def check_k2(dtype, device):
     want = _leaky((xd - mean) / torch.sqrt(var + 1e-5) * ref[1][:, None, None]
                   + ref[2][:, None, None], 0.1)
     want_grads = torch.autograd.grad((want * up.double()).sum(), ref)
-    return _compare([(y, want), *zip(grads, want_grads)])
+
+    ib = 0.5 * _randn((16,), g, device)  # the input bias: a conv's, added as x loads
+    got_ib = instance_norm_act(x, wt, b, "LeakyReLU", 0.1, 1e-5, in_bias=ib)
+    xb = x.double() + ib.double()[:, None, None]
+    mean = xb.mean(dim=(2, 3), keepdim=True)
+    var = ((xb - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    want_ib = _leaky((xb - mean) / torch.sqrt(var + 1e-5) * wt.double()[:, None, None]
+                     + b.double()[:, None, None], 0.1)
+    return _compare([(y, want), *zip(grads, want_grads), (got_ib, want_ib)])
 
 
 # -- K3: output head --------------------------------------------------------------
@@ -149,10 +161,31 @@ def check_k3(dtype, device):
     s = _randn((2, 16, 32, 32), g, device).to(dtype)
     w = (0.1 * _randn((3, 16, 3, 3), g, device)).to(dtype)
     b = 0.1 * _randn((3,), g, device)
-    got = output_head(h, s, w, b, "LeakyReLU", 4)
-    a = F.pad(_leaky(h.double() + s.double(), 0.1), (1, 1, 1, 1), mode="reflect")
-    want = F.avg_pool2d(torch.tanh(F.conv2d(a, w.double(), b.double())), 4)
-    return _compare([(got, want)])
+    pb = 0.5 * _randn((16,), g, device)  # the pair bias: two convs' biases, summed
+    pairs = []
+    for pair_bias in (None, pb):
+        got = output_head(h, s, w, b, "LeakyReLU", 4, pair_bias)
+        hs = h.double() + s.double()
+        if pair_bias is not None:
+            hs = hs + pair_bias.double()[:, None, None]
+        a = F.pad(_leaky(hs, 0.1), (1, 1, 1, 1), mode="reflect")
+        pairs.append((got, F.avg_pool2d(torch.tanh(F.conv2d(a, w.double(), b.double())), 4)))
+    return _compare(pairs)
+
+
+# -- RES: the decoder block's residual sum with its convs' biases ------------------
+
+def check_res(dtype, device):
+    from face_mask_inpaint_tpu_torch.kernels.residual_add import residual_bias_add
+
+    g = _gen(device, 11)
+    h = _randn((2, 40, 24, 20), g, device).to(dtype)
+    s = _randn((2, 40, 24, 20), g, device).to(dtype)
+    b = 0.5 * _randn((40,), g, device) + 0.5 * _randn((40,), g, device)  # two convs' biases
+    want = h.double() + s.double() + b.double()[:, None, None]
+    return _compare([(residual_bias_add(h, s, b), want),
+                     (residual_bias_add(h, s.contiguous(memory_format=torch.channels_last), b),
+                      want)])
 
 
 # -- K4b and K4a: the decoder tail's convs ------------------------------------------
@@ -299,6 +332,7 @@ CHECKS = {
     "K6_bwd": (check_k6_bwd, ("upfirdn2d", "upfirdn2d_bwd")),
     "K7a": (check_k7a, ("fused_leaky_relu",)),
     "K7b": (check_k7b, ("fused_leaky_relu", "fused_leaky_relu_bwd")),
+    "RES": (check_res, ("residual_bias_add",)),
 }
 
 

@@ -7,7 +7,12 @@ CUDA-core kernel; K5: tensor cores in bf16, split precision in f32 and CUDA
 cores; K4a and K4b: tensor cores in bf16, split precision in f32 and CUDA
 cores; K2: one read a plane in a group of warps or a thread-block
 cluster, and two passes; K3: tensor cores in bf16 and CUDA cores), with
-each route's choice by dtype, shape and alignment.
+each route's choice by dtype, shape and alignment. K2 with its input bias and
+K3 with its pair bias (a decoder conv's bias, which the eval decoder leaves
+to them) on each route; the decoder's residual sum with its convs' biases
+bit for bit its plain version on each route (plane, flat, and transpose for
+a channels-last bypass), and a flagship-shaped decoder that adds none of its
+blocks' conv biases in a pass of its own.
 Marked ``cuda``: they skip where torch.cuda.is_available() is False (the
 decision is taken in a fixture, at run time). Run on the card, where JAX need
 not be installed, with
@@ -1159,3 +1164,183 @@ def test_small_psp_launches_k6_and_k7a_and_matches_plain(cuda):
         fir.upfirdn2d, act.fused_leaky_relu = saved
     assert got.shape == (2, 256, 256, 3) and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# -- the decoder's conv biases in the kernels that read the convs' outputs --------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["LeakyReLU", "ReLU", "none"])
+@pytest.mark.parametrize("shape", [
+    (2, 7, 33, 33),         # small planes, slices off 16-byte boundaries
+    (1, 3, 129, 257),       # a cluster of 2 (bf16) or 4 (f32)
+    (2, 3, 512, 512),       # the flagship's largest planes: a cluster of 8
+    (1, 2, 1024, 1024),     # two_pass
+])
+def test_norm_act_in_bias_matches_plain_on_each_route(cuda, dtype, act, shape):
+    """K2 with its input bias (a conv's, added as x loads) on each route."""
+    x = (torch.randn(shape, device="cuda", generator=cuda) * 2 + 1).to(dtype)
+    w = torch.randn(shape[1], device="cuda", generator=cuda)
+    b = torch.randn(shape[1], device="cuda", generator=cuda)
+    ib = torch.randn(shape[1], device="cuda", generator=cuda) * 3
+    before = na.instance_norm_act.launches
+    y = na.instance_norm_act(x, w, b, act, in_bias=ib)
+    torch.cuda.synchronize()
+    assert na.instance_norm_act.launches == before + 1
+    _assert_close(y, na.instance_norm_act_plain(x, w, b, act, in_bias=ib), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,co,pool,act", [
+    ((2, 5, 36, 44), 3, 2, "ReLU"), ((1, 7, 30, 42), 2, 3, "LeakyReLU"),
+    ((1, 3, 128, 192), 4, 64, "ReLU"),                  # f > 32: one cell per block
+    ((2, 20, 24, 72), 3, 2, "LeakyReLU"), ((1, 37, 16, 64), 4, 4, "ReLU"),
+    ((2, 20, 96, 64), 1, 32, "LeakyReLU"),              # the 32-row tile
+    ((16, 32, 1024, 1024), 3, 4, "LeakyReLU"),          # the flagship head
+])
+def test_output_head_pair_bias_matches_plain(cuda, dtype, shape, co, pool, act):
+    """K3 with its pair bias (the last block's two convs' biases, summed) on
+    the tensor-core route (bf16, W % 8 == 0, f a power of two up to 32) and
+    the CUDA-core route (f32, and the rest). Without a pair bias K3 reads it
+    as -0, which adds nothing: the same values, bit for bit, as with zeros."""
+    h, s, w, b = _head_inputs(cuda, shape, co, dtype)
+    pb = torch.randn(shape[1], device="cuda", generator=cuda)
+    route = oh.output_head_route(h.shape, dtype, pool)
+    assert route == ("mma_sync" if dtype == torch.bfloat16 and shape[3] % 8 == 0 and pool <= 32
+                     and pool & (pool - 1) == 0 else "cuda_cores")
+    before = oh.output_head.launches
+    y = oh.output_head(h, s, w, b, act, pool, pb)
+    torch.cuda.synchronize()
+    assert oh.output_head.launches == before + 1
+    _assert_close(y, oh.output_head_plain(h, s, w, b, act, pool, pb), dtype)
+    assert torch.equal(oh.output_head(h, s, w, b, act, pool),
+                       oh.output_head(h, s, w, b, act, pool, torch.zeros_like(pb)))
+
+
+def test_residual_bias_add_refuses_a_gradient(cuda):
+    """The residual sum's kernel has no backward: on CUDA tensors it raises
+    where a gradient would be needed, as K3 does."""
+    from face_mask_inpaint_tpu_torch.kernels import residual_add as ra
+
+    h = torch.randn(2, 4, 16, 16, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ra.residual_bias_add(h, torch.randn_like(h), torch.zeros(4, device="cuda"))
+    with torch.no_grad():
+        ra.residual_bias_add(h, torch.randn_like(h), torch.zeros(4, device="cuda"))
+
+
+def _residual_check(h, s, bias, route):
+    """One launch of the residual sum on the route named, bit for bit the
+    plain version."""
+    from face_mask_inpaint_tpu_torch.kernels import residual_add as ra
+
+    assert ra.residual_bias_add_route(h, s) == route
+    before = ra.residual_bias_add.launches
+    got = ra.residual_bias_add(h, s, bias)
+    torch.cuda.synchronize()
+    assert ra.residual_bias_add.launches == before + 1
+    assert got.dtype == h.dtype and got.shape == h.shape
+    assert torch.equal(got, ra.residual_bias_add_plain(h, s, bias))
+    return got
+
+
+# the flagship decoder's block outputs at batch 2, planes of odd sizes and
+# ragged tails, [N, C] rows, and the route each takes
+_RES_SHAPES = [((2, 256, 64, 64), "plane"), ((2, 256, 128, 128), "plane"),
+               ((2, 128, 256, 256), "plane"), ((2, 64, 512, 512), "plane"),
+               ((2, 32, 1024, 1024), "plane"), ((3, 5, 37, 41), "plane"),
+               ((2, 3, 17, 19), "plane"), ((2, 3, 5, 7), "flat"), ((300, 513), "flat")]
+
+
+def _pair_bias(cuda, c):
+    """Two convs' biases summed in f32, as the decoder block hands them."""
+    return sum(torch.randn(c, device="cuda", generator=cuda) for _ in range(2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,route", _RES_SHAPES)
+def test_residual_bias_add_kernel_equals_plain(cuda, dtype, shape, route):
+    h, s = ((torch.randn(shape, device="cuda", generator=cuda) * 2).to(dtype) for _ in range(2))
+    _residual_check(h, s, _pair_bias(cuda, shape[1]), route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cl", ["s", "both"])
+@pytest.mark.parametrize("shape", [(2, 256, 64, 64), (2, 128, 256, 256),  # blocks 0 and 2
+                                   (2, 40, 9, 7), (3, 12, 5, 16), (1, 70, 33, 35)])
+def test_residual_bias_add_channels_last_equals_plain(cuda, dtype, cl, shape):
+    """One map channels-last (the bypass of decoder blocks 0 and 2): route
+    "transpose", the output NCHW; C off the 32-channel tile and hw off the
+    64-pixel one and the vector take single elements. Both channels-last:
+    route "flat" over [N, H, W, C], the output channels-last."""
+    h, s = ((torch.randn(shape, device="cuda", generator=cuda) * 2).to(dtype) for _ in range(2))
+    s = s.contiguous(memory_format=torch.channels_last)
+    if cl == "both":
+        h = h.contiguous(memory_format=torch.channels_last)
+    got = _residual_check(h, s, _pair_bias(cuda, shape[1]), "flat" if cl == "both"
+                          else "transpose")
+    assert got.is_contiguous(memory_format=torch.channels_last if cl == "both"
+                             else torch.contiguous_format)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,route", [((3, 5, 37, 41), "plane"), ((2, 64, 64, 64), "plane"),
+                                         ((4, 512, 8, 8), "flat")])
+def test_residual_bias_add_misaligned_view_equals_plain(cuda, dtype, shape, route):
+    """h one element into its allocation: single elements, in the same launch."""
+    buf = (torch.randn(math.prod(shape) + 1, device="cuda", generator=cuda) * 2).to(dtype)
+    h = buf[1:].view(shape)
+    s = torch.randn(shape, device="cuda", generator=cuda).to(dtype)
+    assert h.data_ptr() % 16 != 0
+    _residual_check(h, s, _pair_bias(cuda, shape[1]), route)
+
+
+def test_residual_bias_add_plan_matches_c(cuda):
+    """The route and block size the wrapper's ``_plan`` names are the C
+    side's (fmi_residual_add_route, fmi_residual_add_threads)."""
+    from face_mask_inpaint_tpu_torch.kernels import residual_add as ra
+
+    route = ra._function("fmi_residual_add_route")
+    threads = ra._function("fmi_residual_add_threads")
+    for hw in (1, 16, 35, 64, 255, 256, 257, 323, 1024, 1517, 4096, 4097, 65536, 1048576):
+        for itemsize in (2, 4):
+            plan = ra._plan(hw, itemsize)
+            assert ("plane", "flat")[route(hw)] == plan.route
+            assert threads(hw, itemsize) == plan.threads
+
+
+def test_flagship_decoder_adds_no_bias_in_a_pass_of_its_own(cuda):
+    """A flagship-shaped ResGenerator (ngf 32, img_f 256, five blocks from
+    32^2, instance norm, LeakyReLU, spectral norm, the attention after
+    decoder 1, K3's pair head with pool 4) in eval mode, batch 2, bf16, its
+    input channels-last as the fusion leaves it: four launches of the
+    residual sum, ten of K2, one of K3, and one aten::add_ inside a
+    convolution (cuDNN's bias pass), the attention's 1x1 query conv's, whose
+    output no kernel of the port reads; the blocks' fifteen convs add none."""
+    from face_mask_inpaint_tpu_torch import kernels
+    from face_mask_inpaint_tpu_torch.models.picnet import ResGenerator
+    from face_mask_inpaint_tpu_torch.nn.layers import init_weights
+
+    gen = torch.Generator().manual_seed(0)
+    g = init_weights(ResGenerator(256, None, ngf=32, img_f=256, L=0, layers=5,
+                                  norm="instance", activation="LeakyReLU", use_attn=True), gen)
+    g = g.cuda().eval()
+    enc = torch.randn(2, 256, 32, 32, device="cuda", generator=cuda).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        g(enc, fuse_pool=4)  # warm-up: builds and loads the kernels
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = g(enc, fuse_pool=4)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert out.shape == (2, 3, 256, 256)
+    assert counts["residual_bias_add"] == 4
+    assert counts["instance_norm_act"] == 10 and counts["output_head"] == 1
+    events = prof.events()
+    convs = [e for e in events if e.name == "aten::_convolution"]
+    assert len(convs) >= 15
+    inside = [e for e in events if e.name == "aten::add_" and any(
+        c.time_range.start <= e.time_range.start and e.time_range.end <= c.time_range.end
+        and c.thread == e.thread for c in convs)]
+    assert len(inside) == 1

@@ -129,7 +129,7 @@ def test_plain_head_matches_jax_pair_head(head_calls, monkeypatch, f, act):
     conv = port.conv1.conv
     with torch.no_grad():
         got = oh.output_head_plain(th, ts, conv.effective_weight(), conv.bias, act, f)
-        via_module = port((th, ts), pool=f)
+        via_module = port((th, ts, None), pool=f)  # the decoder's triple, no pair bias
     assert got.shape == (2, 3, 8, 8)
     np.testing.assert_allclose(_nhwc(got), want_kernel, rtol=0, atol=2e-5)
     np.testing.assert_allclose(_nhwc(got), want_dense, rtol=0, atol=2e-5)

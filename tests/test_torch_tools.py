@@ -117,7 +117,7 @@ def test_validate_kernels_cpu_all_ok(tmp_path, capsys):
     assert line == {"kernel_validation": True, "device": "cpu", "path": str(out)}
     report = json.loads(out.read_text())
     assert report["all_ok"] and "plain versions" in report["kernels"]
-    ids = ["K1", "K2", "K3", "K4a", "K4b", "K5", "K6", "K6_bwd", "K7a", "K7b"]
+    ids = ["K1", "K2", "K3", "K4a", "K4b", "K5", "K6", "K6_bwd", "K7a", "K7b", "RES"]
     assert list(report["checks"]) == ids
     for name, row in report["checks"].items():
         assert row["ok"], (name, row)
