@@ -17,6 +17,10 @@ port's flax-semantics ``BatchNorm2d``: eval mode normalizes with the running
 statistics, training mode with the batch's (in f32) and moves the running
 ones. Built in eval mode; constructors only allocate (``init_weights`` or
 ``load_state_dict`` sets the weights).
+
+``DRN.forward`` is two spans (``utils/profiling.span``): ``drn_strided``
+(conv1 and layer1-4, the levels that stride to 1/8) and ``drn_dilated``
+(layer5 on and the head, at 1/8 with dilated convs).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from face_mask_inpaint_tpu_torch.nn.layers import BatchNorm2d, Conv2d
+from face_mask_inpaint_tpu_torch.utils.profiling import span
 
 __all__ = ["BasicBlock", "Bottleneck", "DRN", "drn_c_42", "drn_c_26", "drn_c_58",
            "drn_d_22", "drn_d_38"]
@@ -198,11 +203,15 @@ class DRN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [N, C, H, W] -> [N, out_channels, ~H/8, ~W/8]."""
-        x = F.relu(self.bn1(self.conv1(x)))
-        for name in self.groups:
-            x = getattr(self, name)(x)
-        if hasattr(self, "fc"):
-            x = self.fc(x)
+        with span("drn_strided"):
+            x = F.relu(self.bn1(self.conv1(x)))
+            for name in self.groups[:4]:
+                x = getattr(self, name)(x)
+        with span("drn_dilated"):
+            for name in self.groups[4:]:
+                x = getattr(self, name)(x)
+            if hasattr(self, "fc"):
+                x = self.fc(x)
         return x
 
 

@@ -51,8 +51,11 @@ def get_initializer(init_type: str, gain: float = 0.02) -> Callable:
         # truncated at 2 std, rescaled so the std is 1/sqrt(fan_in); drawn
         # as standard normals with those beyond 2 dropped (4.6% of them),
         # several times faster than nn.init.trunc_normal_ for the pSp
-        # encoder's 10^8 weights
+        # encoder's 10^8 weights; a weight on the meta device, which a
+        # model built there before loading its weights has, draws nothing
         def lecun(w, fan_in, g):
+            if w.is_meta:
+                return w
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             kept, n = [], 0
             while n < w.numel():
